@@ -3,33 +3,50 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line per result; any failure exits non-zero:
   1. device  - the card, its power limit; fp32 numerics pinned (no TF32).
   2. build   - builds the CUDA kernels from `fusionmamba_torch/csrc`, with
                nvcc's register and shared-memory report.
-  3. kernel  - each of the five kernels against its plain PyTorch version at
-               every shape of the main path (full config, 8 pairs of 256^2;
-               the encoder runs both modalities as 16): max abs error and
-               its tolerance, kernel, plain and library times (CUDA events,
-               warm L2), and the bound from bytes and operations.
-  4. main_path - `python -m fusionmamba_torch.infer --model full --size 256
+  3. kernel  - each of the five forward kernels against its plain PyTorch
+               version at every shape of the serving path (full config, 8
+               pairs of 256^2; the encoder runs both modalities as 16): max
+               abs error and its tolerance, kernel, plain and library times
+               (CUDA events, warm L2), and the bound from bytes and operations.
+  4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12):
+               each forward kernel as in 3, and each of the five backward
+               kernels against the autograd of its plain version: every
+               input's gradient, its error against the stated bound, two
+               launches bit-identical, times of the backward alone (kernel,
+               plain autograd, library autograd) and its bound.
+  5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
                images, and the launch counters, zeroed just before the first
                run, must equal the calls derived from the config. Reports
                pairs/s over the whole warm run and the time of each batch's
                forward with its copies.
-  5. parity  - one seeded pair through the model on the card (kernels) and on
+  6. parity  - one seeded pair through the model on the card (kernels) and on
                the CPU (plain versions).
-  6. trace   - torch.profiler over three warm forwards of a batch of 8: device
+  7. train   - `python -m fusionmamba_torch.train --model full -B 6 -E 1
+               --synthetic 72`: 12 training steps at 256^2. Every loss finite,
+               the ten launch counters (zeroed just before) equal to 12 times
+               the config's calls per step, the saved state dict loads
+               strictly; step seconds and pairs/s.
+  8. train_parity - the same seeded weights and batches at the test config
+               (64^2, batch 2), 5 steps on the card and on the CPU: each
+               step's loss and every parameter's step-0 gradient.
+  9. trace   - torch.profiler over three warm forwards of a batch of 8: device
                time by kernel and the card's idle share of the window.
+ 10. trace_train - the same over three warm training steps of 6 pairs, with
+               forward and backward kernels apart.
 Then the card's name and power limit as nvidia-smi gives them, the kernels
-line, and the result line. Without a CUDA device it fails before any phase.
-It imports nothing of JAX.
+line (all ten kernels, timed per training step), and the result line.
+Without a CUDA device it fails before any phase. It imports nothing of JAX.
 """
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -42,33 +59,59 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fusionmamba_torch import infer
-from fusionmamba_torch.config import full_config
+from fusionmamba_torch import infer, train
+from fusionmamba_torch.checkpoints import load_reference_checkpoint
+from fusionmamba_torch.config import full_config, test_config
+from fusionmamba_torch.data import SyntheticFusionDataset, batch_iterator
 from fusionmamba_torch.device import select_device
+from fusionmamba_torch.models import VSSMFusion
+from fusionmamba_torch.nn import init_weights
 from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
 
 PAIRS, SIZE, N_IMAGES = 8, 256, 20
+TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 # kernel vs plain version: the same fp32 arithmetic in another order (and
 # with fused multiply-adds), so they differ by float32 rounding only
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
+# backward kernel vs autograd of the plain version: gradients that sum over
+# up to ~50k rows or 1k steps (dW, dA, dB, dscale, ...) are sums of many
+# terms of both signs in another order, so their rounding scales with the
+# magnitude summed: each gradient tensor is held to 1e-4 of its own largest
+# entry, plus 1e-4 relative
+GRAD_RTOL = GRAD_SCALED_ATOL = 1e-4
 # card vs CPU end to end: fp32 sums reordered through 34 blocks; 1e-3 is a
 # quarter of one uint8 step of the [0, 1] output
 PARITY_ATOL = 1e-3
+# card vs CPU training: the loss gate of tests/test_optimizer_trajectory.py,
+# and each step-0 gradient within 1e-3 of its norm (the whole network's
+# forward and backward in another summation order)
+TRAIN_LOSS_RTOL = TRAIN_GRAD_RTOL = 1e-3
 
+OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
 KERNELS = {
     "scan": ("cuda", "fusionmamba_torch/csrc/selective_scan_fwd.cu",
              "fusionmamba_tpu/ops/scan_pallas.py:912"),
+    "scan_bwd": ("cuda", "fusionmamba_torch/csrc/selective_scan_bwd.cu",
+                 "fusionmamba_tpu/ops/scan_pallas.py:1155"),
     "layer_norm": ("triton", "fusionmamba_torch/ops/ln_triton.py",
                    "fusionmamba_tpu/ops/ln_pallas.py:79"),
+    "layer_norm_bwd": ("triton", "fusionmamba_torch/ops/ln_triton.py",
+                       "fusionmamba_tpu/ops/ln_pallas.py:89"),
     "ln_mean": ("triton", "fusionmamba_torch/ops/ln_triton.py",
                 "fusionmamba_tpu/ops/ln_pallas.py:220"),
+    "ln_mean_bwd": ("triton", "fusionmamba_torch/ops/ln_triton.py",
+                    "fusionmamba_tpu/ops/ln_pallas.py:236"),
     "dwconv": ("cuda", "fusionmamba_torch/csrc/dwconv3x3_fwd.cu",
                "fusionmamba_tpu/ops/dwconv_pallas.py:76"),
+    "dwconv_bwd": ("cuda", "fusionmamba_torch/csrc/dwconv3x3_bwd.cu",
+                   "fusionmamba_tpu/ops/dwconv_pallas.py:90"),
     "mlp": ("cuda", "fusionmamba_torch/csrc/fused_mlp_fwd.cu",
             "fusionmamba_tpu/ops/mlp_pallas.py:104"),
+    "mlp_bwd": ("cuda", "fusionmamba_torch/csrc/fused_mlp_bwd.cu",
+                "fusionmamba_tpu/ops/mlp_pallas.py:112"),
 }
 # extra operations per element of the LN gate activations
 _GATE_OPS = {"none": 0, "silu": 5, "silu_sum": 10}
@@ -83,12 +126,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def main_path_calls(cfg, pairs: int, size: int):
-    """kernel -> Counter(shape -> calls) for one forward of VSSMFusion(cfg) on
-    `pairs` pairs of size x size. Shapes: scan (B, L, D, R) with K=4;
-    layer_norm (rows, C, gate); ln_mean (B, rows, C); dwconv (B, H, W, C);
-    mlp (M, C, hidden)."""
-    calls = {k: collections.Counter() for k in KERNELS}
+def main_path_calls(cfg, pairs: int, size: int, backward: bool = False):
+    """op -> Counter(shape -> calls) for one forward of VSSMFusion(cfg) on
+    `pairs` pairs of size x size or, with `backward`, for its backward: the
+    same calls but those of the finest VSSBlockCross, whose output the
+    decoder never reads (as in the reference), so no gradient runs through
+    it. Shapes: scan (B, L, D, R) with K=4; layer_norm (rows, C, gate);
+    ln_mean (B, rows, C); dwconv (B, H, W, C); mlp (M, C, hidden)."""
+    calls = {k: collections.Counter() for k in OPS}
     g0, nl = size // cfg.patch_size, len(cfg.dims)
 
     def ln(rows, C, gate="none"):
@@ -116,6 +161,8 @@ def main_path_calls(cfg, pairs: int, size: int):
         if i < nl - 1:
             ln(2 * pairs * (g // 2) ** 2, 4 * C)
     for i, C in enumerate(cfg.dims):                     # cross blocks
+        if backward and i == 0:
+            continue
         g = g0 >> i
         ln(pairs * g * g, C)
         ln(pairs * g * g, C)
@@ -130,28 +177,58 @@ def main_path_calls(cfg, pairs: int, size: int):
     return calls
 
 
+def train_calls(cfg, pairs: int, size: int):
+    """kernel -> Counter(shape -> calls) for one training step, all ten
+    kernels: the forward's calls and the backward's."""
+    fwd, bwd = main_path_calls(cfg, pairs, size), main_path_calls(cfg, pairs, size, True)
+    return {**fwd, **{k + "_bwd": c for k, c in bwd.items()}}
+
+
 def bytes_and_ops(kernel: str, shape):
-    """Bytes each call must move (inputs read once, output written once, fp32)
-    and the operations it does."""
+    """Bytes each call must move (inputs read once, outputs written once,
+    fp32) and the operations it does. A backward reads its forward's inputs
+    and the cotangent and writes a gradient for each input; it recomputes
+    what its forward computed."""
     if kernel == "scan":
         B, L, D, R = shape
         K, N = 4, 16
         elems = B * K * L * D
         nbytes = 4 * (2 * elems + B * K * L * (R + 2 * N) + K * D * (R + N + 2))
         return nbytes, elems * (2 * R + 7 + 7 * N)
+    if kernel == "scan_bwd":
+        B, L, D, R = shape
+        K, N = 4, 16
+        elems = B * K * L * D
+        nbytes = 4 * (3 * elems + 2 * B * K * L * (R + 2 * N) + 2 * K * D * (R + N + 2))
+        # recompute (exp, 2 FMAs per state) and the adjoint (about 16 per
+        # state), the dt expansion, its two gradients, softplus and its slope
+        return nbytes, elems * (20 * N + 6 * R + 15)
     if kernel == "layer_norm":
         rows, C, gate = shape
         n = rows * C
         return 4 * (n * (2 + (gate != "none")) + 2 * C), n * (7 + _GATE_OPS[gate])
+    if kernel == "layer_norm_bwd":
+        rows, C, gate = shape
+        n = rows * C
+        return 4 * (n * (3 + 2 * (gate != "none")) + 4 * C), n * (16 + 2 * _GATE_OPS[gate])
     if kernel == "ln_mean":
         B, rows, C = shape
         return 4 * (B * rows * C + B * C + 2 * C), 8 * B * rows * C
-    if kernel == "dwconv":
+    if kernel == "ln_mean_bwd":
+        B, rows, C = shape
+        return 4 * (2 * B * rows * C + B * C + 3 * C), 12 * B * rows * C
+    if kernel in ("dwconv", "dwconv_bwd"):
         B, H, W, C = shape
         n = B * H * W * C
-        return 4 * (2 * n + 10 * C), n * (18 + 1 + 4)
+        if kernel == "dwconv":
+            return 4 * (2 * n + 10 * C), n * (18 + 1 + 4)
+        # pre (18), silu' (8), dx (18), dw (18), dbias (1)
+        return 4 * (3 * n + 20 * C), n * 63
     M, C, H = shape
-    return 4 * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H)
+    if kernel == "mlp":
+        return 4 * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H)
+    # five products of 2*M*C*H (h, dy W2, dx, dW1, dW2), GELU and its slope
+    return 4 * (3 * M * C + 4 * C * H + 2 * H + 2 * C), M * (10 * C * H + 30 * H)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -168,101 +245,211 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def make_case(kernel, shape, dev, gen):
-    """(kernel call, plain call, library call or None) on seeded inputs at
-    `shape`, scaled as the model's activations and parameters are."""
+    """(inputs, op, plain, library or None, backward) on seeded inputs at
+    `shape`, scaled as the model's activations and parameters are: op,
+    plain and library take the inputs; backward(inputs, dy) calls the
+    backward kernel's wrapper directly."""
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
     if kernel == "scan":
         B, L, D, R = shape
         K, N = 4, 16
-        args = (rnd(B, K, L, D), rnd(B, K, L, R, scale=0.5),
-                -torch.arange(1.0, N + 1, device=dev).expand(K, D, N).contiguous(),
-                rnd(B, K, L, N), rnd(B, K, L, N), rnd(K, D, scale=0.1, shift=1.0),
-                rnd(K, D, scale=1.0, shift=-4.0))
-        kw = dict(delta_softplus=True, dt_lowrank_weight=rnd(K, D, R, scale=R ** -0.5))
-        return (lambda: selective_scan(*args, **kw),
-                lambda: selective_scan_plain(*args, **kw), None)
+        inputs = [rnd(B, K, L, D), rnd(B, K, L, R, scale=0.5),
+                  -torch.arange(1.0, N + 1, device=dev).expand(K, D, N).contiguous(),
+                  rnd(B, K, L, N), rnd(B, K, L, N), rnd(K, D, scale=0.1, shift=1.0),
+                  rnd(K, D, scale=1.0, shift=-4.0), rnd(K, D, R, scale=R ** -0.5)]
+
+        def backward(t, dy):
+            _, hsave = scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=True)
+            return lambda: scan_cuda.selective_scan_bwd(*t, hsave, dy, True)
+
+        return (inputs,
+                lambda *t: selective_scan(*t[:7], delta_softplus=True, dt_lowrank_weight=t[7]),
+                lambda *t: selective_scan_plain(*t[:7], delta_softplus=True,
+                                                dt_lowrank_weight=t[7]),
+                None, backward)
     if kernel == "layer_norm":
         rows, C, gate_act = shape
-        x, s, b = rnd(rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)
-        gate = None if gate_act == "none" else rnd(rows, C)
-        return (lambda: layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gate_act),
-                lambda: layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, gate_act),
-                lambda: F.layer_norm(x, (C,), s, b, 1e-6))
+        inputs = [rnd(rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)]
+        if gate_act != "none":
+            inputs.append(rnd(rows, C))
+
+        def backward(t, dy):
+            return lambda: ln_triton.layer_norm_bwd(*t[:3], t[3] if len(t) > 3 else None, dy,
+                                                    1e-6, gate_act)
+
+        return (inputs, lambda *t: layer_norm.layer_norm_fused(*t, eps=1e-6, gate_act=gate_act),
+                lambda *t: layer_norm.layer_norm_plain(*t, eps=1e-6, gate_act=gate_act),
+                lambda x, s, b, *_: F.layer_norm(x, (C,), s, b, 1e-6), backward)
     if kernel == "ln_mean":
         B, rows, C = shape
-        x, s, b = rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)
-        return (lambda: layer_norm.ln_spatial_mean(x, s, b, 1e-5),
-                lambda: layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), None)
+        return ([rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)],
+                lambda *t: layer_norm.ln_spatial_mean(*t, 1e-5),
+                lambda *t: layer_norm.ln_spatial_mean_plain(*t, 1e-5), None,
+                lambda t, dm: lambda: ln_triton.ln_spatial_mean_bwd(t[0], t[1], dm, 1e-5))
     if kernel == "dwconv":
         B, H, W, C = shape
-        x, w, b = rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C, scale=1 / 3)
-        w_nchw = w.permute(2, 0, 1)[:, None].contiguous()
-        x_nchw = x.permute(0, 3, 1, 2)
-        return (lambda: dwconv.depthwise_conv3x3(x, w, b, "silu"),
-                lambda: dwconv.depthwise_conv3x3_plain(x, w, b, "silu"),
-                lambda: F.silu(F.conv2d(x_nchw, w_nchw, b, padding=1,
-                                        groups=C)).permute(0, 2, 3, 1))
+        return ([rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C, scale=1 / 3)],
+                lambda *t: dwconv.depthwise_conv3x3(*t, "silu"),
+                lambda *t: dwconv.depthwise_conv3x3_plain(*t, "silu"),
+                lambda x, w, b: F.silu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1)[:, None],
+                                                b, padding=1, groups=C)).permute(0, 2, 3, 1),
+                lambda t, dy: lambda: dwconv.dwconv_bwd(*t, dy, "silu"))
     M, C, H = shape
-    x = rnd(M, C)
-    # nn.Linear's (out, in) layout, passed as `.t()` views as Mlp.forward does
-    w1, b1 = rnd(H, C, scale=0.02).t(), torch.zeros(H, device=dev)
-    w2, b2 = rnd(C, H, scale=0.02).t(), torch.zeros(C, device=dev)
-    return (lambda: mlp.fused_mlp(x, w1, b1, w2, b2),
-            lambda: mlp.fused_mlp_plain(x, w1, b1, w2, b2),
-            lambda: F.linear(F.gelu(F.linear(x, w1.t(), b1)), w2.t(), b2))
+    # nn.Linear's (out, in) weights, passed as `.t()` views as Mlp.forward does
+    return ([rnd(M, C), rnd(H, C, scale=0.02), torch.zeros(H, device=dev),
+             rnd(C, H, scale=0.02), torch.zeros(C, device=dev)],
+            lambda x, w1, b1, w2, b2: mlp.fused_mlp(x, w1.t(), b1, w2.t(), b2),
+            lambda x, w1, b1, w2, b2: mlp.fused_mlp_plain(x, w1.t(), b1, w2.t(), b2),
+            lambda x, w1, b1, w2, b2: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2),
+            lambda t, dy: lambda: mlp.mlp_bwd(t[0], t[1].t(), t[2], t[3].t(), t[4], dy))
+
+
+def _bound(kernel, shape):
+    nbytes, nops = bytes_and_ops(kernel, shape)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
+
+
+def _new_agg():
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+
+
+def _add(agg, n, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
+    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+    agg["ms"] += n * ms
+    agg["plain_ms"] += n * plain_ms
+    agg["library_ms"] = None if lib_ms is None else agg["library_ms"] + n * lib_ms
+    agg["bound_ms"] += n * max(bytes_ms, ops_ms)
+    agg["bytes_ms"] += n * bytes_ms
+    agg["ops_ms"] += n * ops_ms
+
+
+def _forward_line(phase, kernel, shape, n, case):
+    """Check and time one forward kernel at `shape`; emit its line and return
+    (err, ms, plain_ms, library_ms, bytes_ms, ops_ms)."""
+    inputs, op, plain, library, _ = case
+    with torch.no_grad():
+        got, want = op(*inputs), plain(*inputs)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
+        heavy = kernel == "scan"
+        ms = cuda_ms(lambda: op(*inputs), 5 if heavy else 20)
+        plain_ms = cuda_ms(lambda: plain(*inputs), 2 if heavy else 10, warmup=1)
+        lib_ms = None if library is None else cuda_ms(lambda: library(*inputs), 20)
+    bytes_ms, ops_ms = _bound(kernel, shape)
+    emit({"phase": phase, "kernel": kernel, "shape": list(shape),
+          "calls_per_" + ("forward" if phase == "kernel" else "step"): n,
+          "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
+          "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": max(bytes_ms, ops_ms),
+          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+    if not ok:
+        fail(f"{kernel} at {shape} disagrees with its plain version "
+             f"(max abs err {float(err.max())})")
+    return float(err.max()), ms, plain_ms, lib_ms, bytes_ms, ops_ms
 
 
 def phase_kernels(calls, dev):
+    """Each forward kernel at every serving shape; sums per forward."""
     results = {}
     gen = torch.Generator(device=dev).manual_seed(0)
     for kernel, shapes in calls.items():
-        agg = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                   bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+        agg = _new_agg()
         for shape, n in sorted(shapes.items(), key=str):
-            run, plain, library = make_case(kernel, shape, dev, gen)
-            got, want = run(), plain()
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
-            heavy = kernel == "scan"
-            ms = cuda_ms(run, 5 if heavy else 20)
-            plain_ms = cuda_ms(plain, 2 if heavy else 10, warmup=1)
-            lib_ms = None if library is None else cuda_ms(library, 20)
-            nbytes, nops = bytes_and_ops(kernel, shape)
-            bytes_ms, ops_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
-            emit({"phase": "kernel", "kernel": kernel, "shape": list(shape),
-                  "calls_per_forward": n, "max_abs_err": float(err.max()),
-                  "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok, "kernel_ms": ms,
-                  "plain_ms": plain_ms, "library_ms": lib_ms,
-                  "bound_ms": max(bytes_ms, ops_ms),
-                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
-            if not ok:
-                fail(f"{kernel} at {shape} disagrees with its plain version "
-                     f"(max abs err {float(err.max())})")
-            agg["max_abs_err"] = max(agg["max_abs_err"], float(err.max()))
-            agg["ms"] += n * ms
-            agg["plain_ms"] += n * plain_ms
-            agg["library_ms"] = None if lib_ms is None else agg["library_ms"] + n * lib_ms
-            agg["bound_ms"] += n * max(bytes_ms, ops_ms)
-            agg["bytes_ms"] += n * bytes_ms
-            agg["ops_ms"] += n * ops_ms
-            del run, plain, library, got, want, err
+            _add(agg, n, *_forward_line("kernel", kernel, shape, n,
+                                        make_case(kernel, shape, dev, gen)))
         torch.cuda.empty_cache()
         results[kernel] = agg
     return results
 
 
-def read_launches():
-    return {"scan": scan_cuda.launches, "layer_norm": ln_triton.layer_norm_launches,
-            "ln_mean": ln_triton.ln_mean_launches, "dwconv": dwconv.launches,
-            "mlp": mlp.launches}
+def _grads(fn, inputs, dy):
+    out = fn(*inputs)
+    return torch.autograd.grad(out, inputs, dy)
+
+
+def phase_kernel_train(calls, dev):
+    """Each forward and backward kernel at every training shape; sums per
+    training step. The backward's gradients (through the op's autograd
+    Function) are held against the autograd of the plain version, two direct
+    launches must agree bit for bit, and the backward is timed alone."""
+    results = {}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for op in OPS:
+        fwd, bwd = _new_agg(), _new_agg()
+        for shape, n in sorted(calls[op].items(), key=str):
+            case = make_case(op, shape, dev, gen)
+            _add(fwd, n, *_forward_line("kernel_train", op, shape, n, case))
+            n_bwd = calls[op + "_bwd"][shape]
+            if n_bwd == 0:
+                continue
+            inputs, fn, plain, library, backward = case
+            inputs = [t.requires_grad_(True) for t in inputs]
+            with torch.no_grad():
+                dy = torch.randn(fn(*inputs).shape, device=dev, generator=gen)
+            got, want = _grads(fn, inputs, dy), _grads(plain, inputs, dy)
+            torch.cuda.synchronize()
+            err, scaled, ok = 0.0, 0.0, True
+            for g, w in zip(got, want):
+                e = (g - w).abs()
+                top = float(w.abs().max())
+                ok &= bool(torch.all(e <= GRAD_RTOL * w.abs() + GRAD_SCALED_ATOL * top))
+                err, scaled = max(err, float(e.max())), max(scaled, float(e.max()) / max(top, 1e-30))
+            with torch.no_grad():
+                run = backward([t.detach() for t in inputs], dy)
+                first, second = run(), run()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(first, second) if a is not None)
+                heavy = op == "scan"
+                ms = cuda_ms(run, 5 if heavy else 20)
+            out_p = plain(*inputs)
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, inputs, dy, retain_graph=True),
+                               1 if heavy else 10, warmup=1)
+            lib_ms = None
+            if library is not None:
+                lib_in = inputs[:3] if op == "layer_norm" else inputs   # F.layer_norm: no gate
+                out_l = library(*lib_in)
+                lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, lib_in, dy, retain_graph=True),
+                                 20)
+            bytes_ms, ops_ms = _bound(op + "_bwd", shape)
+            emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape),
+                  "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
+                  "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
+                  "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
+                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+            if not ok:
+                fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
+                     f"(max abs err {err}, {scaled} of the largest gradient)")
+            if not same:
+                fail(f"{op} backward at {shape} differs between two launches")
+            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
+            del case, inputs, got, want, first, second, run, out_p
+        torch.cuda.empty_cache()
+        results[op], results[op + "_bwd"] = fwd, bwd
+    return results
+
+
+# where each kernel's launch counter lives
+_COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launches"),
+             "layer_norm": (ln_triton, "layer_norm_launches"),
+             "layer_norm_bwd": (ln_triton, "layer_norm_bwd_launches"),
+             "ln_mean": (ln_triton, "ln_mean_launches"),
+             "ln_mean_bwd": (ln_triton, "ln_mean_bwd_launches"),
+             "dwconv": (dwconv, "launches"), "dwconv_bwd": (dwconv, "bwd_launches"),
+             "mlp": (mlp, "launches"), "mlp_bwd": (mlp, "bwd_launches")}
+
+
+def read_launches(kernels=KERNELS):
+    return {k: getattr(*_COUNTERS[k]) for k in kernels}
 
 
 def zero_launches():
-    scan_cuda.launches = dwconv.launches = mlp.launches = 0
-    ln_triton.layer_norm_launches = ln_triton.ln_mean_launches = 0
+    for module, name in _COUNTERS.values():
+        setattr(module, name, 0)
 
 
 def phase_main_path(calls, smi):
@@ -281,7 +468,9 @@ def phase_main_path(calls, smi):
         zero_launches()
         first = infer.main(argv + ["--out_dir", os.path.join(tmp, "out1")])
         torch.cuda.synchronize()
-        launches = read_launches()
+        launches = read_launches(calls)
+        if any(v for k, v in read_launches().items() if k not in calls):
+            fail(f"serving launched a backward kernel: {read_launches()}")
         second = infer.main(argv + ["--out_dir", os.path.join(tmp, "out2")])
         names = sorted(os.listdir(os.path.join(tmp, "out1")))
         if names != sorted(os.listdir(os.path.join(tmp, "out2"))) or len(names) != N_IMAGES:
@@ -330,53 +519,163 @@ def phase_parity(dev):
         fail(f"card vs CPU max abs error {err} > {PARITY_ATOL}")
 
 
-# kernel-name fragments of each kernel in a profiler trace
-_TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",), "layer_norm": ("ln_fwd",),
-                "ln_mean": ("lnm_partial", "lnm_reduce"), "dwconv": ("dwconv3x3_fwd_kernel",),
-                "mlp": ("fused_mlp_fwd_kernel",)}
+def phase_train(calls, smi):
+    """12 full-width training steps through the training CLI; returns the
+    ten launch counts."""
+    steps = TRAIN_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", str(TRAIN_PAIRS * steps), "-B", str(TRAIN_PAIRS), "-E", "1",
+                "--model", "full", "--device", "cuda", "--ckpt_dir", tmp]
+        zero_launches()
+        stats = train.main(argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        # the saved state dict loads strictly into a fresh model
+        load_reference_checkpoint(VSSMFusion(full_config()),
+                                  os.path.join(tmp, "fusion_model_pst900.pth"))
+    torch.cuda.empty_cache()
+    expected = {k: stats["steps"] * sum(c.values()) for k, c in calls.items()}
+    if stats["steps"] != steps or not all(math.isfinite(v) for v in stats["losses"]):
+        fail(f"training ran {stats['steps']} steps with losses {stats['losses']}")
+    if launches != expected:
+        fail(f"training launch counts {launches} differ from the config's {expected}")
+    warm = stats["step_seconds"][1:]
+    emit({"phase": "train", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
+          "losses": stats["losses"], "launches": launches, "expected_launches": expected,
+          "calls_per_step": {k: sum(c.values()) for k, c in calls.items()},
+          "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
+          "median_warm_step_s": float(np.median(warm)),
+          "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
+          "warm_run_pairs_per_s": TRAIN_PAIRS * len(warm) / float(np.sum(warm)),
+          "cli_seconds": stats["seconds"], "card": smi})
+    return launches
+
+
+def phase_train_parity(dev, steps: int = 5):
+    """The same seeded weights and batches at the test config on the card
+    (kernels) and on the CPU (plain versions)."""
+    ds = SyntheticFusionDataset(length=2 * steps, size=(64, 64), seed=4)
+    batches = list(batch_iterator(ds, 2, shuffle=True, seed=1))
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        net = init_weights(VSSMFusion(test_config(drop_path_rate=0.0)), seed=0).to(device)
+        opt = train.make_fusion_optimizer(net.parameters())
+        losses, grads = [], None
+        for vis_y, ir in batches:
+            m = train.fusion_train_step(net, opt, torch.from_numpy(vis_y).to(device),
+                                        torch.from_numpy(ir).to(device))
+            losses.append(float(m["loss_total"]))
+            if grads is None:
+                grads = {k: None if p.grad is None else p.grad.detach().cpu().clone()
+                         for k, p in net.named_parameters()}
+        runs[device.type] = losses, grads
+    (cpu_l, cpu_g), (gpu_l, gpu_g) = runs["cpu"], runs["cuda"]
+    loss_rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, gpu_l)]
+    grad_rel, missing = {}, []
+    for k, want in cpu_g.items():
+        got = gpu_g[k]
+        if (want is None) != (got is None):
+            missing.append(k)
+        elif want is not None:
+            grad_rel[k] = float((got - want).norm() / (want.norm() + 1e-12))
+    worst = max(grad_rel, key=grad_rel.get)
+    emit({"phase": "train_parity", "steps": steps, "losses_cpu": cpu_l, "losses_card": gpu_l,
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "params_with_grad": len(grad_rel), "params_without_grad": len(cpu_g) - len(grad_rel),
+          "max_grad_rel_err": grad_rel[worst], "worst_param": worst,
+          "grad_rtol": TRAIN_GRAD_RTOL})
+    if missing:
+        fail(f"parameters with a gradient on one device only: {missing}")
+    if max(loss_rel) > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
+        fail(f"card vs CPU training: loss rel err {max(loss_rel)}, {worst} grad rel err "
+             f"{grad_rel[worst]}")
+
+
+# kernel-name fragments of each kernel in a profiler trace, then the groups
+# of the library's kernels
+_TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",), "scan_bwd": ("selective_scan_bwd_kernel",),
+                "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd",),
+                "ln_mean": ("lnm_partial", "lnm_reduce"), "ln_mean_bwd": ("lnm_bwd",),
+                "dwconv": ("dwconv3x3_fwd_kernel",), "dwconv_bwd": ("dwconv3x3_bwd_kernel",),
+                "mlp": ("fused_mlp_fwd_kernel",), "mlp_bwd": ("mlp_bwd_",),
+                "library_conv": ("conv", "fprop", "dgrad", "wgrad", "cudnn"),
+                "library_matmul": ("gemm", "cutlass", "cublas"),
+                "optimizer": ("adam", "multi_tensor")}
+
+
+def _trace(run, reps: int):
+    """torch.profiler over `reps` calls of `run` (warm): (window ms, device busy
+    ms, device ms by kernel group), or None without device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        window_us = 1e6 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for st, en in spans[1:]:
+        if st > cur_e:
+            busy, cur_s, cur_e = busy + cur_e - cur_s, st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    by_kernel = collections.Counter()
+    for e in events:
+        name = e.name.lower()
+        group = next((k for k, frags in _TRACE_NAMES.items()
+                      if any(f.lower() in name for f in frags)), "other")
+        by_kernel[group] += e.time_range.end - e.time_range.start
+    return window_us / 1e3, busy / 1e3, by_kernel
 
 
 def phase_trace(dev, forwards: int = 3):
     """Device time by kernel over `forwards` warm forwards of the main path's
     batch, from torch.profiler, and the share of the window the card was idle."""
-    from torch.profiler import ProfilerActivity, profile
-
     net = infer.build_model("full", dev)
     gen = torch.Generator(device=dev).manual_seed(2)
     x1, x2 = (torch.rand(PAIRS, SIZE, SIZE, 1, device=dev, generator=gen) for _ in range(2))
     with torch.inference_mode():
         for _ in range(2):
             net(x1, x2)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(forwards):
-                net(x1, x2)
-            torch.cuda.synchronize()
-            window_us = 1e6 * (time.perf_counter() - t0)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
+        got = _trace(lambda: net(x1, x2), forwards)
+    if got is None:
         emit({"phase": "trace", "device_time": "not measured (no device events)"})
         return
-    busy, cur_s, cur_e = 0.0, *spans[0]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy, cur_s, cur_e = busy + cur_e - cur_s, s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
-    by_kernel = collections.Counter()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        group = next((k for k, frags in _TRACE_NAMES.items()
-                      if any(f in e.name for f in frags)), "other")
-        by_kernel[group] += e.time_range.end - e.time_range.start
+    window, busy, by_kernel = got
     emit({"phase": "trace", "forwards": forwards, "pairs_per_forward": PAIRS,
-          "window_ms": window_us / 1e3,
-          "device_busy_ms": busy / 1e3, "device_idle_share": 1.0 - busy / window_us,
+          "window_ms": window, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window,
           "device_ms_per_forward": {k: v / 1e3 / forwards for k, v in by_kernel.most_common()}})
+
+
+def phase_trace_train(dev, steps: int = 3):
+    """The same over `steps` warm training steps of the training path's
+    batch (full config, 6 pairs of 256^2, DropPath on)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = init_weights(VSSMFusion(full_config()), seed=0).to(dev)
+    opt = train.make_fusion_optimizer(net.parameters())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x1, x2 = (torch.rand(TRAIN_PAIRS, SIZE, SIZE, 1, device=dev, generator=gen)
+              for _ in range(2))
+    for _ in range(2):
+        train.fusion_train_step(net, opt, x1, x2, gen)
+    got = _trace(lambda: train.fusion_train_step(net, opt, x1, x2, gen), steps)
+    del net, opt
+    torch.cuda.empty_cache()
+    if got is None:
+        emit({"phase": "trace_train", "device_time": "not measured (no device events)"})
+        return
+    window, busy, by_kernel = got
+    emit({"phase": "trace_train", "steps": steps, "pairs_per_step": TRAIN_PAIRS,
+          "window_ms": window, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window,
+          "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()}})
 
 
 def main() -> None:
@@ -401,10 +700,18 @@ def main() -> None:
           "ptxas": ptxas})
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
-    results = phase_kernels(calls, dev)
-    launches = phase_main_path(calls, smi)
+    tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
+    serving = phase_kernels(calls, dev)
+    results = phase_kernel_train(tcalls, dev)
+    emit({"phase": "kernel", "per_forward_of_serving": {
+        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms")}
+        for k, r in serving.items()}})
+    phase_main_path(calls, smi)
     phase_parity(dev)
+    launches = phase_train(tcalls, smi)
+    phase_train_parity(dev)
     phase_trace(dev)
+    phase_trace_train(dev)
 
     kernels = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -416,7 +723,8 @@ def main() -> None:
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
-          "times": "per forward of the main path: sum over its shapes of calls x time"})
+          "times": "per training step of the main path (full config, 6 pairs of 256^2): "
+                   "sum over its shapes of calls x time; launches from the 12-step run"})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

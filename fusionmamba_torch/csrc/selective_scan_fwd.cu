@@ -19,6 +19,9 @@
 // exp runs on every step, so the result is exact at any delta magnitude (the
 // TPU kernel's rescale clip and repair have no counterpart here). The
 // softplus is max(x,0) + log1p(exp(-|x|)), the form the reference uses.
+// For training, `hsave` (may be null) receives the N states at the start of
+// every `save_every` steps, laid out (B*K, ceil(L/save_every), N, D) so that a
+// warp's stores are coalesced; the backward kernel restarts from them.
 #include <cuda_runtime.h>
 
 namespace {
@@ -32,8 +35,8 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
                           const float* __restrict__ W, const float* __restrict__ A,
                           const float* __restrict__ Bm, const float* __restrict__ Cm,
                           const float* __restrict__ Dp, const float* __restrict__ bias,
-                          float* __restrict__ out, int K, int L, int dim, int N, int R,
-                          int softplus) {
+                          float* __restrict__ out, float* __restrict__ hsave, int K, int L,
+                          int dim, int N, int R, int softplus, int save_every) {
   extern __shared__ float smem[];
   float* w_s = smem;                  // [R][kThreads]: this block's W columns
   float* dt_s = w_s + R * kThreads;   // [kChunk][R]
@@ -61,6 +64,7 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
   }
 
   const size_t row0 = (size_t)bk * L;
+  const int n_save = hsave ? (L + save_every - 1) / save_every : 0;
   for (int l0 = 0; l0 < L; l0 += kChunk) {
     const int T = min(kChunk, L - l0);
     __syncthreads();  // the previous chunk is consumed
@@ -75,6 +79,13 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
     if (!active) continue;
     for (int t = 0; t < T; ++t) {
       const size_t idx = (row0 + l0 + t) * dim + d;
+      if (hsave && (l0 + t) % save_every == 0) {
+        float* hs = hsave + ((size_t)bk * n_save + (l0 + t) / save_every) * N * dim + d;
+#pragma unroll
+        for (int n = 0; n < kMaxN; ++n) {
+          if (n < N) hs[(size_t)n * dim] = h[n];  // h stays in registers
+        }
+      }
       float x;
       if (R > 0) {
         x = 0.f;
@@ -103,15 +114,15 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
 
 extern "C" int fm_selective_scan_fwd(const float* u, const float* dt, const float* W,
                                      const float* A, const float* Bm, const float* Cm,
-                                     const float* Dp, const float* bias, float* out, int batch,
-                                     int K, int L, int dim, int N, int R, int softplus,
-                                     cudaStream_t stream) {
-  if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || batch * K < 1) {
+                                     const float* Dp, const float* bias, float* out, float* hsave,
+                                     int batch, int K, int L, int dim, int N, int R, int softplus,
+                                     int save_every, cudaStream_t stream) {
+  if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || batch * K < 1 || save_every < 1) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = sizeof(float) * ((size_t)R * kThreads + (size_t)kChunk * (R + 2 * N));
   const dim3 grid((dim + kThreads - 1) / kThreads, batch * K);
-  selective_scan_fwd_kernel<<<grid, kThreads, smem, stream>>>(u, dt, W, A, Bm, Cm, Dp, bias,
-                                                               out, K, L, dim, N, R, softplus);
+  selective_scan_fwd_kernel<<<grid, kThreads, smem, stream>>>(
+      u, dt, W, A, Bm, Cm, Dp, bias, out, hsave, K, L, dim, N, R, softplus, save_every);
   return (int)cudaGetLastError();
 }

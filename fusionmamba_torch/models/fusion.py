@@ -37,9 +37,9 @@ class VSSStage(nn.Module):
             for dp in drop_paths)
         self.downsample = PatchMerging(dim) if downsample else None
 
-    def forward(self, x):
-        for blk in self.blocks:
-            x = blk(x)
+    def forward(self, x, dp_uni=None):  # dp_uni (depth, 2, width) or None
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if dp_uni is None else dp_uni[i])
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -54,11 +54,11 @@ class VSSStageUp(nn.Module):
             VSSBlock(dim, cfg.d_state, cfg.ssm_ratio, cfg.mlp_ratio, cfg.norm_eps, dp)
             for dp in drop_paths)
 
-    def forward(self, x):
+    def forward(self, x, dp_uni=None):  # dp_uni (depth, 2, width) or None
         if self.upsample is not None:
             x = self.upsample(x)
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, None if dp_uni is None else dp_uni[i])
         return x
 
 
@@ -102,19 +102,51 @@ class VSSMFusion(nn.Module):
         self.final_up = FinalPatchExpand(dims_dec[-1], scale=4)
         self.final_conv = FinalConv(dims_dec[-1] // 4)
 
-    def forward(self, x1, x2):
+    def dp_table_shape(self, batch: int):
+        """(rows, width) of the uniform table of one training step: two rows
+        per VSSBlock (VSSBlockCross applies no DropPath), as wide as the
+        encoder's 2B batch."""
+        c = self.cfg
+        return 2 * (sum(c.depths) + sum(c.depths_decoder)), 2 * batch
+
+    def dp_tables(self, table):
+        """The step's table (rows, 2B) sliced per stage as (depth, 2, 2B):
+        (encoder stages, decoder stages), as the JAX package's
+        `models/fusion.py::_dp_tables` slices its table. The decoder, at
+        batch B, reads the first B entries of each row."""
+        out, off = [], 0
+        for d in list(self.cfg.depths) + list(self.cfg.depths_decoder):
+            out.append(table[off:off + 2 * d].view(d, 2, table.shape[1]))
+            off += 2 * d
+        k = len(self.cfg.depths)
+        return out[:k], out[k:]
+
+    def forward(self, x1, x2, generator=None, dp_uni=None):
+        """x1, x2 (B, H, W, in_chans) -> (B, H, W, 1). In training with
+        drop_path_rate > 0, DropPath reads one uniform table per call:
+        `dp_uni` (rows, 2B) when given, else drawn from `generator` (the
+        default generator when None) on the inputs' device."""
+        nl = len(self.layers)
+        enc_dp = dec_dp = [None] * nl
+        if self.training and self.cfg.drop_path_rate > 0.0:
+            shape = self.dp_table_shape(x1.shape[0])
+            if dp_uni is None:
+                dp_uni = torch.rand(shape, generator=generator, device=x1.device)
+            elif tuple(dp_uni.shape) != shape:
+                raise ValueError(f"dp_uni must be {shape}, got {tuple(dp_uni.shape)}")
+            enc_dp, dec_dp = self.dp_tables(dp_uni)
         x = torch.cat([self.patch_embed1(x1), self.patch_embed2(x2)], dim=0)
         skips = []
-        for layer in self.layers:
+        for layer, dp in zip(self.layers, enc_dp):
             skips.append(x)
-            x = layer(x)
+            x = layer(x, dp)
         e1, e2 = x.chunk(2, dim=0)
         x = e1 + e2
         fused = [cross(*s.chunk(2, dim=0)) for cross, s in zip(self.Cross_block, skips)]
-        for i, layer_up in enumerate(self.layers_up):
+        for i, (layer_up, dp) in enumerate(zip(self.layers_up, dec_dp)):
             if i > 0:
                 x = x + fused[-i]
-            x = layer_up(x)
+            x = layer_up(x, dp)
         out = self.final_conv(self.final_up(x))
         # the reference's residual `x + x_1 + x_2 + x_1 + x_2`
         return out + 2.0 * x1 + 2.0 * x2

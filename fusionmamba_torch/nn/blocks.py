@@ -29,12 +29,13 @@ class VSSBlock(nn.Module):
             self.norm2 = FusedLayerNorm(dim, norm_eps)
             self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x):  # (B, H, W, C)
+    def forward(self, x, dp_uni=None):  # x (B, H, W, C); dp_uni (2, >= B) uniforms
+        uni = (None, None) if dp_uni is None else dp_uni
         x_ssm = self.op(self.norm(x))
         x_conv = self.conv_branch(x_ssm + self.self_attention_cross_channel(x_ssm))
-        x = x + self.drop_path(self.se(x_ssm) + self.se(x_conv))
+        x = x + self.drop_path(self.se(x_ssm) + self.se(x_conv), uni[0])
         if self.mlp is not None:
-            x = x + self.drop_path(self.mlp(self.norm2(x)))
+            x = x + self.drop_path(self.mlp(self.norm2(x)), uni[1])
         return x
 
 

@@ -29,17 +29,25 @@ class FusedLayerNorm(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth (timm DropPath): the identity at inference.
-    Its training-time draw is not ported yet."""
+    """Per-sample stochastic depth (timm DropPath at reference
+    `models/cross.py:1353,1374-1376`): the identity at inference or at rate 0.
+    In training, sample i is kept, scaled by 1 / (1 - rate), where
+    uni[i] < 1 - rate, and zeroed otherwise. `uni` is this DropPath's row of
+    the model's one uniform table per step (`VSSMFusion.dp_tables`), at least
+    batch wide, as in the JAX package's `nn/layers.py::DropPath`."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath: only inference is ported")
-        return x
+    def forward(self, x, uni=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        if uni is None:
+            raise ValueError("DropPath: training needs the step's uniform row")
+        keep = 1.0 - self.rate
+        mask = (uni[: x.shape[0]] < keep).view(-1, *([1] * (x.dim() - 1)))
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class LDC(nn.Module):

@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "fusionmamba_torch"
-SOURCES = ("selective_scan_fwd.cu", "dwconv3x3_fwd.cu", "fused_mlp_fwd.cu")
+SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
+           "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfusionmamba_kernels.so"
@@ -33,12 +34,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # u, dt, W, A, B, C, D, bias, out, batch, K, L, dim, N, R, softplus, stream
-    "fm_selective_scan_fwd": (_P,) * 9 + (_I,) * 7 + (_P,),
+    # u, dt, W, A, B, C, D, bias, out, hsave, batch, K, L, dim, N, R, softplus,
+    # save_every, stream
+    "fm_selective_scan_fwd": (_P,) * 10 + (_I,) * 8 + (_P,),
+    # u, dt, W, A, B, C, D, bias, hsave, dy, du, ddt, dW_p, dA_p, dB_p, dC_p,
+    # dD_p, dbias_p, batch, K, L, dim, N, R, T, softplus, stream
+    "fm_selective_scan_bwd": (_P,) * 18 + (_I,) * 8 + (_P,),
     # x, w (C,9), bias, out, B, H, W, C, act_silu, stream
     "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # x, w (C,9), bias, dy, dx, part, B, H, W, C, act_silu, stream
+    "fm_dwconv3x3_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     # x, w1 (H,C), b1, w2 (C_out,H), b2, y, M, C, H, C_out, stream
     "fm_fused_mlp_fwd": (_P,) * 6 + (_I,) * 4 + (_P,),
+    # x, dy, w1, b1, w2, a_buf, g_buf, dx, dw1_p, db1_p, dw2_p, db2_p, M, C, H,
+    # C_out, slice, stream
+    "fm_fused_mlp_bwd": (_P,) * 12 + (_I,) * 5 + (_P,),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -116,6 +126,13 @@ def launch(name: str, *args, device: torch.device) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name(device)})")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether an op on these tensors (None allowed) must record its backward:
+    the ops take their autograd Function then, and their forward kernel
+    alone otherwise (serving, `torch.inference_mode`)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
 def check_cuda_float32(name: str, *tensors: torch.Tensor) -> None:

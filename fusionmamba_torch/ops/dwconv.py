@@ -1,11 +1,15 @@
 """Depthwise 3x3 SAME conv + bias (+ SiLU), NHWC: the public op, its plain
-PyTorch version, and the wrapper of the CUDA kernel
+PyTorch version, and the wrappers of the CUDA kernels: the forward
 (`csrc/dwconv3x3_fwd.cu`; replaces
-`fusionmamba_tpu/ops/dwconv_pallas.py::_fwd_kernel`).
+`fusionmamba_tpu/ops/dwconv_pallas.py::_fwd_kernel`) and the backward
+(`csrc/dwconv3x3_bwd.cu`; replaces `::_bwd_kernel`).
 
-The kernel is bound by bytes: one thread per output element, C fastest, so a
-warp moves one coalesced row of channels, and the cache serves the nine taps'
-re-reads of x. See the source for the design.
+Both kernels are bound by bytes. The forward runs one thread per output
+element, C fastest, so a warp moves one coalesced row of channels, and the
+cache serves the nine taps' re-reads of x. The backward runs one thread per
+(b, h, c) row that slides register windows of x and dz along w, recomputing
+the pre-activation, and writes dw and dbias as per-block partials that are
+summed here. See the sources for the designs.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from . import cuda_lib
 ACTS = ("none", "silu")
 
 launches = 0
+bwd_launches = 0
 
 
 def depthwise_conv3x3_plain(x, w, bias=None, act="none"):
@@ -32,32 +37,73 @@ def depthwise_conv3x3_plain(x, w, bias=None, act="none"):
     return F.silu(acc) if act == "silu" else acc
 
 
-def _dwconv_cuda(x, w, bias, act):
-    global launches
-    B, H, W, C = x.shape
-    if w.shape != (3, 3, C) or (bias is not None and bias.shape != (C,)):
-        raise ValueError("depthwise_conv3x3: w must be (3, 3, C) and bias (C,)")
+def _checked(x, w, bias):
+    """x and w in torch's (C, 3, 3) layout, checked for the kernels."""
+    C = x.shape[-1]
+    if x.dim() != 4 or w.shape != (3, 3, C) or (bias is not None and bias.shape != (C,)):
+        raise ValueError("depthwise_conv3x3: x must be (B, H, W, C), w (3, 3, C) and bias (C,)")
     # torch's (C, 3, 3) layout; a view, not a copy, when w came from a
     # Conv2d weight as `weight[:, 0].permute(1, 2, 0)`
     w_c = w.permute(2, 0, 1).contiguous()
-    tensors = [x, w_c] + ([] if bias is None else [bias])
-    cuda_lib.check_cuda_float32("depthwise_conv3x3", *tensors)
+    cuda_lib.check_cuda_float32("depthwise_conv3x3", x, w_c,
+                                *([] if bias is None else [bias]))
+    return w_c
+
+
+def _dwconv_cuda(x, w, bias, act):
+    global launches
+    w_c = _checked(x, w, bias)
     out = torch.empty_like(x)
     cuda_lib.launch("fm_dwconv3x3_fwd", x.data_ptr(), w_c.data_ptr(),
                     None if bias is None else bias.data_ptr(), out.data_ptr(),
-                    B, H, W, C, int(act == "silu"), device=x.device)
+                    *x.shape, int(act == "silu"), device=x.device)
     launches += 1
     return out
 
 
+def dwconv_bwd(x, w, bias, dy, act):
+    """Gradients of the conv for the cotangent dy: (dx, dw in w's (3, 3, C)
+    shape, dbias or None)."""
+    global bwd_launches
+    w_c = _checked(x, w, bias)
+    B, H, W, C = x.shape
+    if dy.shape != x.shape:
+        raise ValueError("depthwise_conv3x3 backward: dy must have x's shape")
+    cuda_lib.check_cuda_float32("depthwise_conv3x3 backward", dy)
+    dx = torch.empty_like(x)
+    part = torch.empty((-(-B * H // 8), 10, C), device=x.device, dtype=torch.float32)
+    cuda_lib.launch("fm_dwconv3x3_bwd", x.data_ptr(), w_c.data_ptr(),
+                    None if bias is None else bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    part.data_ptr(), B, H, W, C, int(act == "silu"), device=x.device)
+    bwd_launches += 1
+    sums = part.sum(0)      # rows 0..8 the taps i*3+j, row 9 dbias
+    return dx, sums[:9].view(3, 3, C), None if bias is None else sums[9]
+
+
+class _DwconvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, act):
+        ctx.save_for_backward(x, w, bias)
+        ctx.act = act
+        return _dwconv_cuda(x, w, bias, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, bias = ctx.saved_tensors
+        return (*dwconv_bwd(x, w, bias, dy.contiguous(), ctx.act), None)
+
+
 def depthwise_conv3x3(x, w, bias=None, act="none"):
     """x (B, H, W, C); w (3, 3, C); bias (C,) or None; SAME padding; act
-    "silu" fuses the SiLU epilogue. CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    "silu" fuses the SiLU epilogue. CPU tensors take the plain version,
+    differentiated by autograd; CUDA tensors the kernel and, when a gradient
+    is needed, the backward kernel."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
         return depthwise_conv3x3_plain(x, w, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv3x3: no implementation for {x.device}")
+    if cuda_lib.needs_grad(x, w, bias):
+        return _DwconvFn.apply(x, w, bias, act)
     return _dwconv_cuda(x, w, bias, act)

@@ -1,5 +1,5 @@
 """Selective scan: the public op, its plain PyTorch version, and the dispatch
-to the CUDA kernel (`scan_cuda.py`).
+to the CUDA kernels (`scan_cuda.py`).
 
 Channels-last layout, as in `fusionmamba_tpu/ops/selective_scan.py`:
     u, delta : (B, K, L, D)   A: (K, D, N)   Bmat, Cmat: (B, K, L, N)
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from . import scan_cuda
+from . import cuda_lib, scan_cuda
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -53,17 +53,44 @@ def selective_scan_plain(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
     return out.to(in_dtype)
 
 
+class _ScanFn(torch.autograd.Function):
+    """The scan on the card with its backward kernel; the forward saves the
+    chunk states that the backward restarts from."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight,
+                delta_softplus):
+        out, hsave = scan_cuda.selective_scan_fwd(
+            u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus, dt_lowrank_weight,
+            save_states=True)
+        ctx.save_for_backward(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight,
+                              hsave)
+        ctx.delta_softplus = delta_softplus
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        *inputs, hsave = ctx.saved_tensors
+        grads = scan_cuda.selective_scan_bwd(*inputs, hsave, dy.contiguous(),
+                                             ctx.delta_softplus)
+        return (*grads, None)
+
+
 def selective_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
                    delta_softplus=False, dt_lowrank_weight=None):
     """The scan. With `dt_lowrank_weight` (K, D, R) given, `delta` is the
     low-rank (B, K, L, R) dt, expanded inside the kernel on the card.
 
-    CPU tensors take the plain version; CUDA tensors take the kernel, which
-    raises on what it does not take."""
+    CPU tensors take the plain version, differentiated by autograd. CUDA
+    tensors take the forward kernel and, when a gradient is needed, the
+    backward kernel; both raise on what they do not take."""
     if u.device.type == "cpu":
         return selective_scan_plain(u, delta, A, Bmat, Cmat, D, delta_bias,
                                     delta_softplus, dt_lowrank_weight)
     if u.device.type != "cuda":
         raise ValueError(f"selective_scan: no implementation for {u.device}")
+    args = (u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight)
+    if cuda_lib.needs_grad(*args):
+        return _ScanFn.apply(*args, delta_softplus)
     return scan_cuda.selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias,
                                         delta_softplus, dt_lowrank_weight)

@@ -124,3 +124,155 @@ def test_mlp_kernel(dev, M, C, H):
     torch.cuda.synchronize()
     assert mlp.launches == before + 1
     torch.testing.assert_close(got, mlp.fused_mlp_plain(x, w1, b1, w2, b2), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels against the autograd of the plain versions
+#
+# Gradients that sum over many rows (dW, dA, dB, dscale, ...) are sums of
+# thousands of terms of both signs taken in another order, so their float32
+# rounding scales with the magnitude summed, not with the (possibly small)
+# result: each gradient is held to 1e-4 of its own largest entry, plus 1e-4
+# relative.
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, dy):
+    inputs = [t.detach().requires_grad_(True) if t is not None else None for t in inputs]
+    out = fn(*inputs)
+    live = [t for t in inputs if t is not None]
+    return out, torch.autograd.grad(out, live, dy)
+
+
+def _assert_grads_close(got, want):
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4 * float(w.abs().max()) + 1e-30)
+
+
+def _check_backward(kernel, plain, inputs, dy, counter):
+    """kernel vs plain gradients; two kernel backwards must be bit-identical
+    and launch the backward kernel once each."""
+    module, name = counter
+    before = getattr(module, name)
+    y, got = _grads(kernel, inputs, dy)
+    _, again = _grads(kernel, inputs, dy)
+    torch.cuda.synchronize()
+    assert getattr(module, name) == before + 2
+    yw, want = _grads(plain, inputs, dy)
+    torch.testing.assert_close(y, yw, **TOL)
+    _assert_grads_close(got, want)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("batch,L,D,N,R,shift", [
+    (2, 1, 8, 4, 3, 0.0), (2, 33, 70, 16, 0, 0.0), (1, 100, 64, 16, 5, 0.0),
+    (2, 1024, 192, 16, 6, -4.0), (12, 16, 1536, 16, 48, -4.0), (2, 64, 96, 16, 0, 8.0)])
+def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
+    """shift 8: softplus(dt) ~ 8 per step, far past the TPU kernel's rescale
+    clip; the backward is exact there too."""
+    g = torch.Generator().manual_seed(L * 3 + D)
+    K = 4
+    inputs = [_rand(g, batch, K, L, D), _rand(g, batch, K, L, R or D, scale=0.5),
+              -torch.exp(torch.rand(K, D, N, generator=g) * 1.5),
+              _rand(g, batch, K, L, N), _rand(g, batch, K, L, N), _rand(g, K, D),
+              _rand(g, K, D, scale=0.5, shift=shift),
+              _rand(g, K, D, R, scale=R ** -0.5) if R else None]
+    inputs = [None if t is None else t.to(dev) for t in inputs]
+    dy = _rand(g, batch, K, L, D).to(dev)
+
+    def kernel(*a):
+        return selective_scan(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
+
+    def plain(*a):
+        return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
+
+    _check_backward(kernel, plain, inputs, dy, (scan_cuda, "bwd_launches"))
+
+
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum"])
+@pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536)])
+def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
+    g = torch.Generator().manual_seed(rows * C)
+    inputs = [_rand(g, rows, C, scale=2.0, shift=0.5), _rand(g, C), _rand(g, C)]
+    if gate_act != "none":
+        inputs.append(_rand(g, rows, C))
+    inputs = [t.to(dev) for t in inputs]
+    dy = _rand(g, rows, C).to(dev)
+
+    def kernel(x, s, b, gate=None):
+        return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gate_act)
+
+    def plain(x, s, b, gate=None):
+        return layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, gate_act)
+
+    _check_backward(kernel, plain, inputs, dy, (ln_triton, "layer_norm_bwd_launches"))
+
+
+@pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (12, 4096, 96), (8, 64, 768)])
+def test_ln_spatial_mean_backward_kernel(dev, B, rows, C):
+    g = torch.Generator().manual_seed(rows + 7 * C)
+    inputs = [_rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev), _rand(g, C).to(dev),
+              _rand(g, C).to(dev)]
+    dm = _rand(g, B, C).to(dev)
+    _check_backward(lambda x, s, b: layer_norm.ln_spatial_mean(x, s, b, 1e-5),
+                    lambda x, s, b: layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5),
+                    inputs, dm, (ln_triton, "ln_mean_bwd_launches"))
+
+
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 1, 8), (12, 64, 64, 192), (6, 8, 8, 1536)])
+def test_dwconv_backward_kernel(dev, act, has_bias, shape):
+    g = torch.Generator().manual_seed(sum(shape) + has_bias)
+    C = shape[-1]
+    inputs = [_rand(g, *shape).to(dev), _rand(g, 3, 3, C, scale=0.3).to(dev),
+              _rand(g, C).to(dev) if has_bias else None]
+    dy = _rand(g, *shape).to(dev)
+    _check_backward(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act),
+                    lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act),
+                    inputs, dy, (dwconv, "bwd_launches"))
+
+
+@pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (768, 768, 3072),
+                                   (49152, 96, 384)])
+def test_mlp_backward_kernel(dev, M, C, H):
+    g = torch.Generator().manual_seed(M + C)
+    # weights as nn.Linear's (out, in) tensors passed as `.t()` views, as Mlp does
+    w1 = _rand(g, H, C, scale=C ** -0.5).to(dev)
+    w2 = _rand(g, C, H, scale=H ** -0.5).to(dev)
+    inputs = [_rand(g, M, C).to(dev), w1, _rand(g, H, scale=0.1).to(dev), w2,
+              _rand(g, C, scale=0.1).to(dev)]
+    dy = _rand(g, M, C).to(dev)
+    _check_backward(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
+                    lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
+                    inputs, dy, (mlp, "bwd_launches"))
+
+
+def test_model_backward_on_card_matches_cpu(dev):
+    """loss.backward() through a small model on the card gives every
+    parameter the gradient the CPU plain path gives it. (The finest
+    VSSBlockCross's output is never read, as in the reference, so its
+    parameters get none on either device.) fp32 sums are reordered through
+    the whole network and its backward, so each gradient is held to 1e-3 of
+    its norm."""
+    from fusionmamba_torch.config import test_config
+    from fusionmamba_torch.losses import fusion_loss
+    from fusionmamba_torch.models import VSSMFusion
+    from fusionmamba_torch.nn import init_weights
+
+    g = torch.Generator().manual_seed(5)
+    x1, x2 = torch.rand(2, 32, 32, 1, generator=g), torch.rand(2, 32, 32, 1, generator=g)
+    grads = {}
+    for device in (torch.device("cpu"), dev):
+        net = init_weights(VSSMFusion(test_config(drop_path_rate=0.0)), seed=3).to(device)
+        a, b = x1.to(device), x2.to(device)
+        fusion_loss(a, b, net(a, b).clamp(0.0, 1.0)).total.backward()
+        grads[device.type] = {k: p.grad for k, p in net.named_parameters()}
+    assert sum(w is not None for w in grads["cpu"].values()) > 0.8 * len(grads["cpu"])
+    for k, want in grads["cpu"].items():
+        got = grads["cuda"][k]
+        if want is None:
+            assert got is None and k.startswith("Cross_block.0."), k
+            continue
+        assert got is not None, f"{k} has no gradient on the card"
+        rel = float((got.cpu() - want).norm() / (want.norm() + 1e-12))
+        assert rel < 1e-3, (k, rel)

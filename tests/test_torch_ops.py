@@ -164,3 +164,124 @@ def test_ops_take_no_other_device(op):
     }
     with pytest.raises(ValueError, match="no implementation"):
         calls[op]()
+
+
+# ---------------------------------------------------------------------------
+# gradients: the plain versions under autograd against jax.grad of the JAX ops
+#
+# Every input's gradient is compared for one seeded non-uniform cotangent.
+# Gradients that sum over rows or steps (weights, scales, the scan's A, B,
+# C) are sums of many terms of both signs in another order, so each is held
+# to 1e-5 of its own largest entry plus 1e-5 relative; the doubling kernel,
+# which composes decays in a tree, to 2e-5.
+# ---------------------------------------------------------------------------
+
+def _torch_grads(fn, arrays, cot):
+    ts = [None if a is None else torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    fn(*ts).backward(torch.from_numpy(cot))
+    return [t.grad for t in ts if t is not None]
+
+
+def _jax_grads(fn, arrays, cot):
+    live = [i for i, a in enumerate(arrays) if a is not None]
+
+    def loss(*xs):
+        full = [None] * len(arrays)
+        for i, x in zip(live, xs):
+            full[i] = x
+        return jnp.sum(fn(*full) * jnp.asarray(cot))
+
+    return jax.grad(loss, argnums=tuple(range(len(live))))(
+        *[jnp.asarray(arrays[i]) for i in live])
+
+
+def _grads_close(got, want, tol=1e-5):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=tol, atol=tol * float(np.abs(w).max()))
+
+
+def _cotangent(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _port_scan_fn(u, dt, A, Bm, Cm, Dp, bias, W):
+    return selective_scan(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True, dt_lowrank_weight=W)
+
+
+@pytest.mark.parametrize("L,dt_shift", [(1, 0.0), (40, 0.0), (300, 8.0)])
+def test_scan_grads_match_jax_ref(L, dt_shift):
+    args = _scan_inputs(200 + L, 2, 4, L, 8, 4, 2, dt_shift)
+    cot = _cotangent(L, args[0].shape)
+
+    def jfn(u, dt, A, Bm, Cm, Dp, bias, W):
+        return jax_selective_scan(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True, impl="ref",
+                                  dt_lowrank_weight=W)
+
+    _grads_close(_torch_grads(_port_scan_fn, args, cot), _jax_grads(jfn, args, cot))
+
+
+@pytest.mark.parametrize("L,dt_shift", [(1, 0.0), (64, 8.0)])
+def test_scan_grads_match_pallas_doubling(L, dt_shift):
+    args = _scan_inputs(300 + L, 1, 2, L, 16, 4, 2, dt_shift)
+    cot = _cotangent(L + 1, args[0].shape)
+
+    def jfn(u, dt, A, Bm, Cm, Dp, bias, W):
+        return selective_scan_pallas(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True,
+                                     interpret=True, algo="doubling", dt_lowrank_weight=W)
+
+    _grads_close(_torch_grads(_port_scan_fn, args, cot), _jax_grads(jfn, args, cot), tol=2e-5)
+
+
+@pytest.mark.parametrize("gate_act", [None, "none", "silu", "silu_sum"])
+def test_layer_norm_grads_match_pallas(gate_act):
+    rng = np.random.default_rng(10)
+    x = (2.0 * rng.standard_normal((2, 4, 3, 12)) + 0.5).astype(np.float32)
+    s, b = (rng.standard_normal(12).astype(np.float32) for _ in range(2))
+    gate = None if gate_act is None else rng.standard_normal(x.shape).astype(np.float32)
+    act = gate_act or "none"
+    cot = _cotangent(11, x.shape)
+    got = _torch_grads(lambda *a: layer_norm.layer_norm_fused(*a, 1e-6, act), (x, s, b, gate), cot)
+    want = _jax_grads(lambda *a: ln_pallas.layer_norm_fused(
+        *a, eps=1e-6, impl="pallas", interpret=True, gate_act=act), (x, s, b, gate), cot)
+    _grads_close(got, want)
+
+
+def test_ln_spatial_mean_grads_match_pallas():
+    rng = np.random.default_rng(12)
+    x = (2.0 * rng.standard_normal((2, 4, 4, 12)) + 0.5).astype(np.float32)
+    s, b = (rng.standard_normal(12).astype(np.float32) for _ in range(2))
+    cot = _cotangent(13, (2, 12))
+    got = _torch_grads(lambda *a: layer_norm.ln_spatial_mean(*a, 1e-5), (x, s, b), cot)
+    want = _jax_grads(lambda *a: ln_pallas.ln_spatial_mean(
+        *a, eps=1e-5, impl="pallas", interpret=True), (x, s, b), cot)
+    _grads_close(got, want)
+
+
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+def test_dwconv_grads_match_pallas(act, has_bias):
+    rng = np.random.default_rng(14)
+    x = rng.standard_normal((2, 5, 6, 8)).astype(np.float32)
+    w = (0.3 * rng.standard_normal((3, 3, 8))).astype(np.float32)
+    b = rng.standard_normal(8).astype(np.float32) if has_bias else None
+    cot = _cotangent(15, x.shape)
+    got = _torch_grads(lambda *a: dwconv.depthwise_conv3x3(*a, act), (x, w, b), cot)
+    want = _jax_grads(lambda *a: dwconv_pallas.depthwise_conv3x3(
+        *a, impl="pallas", interpret=True, act=act), (x, w, b), cot)
+    _grads_close(got, want)
+
+
+def test_mlp_grads_match_pallas():
+    """The Pallas kernel's polynomial erf and its derivative are within
+    ~1.5e-7 of the exact GELU's, below the tolerance."""
+    rng = np.random.default_rng(16)
+    arrays = (rng.standard_normal((4, 5, 8)).astype(np.float32),
+              (rng.standard_normal((8, 32)) / np.sqrt(8)).astype(np.float32),
+              (0.1 * rng.standard_normal(32)).astype(np.float32),
+              (rng.standard_normal((32, 8)) / np.sqrt(32)).astype(np.float32),
+              (0.1 * rng.standard_normal(8)).astype(np.float32))
+    cot = _cotangent(17, (4, 5, 8))
+    got = _torch_grads(mlp.fused_mlp, arrays, cot)
+    want = _jax_grads(lambda *a: mlp_pallas.fused_mlp(*a, interpret=True), arrays, cot)
+    _grads_close(got, want)
