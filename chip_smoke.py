@@ -17,7 +17,12 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                kernels against the autograd of its plain version: every
                input's gradient, its error against the stated bound, two
                launches bit-identical, times of the backward alone (kernel,
-               plain autograd, library autograd) and its bound.
+               plain autograd, library autograd) and its bound. The MLP's
+               bounds are reckoned at the tensor cores' 3xTF32 rate, with
+               the fp32 CUDA-core bound beside them, and its forward must
+               repeat itself bit for bit.
+     mlp_paths - both designs of the MLP forward (fused, two passes) at
+               each training shape: error against the plain version, time.
   5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
@@ -73,8 +78,15 @@ PAIRS, SIZE, N_IMAGES = 8, 256, 20
 TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
+# the MLP kernels form every fp32 product as three TF32 products (3xTF32,
+# fusionmamba_torch/csrc/mma_tf32x3.cuh): their bound is reckoned at a third
+# of the TF32 rate, and each of their lines also gives the CUDA-core bound
+TENSOR_CORE_KERNELS = ("mlp", "mlp_bwd")
 # kernel vs plain version: the same fp32 arithmetic in another order (and
-# with fused multiply-adds), so they differ by float32 rounding only
+# with fused multiply-adds), so they differ by float32 rounding only; the
+# MLP's 3xTF32 products keep fp32-class accuracy and stay inside it with
+# 100x to spare (tests/test_torch_tf32x3.py)
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
 # backward kernel vs autograd of the plain version: gradients that sum over
 # up to ~50k rows or 1k steps (dW, dA, dB, dscale, ...) are sums of many
@@ -307,16 +319,20 @@ def make_case(kernel, shape, dev, gen):
 
 
 def _bound(kernel, shape):
+    """(bytes ms, operations ms at the rate the kernel's design uses,
+    bound ms on the fp32 CUDA cores)."""
     nbytes, nops = bytes_and_ops(kernel, shape)
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
+    bytes_ms, cores_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
+    ops_ms = 1e3 * nops / (TF32_OPS_PER_S / 3) if kernel in TENSOR_CORE_KERNELS else cores_ms
+    return bytes_ms, ops_ms, max(bytes_ms, cores_ms)
 
 
 def _new_agg():
     return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0)
+                bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, fp32_cores_bound_ms=0.0)
 
 
-def _add(agg, n, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
+def _add(agg, n, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, cores_ms):
     agg["max_abs_err"] = max(agg["max_abs_err"], err)
     agg["ms"] += n * ms
     agg["plain_ms"] += n * plain_ms
@@ -324,14 +340,25 @@ def _add(agg, n, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms):
     agg["bound_ms"] += n * max(bytes_ms, ops_ms)
     agg["bytes_ms"] += n * bytes_ms
     agg["ops_ms"] += n * ops_ms
+    agg["fp32_cores_bound_ms"] += n * cores_ms
+
+
+def _bound_fields(kernel, bytes_ms, ops_ms, cores_ms):
+    out = {"bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    if kernel in TENSOR_CORE_KERNELS:
+        out["fp32_cores_bound_ms"] = cores_ms
+    return out
 
 
 def _forward_line(phase, kernel, shape, n, case):
     """Check and time one forward kernel at `shape`; emit its line and return
-    (err, ms, plain_ms, library_ms, bytes_ms, ops_ms)."""
+    (err, ms, plain_ms, library_ms, bytes_ms, ops_ms, cores_ms). The MLP
+    must also repeat itself bit for bit."""
     inputs, op, plain, library, _ = case
     with torch.no_grad():
         got, want = op(*inputs), plain(*inputs)
+        same = kernel != "mlp" or torch.equal(got, op(*inputs))
         torch.cuda.synchronize()
         err = (got - want).abs()
         ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
@@ -339,17 +366,19 @@ def _forward_line(phase, kernel, shape, n, case):
         ms = cuda_ms(lambda: op(*inputs), 5 if heavy else 20)
         plain_ms = cuda_ms(lambda: plain(*inputs), 2 if heavy else 10, warmup=1)
         lib_ms = None if library is None else cuda_ms(lambda: library(*inputs), 20)
-    bytes_ms, ops_ms = _bound(kernel, shape)
+    bounds = _bound(kernel, shape)
     emit({"phase": phase, "kernel": kernel, "shape": list(shape),
           "calls_per_" + ("forward" if phase == "kernel" else "step"): n,
           "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
+          **({"bit_identical_twice": same} if kernel == "mlp" else {}),
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-          "bound_ms": max(bytes_ms, ops_ms),
-          "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+          **_bound_fields(kernel, *bounds)})
     if not ok:
         fail(f"{kernel} at {shape} disagrees with its plain version "
              f"(max abs err {float(err.max())})")
-    return float(err.max()), ms, plain_ms, lib_ms, bytes_ms, ops_ms
+    if not same:
+        fail(f"{kernel} at {shape} differs between two launches")
+    return (float(err.max()), ms, plain_ms, lib_ms, *bounds)
 
 
 def phase_kernels(calls, dev):
@@ -414,23 +443,45 @@ def phase_kernel_train(calls, dev):
                 out_l = library(*lib_in)
                 lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, lib_in, dy, retain_graph=True),
                                  20)
-            bytes_ms, ops_ms = _bound(op + "_bwd", shape)
+            bounds = _bound(op + "_bwd", shape)
             emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape),
                   "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
                   "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
                   "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "bound_ms": max(bytes_ms, ops_ms),
-                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"})
+                  "library_ms": lib_ms, **_bound_fields(op + "_bwd", *bounds)})
             if not ok:
                 fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
                      f"(max abs err {err}, {scaled} of the largest gradient)")
             if not same:
                 fail(f"{op} backward at {shape} differs between two launches")
-            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms)
+            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, *bounds)
             del case, inputs, got, want, first, second, run, out_p
         torch.cuda.empty_cache()
         results[op], results[op + "_bwd"] = fwd, bwd
     return results
+
+
+def phase_mlp_paths(calls, dev):
+    """Both designs of the MLP forward at every training shape, whichever
+    the wrapper takes there: the fused kernel (hidden on chip) and the two
+    tiled passes, each held against the plain version and timed."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for shape, n in sorted(calls.items(), key=str):
+        inputs, _, plain, _, _ = make_case("mlp", shape, dev, gen)
+        line = {"phase": "mlp_paths", "shape": list(shape), "calls_per_step": n,
+                "wrapper_takes": "fused" if shape[1] <= mlp.FUSED_MAX_OUT else "two_pass"}
+        with torch.no_grad():
+            want = plain(*inputs)
+            for name, fused in (("fused", True), ("two_pass", False)):
+                def run():
+                    return mlp.mlp_fwd(*inputs, fused=fused)
+                err = (run() - want).abs()
+                if not bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs())):
+                    fail(f"mlp {name} at {shape} disagrees with its plain version "
+                         f"(max abs err {float(err.max())})")
+                line[name + "_max_abs_err"] = float(err.max())
+                line[name + "_ms"] = cuda_ms(run, 20)
+        emit(line)
 
 
 # where each kernel's launch counter lives
@@ -597,7 +648,7 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",), "scan_bwd": ("selective_
                 "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd",),
                 "ln_mean": ("lnm_partial", "lnm_reduce"), "ln_mean_bwd": ("lnm_bwd",),
                 "dwconv": ("dwconv3x3_fwd_kernel",), "dwconv_bwd": ("dwconv3x3_bwd_kernel",),
-                "mlp": ("fused_mlp_fwd_kernel",), "mlp_bwd": ("mlp_bwd_",),
+                "mlp": ("mlp_fwd_",), "mlp_bwd": ("mlp_bwd_",),
                 "library_conv": ("conv", "fprop", "dgrad", "wgrad", "cudnn"),
                 "library_matmul": ("gemm", "cutlass", "cublas"),
                 "optimizer": ("adam", "multi_tensor")}
@@ -703,8 +754,10 @@ def main() -> None:
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
     serving = phase_kernels(calls, dev)
     results = phase_kernel_train(tcalls, dev)
+    phase_mlp_paths(tcalls["mlp"], dev)
     emit({"phase": "kernel", "per_forward_of_serving": {
-        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms")}
+        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms")
+            and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
         for k, r in serving.items()}})
     phase_main_path(calls, smi)
     phase_parity(dev)
@@ -721,7 +774,9 @@ def main() -> None:
             "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({"fp32_cores_bound_ms": r["fp32_cores_bound_ms"]}
+               if k in TENSOR_CORE_KERNELS else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "times": "per training step of the main path (full config, 6 pairs of 256^2): "
                    "sum over its shapes of calls x time; launches from the 12-step run"})

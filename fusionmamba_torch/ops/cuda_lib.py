@@ -44,11 +44,12 @@ SIGNATURES = {
     "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # x, w (C,9), bias, dy, dx, part, B, H, W, C, act_silu, stream
     "fm_dwconv3x3_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
-    # x, w1 (H,C), b1, w2 (C_out,H), b2, y, M, C, H, C_out, stream
-    "fm_fused_mlp_fwd": (_P,) * 6 + (_I,) * 4 + (_P,),
-    # x, dy, w1, b1, w2, a_buf, g_buf, dx, dw1_p, db1_p, dw2_p, db2_p, M, C, H,
-    # C_out, slice, stream
-    "fm_fused_mlp_bwd": (_P,) * 12 + (_I,) * 5 + (_P,),
+    # x, w1 (H,C), b1, w2 (C_out,H), b2, y, hidden (or null), partial (or
+    # null), M, C, H, C_out, slice_h, stream
+    "fm_fused_mlp_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
+    # x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx,
+    # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, stream
+    "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
 }
 
 _lib: ctypes.CDLL | None = None

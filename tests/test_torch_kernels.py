@@ -9,6 +9,8 @@ Inputs come from a seeded torch.Generator. Tolerances: the kernels and the
 plain versions do the same fp32 arithmetic in another order (and fused
 multiply-adds), so they differ by float32 rounding, a few ulp of the
 magnitudes summed; 1e-4 relative to the output scale bounds that with room.
+The MLP kernels form each fp32 product as three TF32 products, which keeps
+fp32-class accuracy (tests/test_torch_tf32x3.py holds the margin).
 """
 import pytest
 import torch
@@ -113,17 +115,38 @@ def test_dwconv_kernel(dev, act, shape):
                                dwconv.depthwise_conv3x3_plain(x, w, None, act), **TOL)
 
 
-@pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (512, 768, 3072)])
+_MLP_SHAPES = [(1, 16, 64), (37, 96, 384), (100, 20, 72), (512, 768, 3072),
+               (768, 768, 3072), (384, 768, 3072), (49152, 96, 384)]
+
+
+@pytest.mark.parametrize("M,C,H", _MLP_SHAPES)
 def test_mlp_kernel(dev, M, C, H):
+    """The tensor-core kernel at fp32 accuracy, ragged and main-path shapes;
+    two launches bit-identical."""
     g = torch.Generator().manual_seed(M + C)
     x = _rand(g, M, C).to(dev)
     w1, b1 = _rand(g, C, H, scale=C ** -0.5).to(dev), _rand(g, H, scale=0.1).to(dev)
     w2, b2 = _rand(g, H, C, scale=H ** -0.5).to(dev), _rand(g, C, scale=0.1).to(dev)
     before = mlp.launches
     got = mlp.fused_mlp(x, w1, b1, w2, b2)
+    again = mlp.fused_mlp(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
-    assert mlp.launches == before + 1
+    assert mlp.launches == before + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, mlp.fused_mlp_plain(x, w1, b1, w2, b2), **TOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("M,C,H", _MLP_SHAPES)
+def test_mlp_kernel_both_paths(dev, M, C, H, fused):
+    """Both forward designs (hidden on chip, two passes) at every shape,
+    whichever the wrapper would pick."""
+    g = torch.Generator().manual_seed(M + 3 * C)
+    x = _rand(g, M, C).to(dev)
+    w1, b1 = _rand(g, H, C, scale=C ** -0.5).to(dev), _rand(g, H, scale=0.1).to(dev)
+    w2, b2 = _rand(g, C, H, scale=H ** -0.5).to(dev), _rand(g, C, scale=0.1).to(dev)
+    got = mlp.mlp_fwd(x, w1, b1, w2, b2, fused=fused)
+    torch.testing.assert_close(got, mlp.fused_mlp_plain(x, w1.t(), b1, w2.t(), b2), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -233,7 +256,7 @@ def test_dwconv_backward_kernel(dev, act, has_bias, shape):
 
 
 @pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (768, 768, 3072),
-                                   (49152, 96, 384)])
+                                   (384, 768, 3072), (49152, 96, 384)])
 def test_mlp_backward_kernel(dev, M, C, H):
     g = torch.Generator().manual_seed(M + C)
     # weights as nn.Linear's (out, in) tensors passed as `.t()` views, as Mlp does
