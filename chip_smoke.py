@@ -11,7 +11,10 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                version at every shape of the serving path (full config, 8
                pairs of 256^2; the encoder runs both modalities as 16): max
                abs error and its tolerance, kernel, plain and library times
-               (CUDA events, warm L2), and the bound from bytes and operations.
+               (CUDA events, warm L2; where there is a library call also the
+               profiler's device time of both), and the bound: the largest of
+               bytes, fp32 operations and, for the scans, special-function
+               calls. The scan and the MLP must repeat themselves bit for bit.
   4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12):
                each forward kernel as in 3, and each of the five backward
                kernels against the autograd of its plain version: every
@@ -23,6 +26,10 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                repeat itself bit for bit.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
                each training shape: error against the plain version, time.
+     scan_paths - the scan kernels at every training and serving shape with L
+               cut as the wrapper cuts it and, where that is several chunks,
+               as one chunk: forward against the plain version, the two
+               backwards against each other, times.
   5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
@@ -79,6 +86,10 @@ TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
+# exp, log and the reciprocal run on the special-function units: 16 results a
+# clock an SM, at the card's top SM clock (set in main from nvidia-smi)
+SFU_PER_CLOCK_PER_SM = 16
+SFU_CALLS_PER_S = None
 # the MLP kernels form every fp32 product as three TF32 products (3xTF32,
 # fusionmamba_torch/csrc/mma_tf32x3.cuh): their bound is reckoned at a third
 # of the TF32 rate, and each of their lines also gives the CUDA-core bound
@@ -198,49 +209,58 @@ def train_calls(cfg, pairs: int, size: int):
 
 def bytes_and_ops(kernel: str, shape):
     """Bytes each call must move (inputs read once, outputs written once,
-    fp32) and the operations it does. A backward reads its forward's inputs
-    and the cotangent and writes a gradient for each input; it recomputes
-    what its forward computed."""
+    fp32), the fp32 operations it does and, for the scans, its calls of the
+    special-function units. A backward reads its forward's inputs and the
+    cotangent and writes a gradient for each input; it recomputes what its
+    forward computed."""
     if kernel == "scan":
         B, L, D, R = shape
         K, N = 4, 16
         elems = B * K * L * D
         nbytes = 4 * (2 * elems + B * K * L * (R + 2 * N) + K * D * (R + N + 2))
-        return nbytes, elems * (2 * R + 7 + 7 * N)
+        # per state: the exponent, the input term, two FMAs; the dt expansion
+        # and softplus. Special functions: an exp per state, softplus' exp and log
+        return nbytes, elems * (2 * R + 7 + 7 * N), elems * (N + 2)
     if kernel == "scan_bwd":
         B, L, D, R = shape
         K, N = 4, 16
         elems = B * K * L * D
-        nbytes = 4 * (3 * elems + 2 * B * K * L * (R + 2 * N) + 2 * K * D * (R + N + 2))
+        # also reads the states the forward saved every SAVE_EVERY steps
+        nbytes = 4 * (3 * elems + elems * N // scan_cuda.SAVE_EVERY
+                      + 2 * B * K * L * (R + 2 * N) + 2 * K * D * (R + N + 2))
         # recompute (exp, 2 FMAs per state) and the adjoint (about 16 per
-        # state), the dt expansion, its two gradients, softplus and its slope
-        return nbytes, elems * (20 * N + 6 * R + 15)
+        # state), the dt expansion, its two gradients, softplus and its slope.
+        # Special functions the gradients need: an exp per state, softplus'
+        # exp and log, the slope's reciprocal. (The kernel takes the exp a
+        # second time in the adjoint rather than keep it beside the state:
+        # its choice, not counted.)
+        return nbytes, elems * (20 * N + 6 * R + 15), elems * (N + 3)
     if kernel == "layer_norm":
         rows, C, gate = shape
         n = rows * C
-        return 4 * (n * (2 + (gate != "none")) + 2 * C), n * (7 + _GATE_OPS[gate])
+        return 4 * (n * (2 + (gate != "none")) + 2 * C), n * (7 + _GATE_OPS[gate]), 0
     if kernel == "layer_norm_bwd":
         rows, C, gate = shape
         n = rows * C
-        return 4 * (n * (3 + 2 * (gate != "none")) + 4 * C), n * (16 + 2 * _GATE_OPS[gate])
+        return 4 * (n * (3 + 2 * (gate != "none")) + 4 * C), n * (16 + 2 * _GATE_OPS[gate]), 0
     if kernel == "ln_mean":
         B, rows, C = shape
-        return 4 * (B * rows * C + B * C + 2 * C), 8 * B * rows * C
+        return 4 * (B * rows * C + B * C + 2 * C), 8 * B * rows * C, 0
     if kernel == "ln_mean_bwd":
         B, rows, C = shape
-        return 4 * (2 * B * rows * C + B * C + 3 * C), 12 * B * rows * C
+        return 4 * (2 * B * rows * C + B * C + 3 * C), 12 * B * rows * C, 0
     if kernel in ("dwconv", "dwconv_bwd"):
         B, H, W, C = shape
         n = B * H * W * C
         if kernel == "dwconv":
-            return 4 * (2 * n + 10 * C), n * (18 + 1 + 4)
+            return 4 * (2 * n + 10 * C), n * (18 + 1 + 4), 0
         # pre (18), silu' (8), dx (18), dw (18), dbias (1)
-        return 4 * (3 * n + 20 * C), n * 63
+        return 4 * (3 * n + 20 * C), n * 63, 0
     M, C, H = shape
     if kernel == "mlp":
-        return 4 * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H)
+        return 4 * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H), 0
     # five products of 2*M*C*H (h, dy W2, dx, dW1, dW2), GELU and its slope
-    return 4 * (3 * M * C + 4 * C * H + 2 * H + 2 * C), M * (10 * C * H + 30 * H)
+    return 4 * (3 * M * C + 4 * C * H + 2 * H + 2 * C), M * (10 * C * H + 30 * H), 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -318,34 +338,78 @@ def make_case(kernel, shape, dev, gen):
             lambda t, dy: lambda: mlp.mlp_bwd(t[0], t[1].t(), t[2], t[3].t(), t[4], dy))
 
 
+def device_ms(fn, reps: int = 3):
+    """Device time per call of `fn` (warm), from torch.profiler: the sum of its
+    kernels' durations, without the host's launch pace that paces CUDA events
+    over short kernels. None where the profiler recorded no device event in
+    two tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if spans:
+            return sum(spans) / 1e3 / reps
+    return None
+
+
 def _bound(kernel, shape):
     """(bytes ms, operations ms at the rate the kernel's design uses,
-    bound ms on the fp32 CUDA cores)."""
-    nbytes, nops = bytes_and_ops(kernel, shape)
+    special-function ms, bound ms on the fp32 CUDA cores)."""
+    nbytes, nops, nsfu = bytes_and_ops(kernel, shape)
     bytes_ms, cores_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
     ops_ms = 1e3 * nops / (TF32_OPS_PER_S / 3) if kernel in TENSOR_CORE_KERNELS else cores_ms
-    return bytes_ms, ops_ms, max(bytes_ms, cores_ms)
+    return bytes_ms, ops_ms, 1e3 * nsfu / SFU_CALLS_PER_S, max(bytes_ms, cores_ms)
 
 
 def _new_agg():
-    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
-                bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, fp32_cores_bound_ms=0.0)
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
+                library_device_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, sfu_ms=0.0,
+                fp32_cores_bound_ms=0.0)
 
 
-def _add(agg, n, err, ms, plain_ms, lib_ms, bytes_ms, ops_ms, cores_ms):
+def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms, sfu_ms,
+         cores_ms):
     agg["max_abs_err"] = max(agg["max_abs_err"], err)
     agg["ms"] += n * ms
     agg["plain_ms"] += n * plain_ms
-    agg["library_ms"] = None if lib_ms is None else agg["library_ms"] + n * lib_ms
-    agg["bound_ms"] += n * max(bytes_ms, ops_ms)
+    agg["library_ms"] = (None if lib_ms is None or agg["library_ms"] is None
+                         else agg["library_ms"] + n * lib_ms)
+    agg["device_ms"] = (None if dev_ms is None or agg["device_ms"] is None
+                        else agg["device_ms"] + n * dev_ms)
+    agg["library_device_ms"] = (None if lib_dev_ms is None or agg["library_device_ms"] is None
+                                else agg["library_device_ms"] + n * lib_dev_ms)
+    agg["bound_ms"] += n * max(bytes_ms, ops_ms, sfu_ms)
     agg["bytes_ms"] += n * bytes_ms
     agg["ops_ms"] += n * ops_ms
+    agg["sfu_ms"] += n * sfu_ms
     agg["fp32_cores_bound_ms"] += n * cores_ms
 
 
-def _bound_fields(kernel, bytes_ms, ops_ms, cores_ms):
-    out = {"bound_ms": max(bytes_ms, ops_ms),
-           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+def _bound_by(kernel, bytes_ms, ops_ms, sfu_ms):
+    """Which of the three terms is the largest. `bound_by` is bytes or
+    operations; special-function calls are operations too, so where it is
+    operations `operations_kind` says which: fp32 (the tensor cores' 3xTF32
+    for the MLP kernels) or special_function."""
+    if bytes_ms >= max(ops_ms, sfu_ms):
+        return {"bound_by": "bytes"}
+    arithmetic = "tf32x3" if kernel in TENSOR_CORE_KERNELS else "fp32"
+    return {"bound_by": "operations",
+            "operations_kind": "special_function" if sfu_ms >= ops_ms else arithmetic}
+
+
+def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms):
+    """The bound of one call and what sets it, for a per-shape line."""
+    out = {"bound_ms": max(bytes_ms, ops_ms, sfu_ms),
+           **_bound_by(kernel, bytes_ms, ops_ms, sfu_ms)}
+    if sfu_ms:
+        out["special_function_bound_ms"] = sfu_ms
     if kernel in TENSOR_CORE_KERNELS:
         out["fp32_cores_bound_ms"] = cores_ms
     return out
@@ -353,32 +417,38 @@ def _bound_fields(kernel, bytes_ms, ops_ms, cores_ms):
 
 def _forward_line(phase, kernel, shape, n, case):
     """Check and time one forward kernel at `shape`; emit its line and return
-    (err, ms, plain_ms, library_ms, bytes_ms, ops_ms, cores_ms). The MLP
-    must also repeat itself bit for bit."""
+    (err, ms, plain_ms, library_ms, device_ms, library_device_ms, bytes_ms,
+    ops_ms, sfu_ms, cores_ms). The scan and the MLP must also repeat themselves
+    bit for bit."""
     inputs, op, plain, library, _ = case
     with torch.no_grad():
         got, want = op(*inputs), plain(*inputs)
-        same = kernel != "mlp" or torch.equal(got, op(*inputs))
+        repeats = kernel in ("mlp", "scan")
+        same = not repeats or torch.equal(got, op(*inputs))
         torch.cuda.synchronize()
         err = (got - want).abs()
         ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
         heavy = kernel == "scan"
         ms = cuda_ms(lambda: op(*inputs), 5 if heavy else 20)
         plain_ms = cuda_ms(lambda: plain(*inputs), 2 if heavy else 10, warmup=1)
-        lib_ms = None if library is None else cuda_ms(lambda: library(*inputs), 20)
+        dev_ms, lib_ms, lib_dev_ms = device_ms(lambda: op(*inputs)), None, None
+        if library is not None:
+            lib_ms = cuda_ms(lambda: library(*inputs), 20)
+            lib_dev_ms = device_ms(lambda: library(*inputs))
     bounds = _bound(kernel, shape)
     emit({"phase": phase, "kernel": kernel, "shape": list(shape),
           "calls_per_" + ("forward" if phase == "kernel" else "step"): n,
           "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
-          **({"bit_identical_twice": same} if kernel == "mlp" else {}),
+          **({"bit_identical_twice": same} if repeats else {}),
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "kernel_device_ms": dev_ms, "library_device_ms": lib_dev_ms,
           **_bound_fields(kernel, *bounds)})
     if not ok:
         fail(f"{kernel} at {shape} disagrees with its plain version "
              f"(max abs err {float(err.max())})")
     if not same:
         fail(f"{kernel} at {shape} differs between two launches")
-    return (float(err.max()), ms, plain_ms, lib_ms, *bounds)
+    return (float(err.max()), ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
 
 
 def phase_kernels(calls, dev):
@@ -437,24 +507,31 @@ def phase_kernel_train(calls, dev):
             out_p = plain(*inputs)
             plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, inputs, dy, retain_graph=True),
                                1 if heavy else 10, warmup=1)
-            lib_ms = None
+            with torch.no_grad():
+                dev_ms = device_ms(run)
+            lib_ms = lib_dev_ms = None
             if library is not None:
                 lib_in = inputs[:3] if op == "layer_norm" else inputs   # F.layer_norm: no gate
                 out_l = library(*lib_in)
-                lib_ms = cuda_ms(lambda: torch.autograd.grad(out_l, lib_in, dy, retain_graph=True),
-                                 20)
+
+                def lib_run():
+                    return torch.autograd.grad(out_l, lib_in, dy, retain_graph=True)
+
+                lib_ms = cuda_ms(lib_run, 20)
+                lib_dev_ms = device_ms(lib_run)
             bounds = _bound(op + "_bwd", shape)
             emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape),
                   "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
                   "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
                   "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, **_bound_fields(op + "_bwd", *bounds)})
+                  "library_ms": lib_ms, "kernel_device_ms": dev_ms,
+                  "library_device_ms": lib_dev_ms, **_bound_fields(op + "_bwd", *bounds)})
             if not ok:
                 fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
                      f"(max abs err {err}, {scaled} of the largest gradient)")
             if not same:
                 fail(f"{op} backward at {shape} differs between two launches")
-            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, *bounds)
+            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
             del case, inputs, got, want, first, second, run, out_p
         torch.cuda.empty_cache()
         results[op], results[op + "_bwd"] = fwd, bwd
@@ -482,6 +559,65 @@ def phase_mlp_paths(calls, dev):
                 line[name + "_max_abs_err"] = float(err.max())
                 line[name + "_ms"] = cuda_ms(run, 20)
         emit(line)
+
+
+def phase_scan_paths(train_shapes, serve_shapes, dev):
+    """The scan kernels at every training and serving shape with L cut into
+    chunks as the wrapper cuts it (`scan_cuda._pick_chunk`) and, where that is
+    more than one chunk, also with L as one chunk: the forward held against
+    the plain version, the two backwards' gradients against each other, and
+    the times of the serving forward, the training forward (saving states)
+    and the backward."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    K = 4
+    shapes = {**{s: ("train", n) for s, n in train_shapes.items()},
+              **{s: ("serve", n) for s, n in serve_shapes.items()}}
+    for shape, (path, n) in sorted(shapes.items(), key=str):
+        B, L, D, R = shape
+        t, _, plain, _, _ = make_case("scan", shape, dev, gen)
+        one = -(-L // 16) * 16
+        picked = {"fwd": scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.FWD_WARPS_PER_SM),
+                  "bwd": scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.BWD_WARPS_PER_SM)}
+        line = {"phase": "scan_paths", "shape": list(shape), "path": path,
+                "calls_per_" + ("step" if path == "train" else "forward"): n,
+                "one_chunk": one, "picked_chunk": picked}
+        cuts = [("picked", picked["fwd"], picked["bwd"])]
+        if picked["fwd"] < one or (path == "train" and picked["bwd"] < one):
+            cuts.append(("one_chunk", one, one))
+        with torch.no_grad():
+            want = plain(*t)
+            dy = torch.randn(want.shape, device=dev, generator=gen)
+            grads = {}
+            for name, fwd_chunk, bwd_chunk in cuts:
+                def fwd(save=False, chunk=fwd_chunk):
+                    return scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=save,
+                                                        chunk=chunk)
+                err = (fwd() - want).abs()
+                if not bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs())):
+                    fail(f"scan {name} at {shape} disagrees with its plain version "
+                         f"(max abs err {float(err.max())})")
+                line[name + "_max_abs_err"] = float(err.max())
+                line[name + "_fwd_ms"] = cuda_ms(fwd, 10)
+                if path == "train":
+                    line[name + "_fwd_saving_ms"] = cuda_ms(lambda: fwd(True), 10)
+                    hsave = fwd(True)[1]
+
+                    def bwd(chunk=bwd_chunk):
+                        return scan_cuda.selective_scan_bwd(*t, hsave, dy, True, chunk=chunk)
+                    grads[name] = bwd()
+                    line[name + "_bwd_ms"] = cuda_ms(bwd, 10)
+            if len(grads) == 2:
+                worst = 0.0
+                for g, w in zip(grads["picked"], grads["one_chunk"]):
+                    e, top = (g - w).abs(), float(w.abs().max())
+                    if not bool(torch.all(e <= GRAD_RTOL * w.abs() + GRAD_SCALED_ATOL * top)):
+                        fail(f"scan backward at {shape}: chunked and one-chunk gradients differ "
+                             f"by {float(e.max())}")
+                    worst = max(worst, float(e.max()) / max(top, 1e-30))
+                line["bwd_chunked_vs_one_chunk_err_over_max_grad"] = worst
+        emit(line)
+        del t, want, grads
+        torch.cuda.empty_cache()
 
 
 # where each kernel's launch counter lives
@@ -644,7 +780,9 @@ def phase_train_parity(dev, steps: int = 5):
 
 # kernel-name fragments of each kernel in a profiler trace, then the groups
 # of the library's kernels
-_TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",), "scan_bwd": ("selective_scan_bwd_kernel",),
+_TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
+                "scan_bwd": ("selective_scan_bwd", "scan_bwd_reduce"),
+                "scan_carry": ("carry_kernel",),   # the chunk carries, forward and backward
                 "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd",),
                 "ln_mean": ("lnm_partial", "lnm_reduce"), "ln_mean_bwd": ("lnm_bwd",),
                 "dwconv": ("dwconv3x3_fwd_kernel",), "dwconv_bwd": ("dwconv3x3_bwd_kernel",),
@@ -738,7 +876,15 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
+    global SFU_CALLS_PER_S
+    max_sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_CALLS_PER_S = SFU_PER_CLOCK_PER_SM * sms * max_sm_mhz * 1e6
     emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
+          "sms": sms, "max_sm_clock_mhz": max_sm_mhz,
+          "special_function_calls_per_s": SFU_CALLS_PER_S,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
                          torch.backends.cudnn.allow_tf32]})
@@ -755,8 +901,9 @@ def main() -> None:
     serving = phase_kernels(calls, dev)
     results = phase_kernel_train(tcalls, dev)
     phase_mlp_paths(tcalls["mlp"], dev)
+    phase_scan_paths(tcalls["scan"], calls["scan"], dev)
     emit({"phase": "kernel", "per_forward_of_serving": {
-        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms")
+        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
         for k, r in serving.items()}})
     phase_main_path(calls, smi)
@@ -773,8 +920,9 @@ def main() -> None:
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            "library_ms": r["library_ms"],
+            **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"],
             **({"fp32_cores_bound_ms": r["fp32_cores_bound_ms"]}
                if k in TENSOR_CORE_KERNELS else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

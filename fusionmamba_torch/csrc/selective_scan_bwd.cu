@@ -16,237 +16,495 @@
 // with e = exp(delta A). The state before a step is never recovered by
 // dividing by e, which underflows to 0 at large delta; it is recomputed.
 //
-// What bounds it: latency. Each channel walks its L steps in order twice
-// (recompute, then the adjoint), and at the first stage there are only
-// B*K*D = 9,216 channels for 132 SMs; the bytes (u, dy, du, the low-rank dt,
-// B, C and their gradients, and the saved states) would take far less.
-// Design: one thread per channel, as in the forward. The forward saved the N
-// states at the start of every T steps (hsave, (B*K, ceil(L/T), N, D)). The
-// backward walks the chunks of T steps in reverse: it recomputes the chunk's
-// states from the saved ones into shared memory (one column per thread, so
-// no bank conflicts), then runs the adjoint over the chunk with g, dA in
-// registers. Sums over d (dB, dC, d(dt)) are reduced across the warp with
-// shuffles and across the block's two warps in shared memory, and written as
-// per-d-block partials; per-channel sums (dA, dD, dbias, dW) are written per
-// (b, k) channel. The caller sums both kinds in a fixed order, so there are
-// no atomics and the result repeats bit for bit.
-#include <cuda_runtime.h>
+// What bounds it on this card. Per (b,k,l,d) element it moves 12 bytes (u
+// and dy in, du out) plus the saved states, does about 20N + 6R + 15 fp32
+// operations and needs N + 3 special-function calls (an exp per state; the
+// softplus' exp and log and the slope's reciprocal). At N = 16 the fp32
+// operations set the bound, ahead of the special-function units (16 results
+// a clock an SM) and the bytes. This design takes 2N + 3 special-function
+// calls: the adjoint repeats the recompute's exp(delta A) rather than keep
+// it beside each state in the shared-memory tile, which would double the
+// tile. Beyond the bound a design loses to latency (each channel walks its
+// steps in order, twice) and to the sums over d.
+//
+// Design (scan_common.cuh has the layout and the algebra).
+//  * A block owns 64 channels of one (b, k) and one chunk of steps; a
+//    channel's 16 states lie over 4 lanes (8 warps a block), so g, A and dA
+//    are 4 registers each and du and d(delta) two shuffles a step.
+//  * The forward saved the states at the start of every T steps (hsave,
+//    (B*K, ceil(L/T), D, N)). The block walks its chunk's tiles of T steps in
+//    reverse: recompute the tile's states from the saved ones into shared
+//    memory, then the adjoint over the tile. Nothing in either serial loop
+//    touches device memory: u, dy, dt, B, C and the saved states of the next
+//    tile arrive through a two-stage cp.async ring while this one runs; du
+//    (and d(dt) when R == 0) leave as whole tiles, 16 bytes a thread.
+//  * No shuffle tree per step for the sums over d. dC_n[t] = sum_d dy h is
+//    taken once a tile from the recomputed states in shared memory, with
+//    threads laid over (t, n). The adjoint overwrites each state it has used
+//    with its term g delta u, and dB_n[t] is the same sum over those. d(dt)
+//    and dW are sums over the tile's dx in shared memory, threads over (t, r)
+//    and (d, r). All in a fixed order: no atomics, two launches agree bit
+//    for bit.
+//  * Where B*K*D channels cannot fill the card, L is cut into chunks that
+//    run in parallel. A local pass runs the adjoint of every chunk from a
+//    zero start (g only: one exp and two multiply-adds a state), the carry
+//    pass turns the results into the true g entering each chunk, and the
+//    main pass starts every chunk from it. The recompute needs no carries:
+//    the saved states are true states.
+//  * Sums over d are written as per-d-block partials, per-channel sums (dA,
+//    dD, dbias, dW) as per-(b, k, chunk) partials; one more launch sums all
+//    of them in a fixed order.
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;  // channels per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxN = 16;     // largest state size held in registers
+using namespace fm_scan;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+constexpr int kDB = 64;                    // channels per block
+constexpr int kThreads = kDB * kGroups;    // 256
+constexpr int kHS = kDB * kMaxN + 16;      // floats between two steps of h_s: the pad
+                                           // shifts the banks of neighbouring steps
+constexpr int kTileL = 16;                 // steps per tile of the local pass
+
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+__host__ __device__ inline int w_floats(int R) { return round4(R * (kDB + 1)); }
+__host__ __device__ inline int dt_floats(int R, int T) { return R > 0 ? round4(T * R) : T * kDB; }
+__host__ __device__ inline int stage_floats(int N, int R, int T) {
+  return 2 * T * kDB + dt_floats(R, T) + 2 * round4(T * N) + kDB * kMaxN;
 }
-
 __host__ __device__ inline size_t smem_floats(int N, int R, int T) {
-  return 2 * (size_t)R * kThreads         // w_s, dw_s
-         + (size_t)T * (R + 2 * N)        // dt_s, b_s, c_s
-         + 2 * (size_t)T * kThreads       // del_s, dsp_s
-         + (size_t)(T + 1) * N * kThreads // h_s
-         + (size_t)kWarps * T * (2 * N + R);  // red_s
+  return 2 * (size_t)w_floats(R) + kDB + 2 * (size_t)T * kDB + (size_t)(T + 1) * kHS +
+         2 * (size_t)stage_floats(N, R, T);
+}
+__host__ __device__ inline int local_stage_floats(int N, int R) {
+  return kTileL * kDB + dt_floats(R, kTileL) + kTileL * N;
+}
+__host__ __device__ inline size_t local_smem_floats(int N, int R) {
+  return (size_t)w_floats(R) + kDB + kTileL * kDB + 2 * (size_t)local_stage_floats(N, R);
 }
 
+// The adjoint of chunks 1 .. n_chunk-1 from a zero start: what each hands to
+// the chunk before it (e g at its first step) goes to `carry`, its sum of
+// delta to `sdel`.
+template <bool FULL>
 __global__ void __launch_bounds__(kThreads)
+selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __restrict__ W,
+                                const float* __restrict__ A, const float* __restrict__ Cm,
+                                const float* __restrict__ bias, const float* __restrict__ dy,
+                                float* __restrict__ carry, float* __restrict__ sdel, int K, int L,
+                                int dim, int N, int R, int softplus, int chunk_len,
+                                int n_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;
+  float* bias_s = w_s + w_floats(R);
+  float* del_s = bias_s + kDB;
+  float* ring = del_s + kTileL * kDB;
+  const int stage_sz = local_stage_floats(N, R);
+
+  const int tid = threadIdx.x, dl = tid / kGroups, g = tid % kGroups;
+  const int bk = blockIdx.z, k = bk % K, c = blockIdx.y + 1;
+  const int d0 = blockIdx.x * kDB, d = d0 + dl;
+  const bool active = d < dim;
+  const int dc = active ? d : dim - 1;
+  const int cols = min(kDB, dim - d0);
+  const int l_begin = c * chunk_len, l_end = min(L, l_begin + chunk_len);
+  const int n_tiles = (l_end - l_begin + kTileL - 1) / kTileL;
+  const size_t row0 = (size_t)bk * L;
+
+  if (cols < kDB) {
+    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = 0.f;
+  }
+  load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
+  float a2[kPer], gc[kPer];
+#pragma unroll
+  for (int j = 0; j < kPer; ++j) {
+    const int n = g * kPer + j;
+    a2[j] = n < N ? kLog2e * A[((size_t)k * dim + dc) * N + n] : 0.f;  // for exp2_approx
+    gc[j] = 0.f;
+  }
+  float sum_delta = 0.f;
+
+  auto prefetch = [&](int i) {  // the i-th tile from the chunk's end
+    float* dy_s = ring + (i & 1) * stage_sz;
+    float* dt_s = dy_s + kTileL * kDB;
+    float* c_s = dt_s + dt_floats(R, kTileL);
+    const int l0 = l_begin + (n_tiles - 1 - i) * kTileL, Tc = min(kTileL, l_end - l0);
+    stage_rows<kDB>(dy_s, dy + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
+    if (R > 0) {
+      stage_span(dt_s, dt + (row0 + l0) * R, Tc * R, tid, kThreads);
+    } else {
+      stage_rows<kDB>(dt_s, dt + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
+    }
+    stage_span(c_s, Cm + (row0 + l0) * N, Tc * N, tid, kThreads);
+    cp_async_commit();
+  };
+
+  __syncthreads();
+  prefetch(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (i + 1 < n_tiles) prefetch(i + 1);
+    const float* dy_s = ring + (i & 1) * stage_sz;
+    const float* dt_s = dy_s + kTileL * kDB;
+    const float* c_s = dt_s + dt_floats(R, kTileL);
+    const int l0 = l_begin + (n_tiles - 1 - i) * kTileL, Tc = min(kTileL, l_end - l0);
+    delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
+    __syncthreads();
+#pragma unroll 4
+    for (int t = Tc - 1; t >= 0; --t) {
+      const float delta = del_s[t * kDB + dl];
+      const float dyv = dy_s[t * kDB + dl];
+      float cv[kPer];
+      load_group<FULL>(c_s + t * N, N, g, cv);
+      sum_delta += delta;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) gc[j] = exp2_approx(delta * a2[j]) * fmaf(cv[j], dyv, gc[j]);
+    }
+  }
+  if (active) {
+    const size_t at = ((size_t)bk * n_chunk + c) * dim;
+    store_states<FULL>(carry + at * N, d, N, g, gc);
+    if (g == 0) sdel[at + d] = sum_delta;
+  }
+}
+
+template <bool FULL>
+__global__ void __launch_bounds__(kThreads, 3)
 selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
                           const float* __restrict__ W, const float* __restrict__ A,
                           const float* __restrict__ Bm, const float* __restrict__ Cm,
                           const float* __restrict__ Dp, const float* __restrict__ bias,
-                          const float* __restrict__ hsave, const float* __restrict__ dy,
-                          float* __restrict__ du, float* __restrict__ ddt,
-                          float* __restrict__ dW_p, float* __restrict__ dA_p,
-                          float* __restrict__ dB_p, float* __restrict__ dC_p,
-                          float* __restrict__ dD_p, float* __restrict__ dbias_p, int K, int L,
-                          int dim, int N, int R, int T, int softplus) {
-  extern __shared__ float smem[];
-  float* w_s = smem;                          // [R][kThreads]
-  float* dw_s = w_s + R * kThreads;           // [R][kThreads]
-  float* dt_s = dw_s + R * kThreads;          // [T][R]
-  float* b_s = dt_s + T * R;                  // [T][N]
-  float* c_s = b_s + T * N;                   // [T][N]
-  float* del_s = c_s + T * N;                 // [T][kThreads]
-  float* dsp_s = del_s + T * kThreads;        // [T][kThreads]
-  float* h_s = dsp_s + T * kThreads;          // [(T+1)*N][kThreads]
-  float* red_s = h_s + (T + 1) * N * kThreads;  // [kWarps][T][2N+R]
+                          const float* __restrict__ hsave, const float* __restrict__ carry,
+                          const float* __restrict__ dy, float* __restrict__ du,
+                          float* __restrict__ ddt, float* __restrict__ dW_p,
+                          float* __restrict__ dA_p, float* __restrict__ dB_p,
+                          float* __restrict__ dC_p, float* __restrict__ dD_p,
+                          float* __restrict__ dbias_p, int K, int L, int dim, int N, int R, int T,
+                          int softplus, int chunk_len, int n_chunk) {
+  extern __shared__ __align__(16) float smem[];
+  float* w_s = smem;                        // [R][kDB + 1]
+  float* dw_s = w_s + w_floats(R);          // [R][kDB + 1]
+  float* bias_s = dw_s + w_floats(R);       // [kDB]
+  float* del_s = bias_s + kDB;              // [T][kDB] delta
+  float* dx_s = del_s + T * kDB;            // [T][kDB] sigmoid(x), then the gradient of x
+  float* h_s = dx_s + T * kDB;              // [T + 1][kHS]: states, then the terms of dB
+  float* ring = h_s + (T + 1) * kHS;        // 2 stages of u, dy, dt, B, C, saved states
+  const int stage_sz = stage_floats(N, R, T);
+  const int dt_sz = dt_floats(R, T), bc_sz = round4(T * N);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int bk = blockIdx.y;
-  const int k = bk % K;
+  const int tid = threadIdx.x, dl = tid / kGroups, g = tid % kGroups;
+  const int bk = blockIdx.z, k = bk % K, c = blockIdx.y;
   const int dblk = blockIdx.x, n_dblk = gridDim.x;
-  const int d = dblk * kThreads + tid;
+  const int d0 = dblk * kDB, d = d0 + dl;
   const bool active = d < dim;
   const int dc = active ? d : dim - 1;
-  const int V = 2 * N + R;
+  const int cols = min(kDB, dim - d0);
+  const int l_begin = c * chunk_len, l_end = min(L, l_begin + chunk_len);
+  const int n_tiles = (l_end - l_begin + T - 1) / T;
+  const int n_save = (L + T - 1) / T;
+  const size_t row0 = (size_t)bk * L;
 
-  float a[kMaxN], gc[kMaxN], dA[kMaxN];
+  if (cols < kDB) {  // the columns past `dim` are never copied: they read as 0
+    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = 0.f;
+  }
+  load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
+  for (int i = tid; i < w_floats(R); i += kThreads) dw_s[i] = 0.f;
+
+  float a[kPer], a2[kPer], gc[kPer], dA[kPer];
 #pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    a[n] = n < N ? A[((size_t)k * dim + dc) * N + n] : 0.f;
-    gc[n] = 0.f;
-    dA[n] = 0.f;
+  for (int j = 0; j < kPer; ++j) {
+    const int n = g * kPer + j;
+    a[j] = n < N ? A[((size_t)k * dim + dc) * N + n] : 0.f;
+    a2[j] = kLog2e * a[j];  // for exp2_approx
+    gc[j] = 0.f;
+    dA[j] = 0.f;
+  }
+  // Lanes past `dim` keep g = 0: with their dy reading as 0 everything they
+  // write into the staged tiles (du, dx, the terms of dB) is 0, which the
+  // sums over the block's 64 columns rely on.
+  if (carry && active) {
+    load_states<FULL>(carry + ((size_t)bk * n_chunk + c) * dim * N, d, N, g, gc);
   }
   const float dskip = Dp ? Dp[(size_t)k * dim + dc] : 0.f;
-  const float dbias = bias ? bias[(size_t)k * dim + dc] : 0.f;
-  for (int r = 0; r < R; ++r) {
-    w_s[r * kThreads + tid] = W[((size_t)k * dim + dc) * R + r];
-    dw_s[r * kThreads + tid] = 0.f;
-  }
   float dD = 0.f, dbias_acc = 0.f;
 
-  const size_t row0 = (size_t)bk * L;
-  const int n_chunk = (L + T - 1) / T;
-  for (int c = n_chunk - 1; c >= 0; --c) {
-    const int l0 = c * T;
-    const int Tc = min(T, L - l0);
-    __syncthreads();  // the previous chunk's staged inputs and red_s are consumed
-    for (int i = tid; i < Tc * R; i += kThreads) dt_s[i] = dt[(row0 + l0) * R + i];
-    for (int i = tid; i < Tc * N; i += kThreads) {
-      b_s[i] = Bm[(row0 + l0) * N + i];
-      c_s[i] = Cm[(row0 + l0) * N + i];
+  auto prefetch = [&](int i) {  // the i-th tile from the chunk's end
+    float* u_s = ring + (i & 1) * stage_sz;
+    float* dy_s = u_s + T * kDB;
+    float* dt_s = dy_s + T * kDB;
+    float* b_s = dt_s + dt_sz;
+    float* c_s = b_s + bc_sz;
+    float* h0_s = c_s + bc_sz;
+    const int l0 = l_begin + (n_tiles - 1 - i) * T, Tc = min(T, l_end - l0);
+    stage_rows<kDB>(u_s, u + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
+    stage_rows<kDB>(dy_s, dy + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
+    if (R > 0) {
+      stage_span(dt_s, dt + (row0 + l0) * R, Tc * R, tid, kThreads);
+    } else {
+      stage_rows<kDB>(dt_s, dt + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
     }
+    stage_span(b_s, Bm + (row0 + l0) * N, Tc * N, tid, kThreads);
+    stage_span(c_s, Cm + (row0 + l0) * N, Tc * N, tid, kThreads);
+    stage_span(h0_s, hsave + (((size_t)bk * n_save + l0 / T) * dim + d0) * N, cols * N, tid,
+               kThreads);
+    cp_async_commit();
+  };
+
+  __syncthreads();
+  prefetch(0);
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // tile i has arrived; tile i - 1 is consumed
+    if (i + 1 < n_tiles) prefetch(i + 1);
+    float* u_s = ring + (i & 1) * stage_sz;  // u, then du
+    const float* dy_s = u_s + T * kDB;
+    const float* dt_s = dy_s + T * kDB;
+    const float* b_s = dt_s + dt_sz;
+    const float* c_s = b_s + bc_sz;
+    const float* h0_s = c_s + bc_sz;
+    const int l0 = l_begin + (n_tiles - 1 - i) * T, Tc = min(T, l_end - l0);
+    delta_phase<kDB>(dt_s, w_s, bias_s, del_s, dx_s, Tc, R, softplus, tid, kThreads);
     __syncthreads();
 
-    // recompute the chunk's states from the saved start state
+    // recompute the tile's states from the saved start state
     {
-      float h[kMaxN];
-      const float* hs = hsave + ((size_t)bk * n_chunk + c) * N * dim + dc;
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < N) {
-          h[n] = hs[(size_t)n * dim];
-          h_s[n * kThreads + tid] = h[n];
-        }
-      }
+      float h[kPer];
+      load_group<FULL>(h0_s + dl * N, N, g, h);
+      float* hp = h_s + tid * kPer;
+      *reinterpret_cast<float4*>(hp) = make_float4(h[0], h[1], h[2], h[3]);
+#pragma unroll 4
       for (int t = 0; t < Tc; ++t) {
-        const size_t idx = (row0 + l0 + t) * dim + dc;
-        float x;
-        if (R > 0) {
-          x = 0.f;
-          for (int r = 0; r < R; ++r) x = fmaf(dt_s[t * R + r], w_s[r * kThreads + tid], x);
-        } else {
-          x = dt[idx];
-        }
-        x += dbias;
-        float delta = x, dsp = 1.f;
-        if (softplus) {
-          const float e = expf(-fabsf(x));
-          delta = fmaxf(x, 0.f) + log1pf(e);
-          dsp = x >= 0.f ? 1.f / (1.f + e) : e / (1.f + e);  // sigmoid(x)
-        }
-        del_s[t * kThreads + tid] = delta;
-        dsp_s[t * kThreads + tid] = dsp;
-        const float dbu = delta * u[idx];
+        const float delta = del_s[t * kDB + dl];
+        const float dbu = delta * u_s[t * kDB + dl];
+        float bv[kPer];
+        load_group<FULL>(b_s + t * N, N, g, bv);
 #pragma unroll
-        for (int n = 0; n < kMaxN; ++n) {
-          if (n < N) {
-            h[n] = expf(delta * a[n]) * h[n] + dbu * b_s[t * N + n];
-            h_s[((t + 1) * N + n) * kThreads + tid] = h[n];
-          }
-        }
-      }
-    }
-
-    // the adjoint over the chunk, last step first
-    for (int t = Tc - 1; t >= 0; --t) {
-      const size_t idx = (row0 + l0 + t) * dim + dc;
-      const float dyv = active ? dy[idx] : 0.f;  // inactive lanes contribute 0
-      const float uv = u[idx];
-      const float delta = del_s[t * kThreads + tid];
-      float* red = red_s + ((size_t)warp * T + t) * V;
-      float ddelta = 0.f, du_acc = dskip * dyv;
-      dD = fmaf(dyv, uv, dD);
-#pragma unroll
-      for (int n = 0; n < kMaxN; ++n) {
-        if (n < N) {
-          const float bn = b_s[t * N + n];
-          const float hprev = h_s[(t * N + n) * kThreads + tid];
-          const float hcur = h_s[((t + 1) * N + n) * kThreads + tid];
-          const float g = fmaf(c_s[t * N + n], dyv, gc[n]);
-          const float e = expf(delta * a[n]);
-          const float eh = e * hprev;
-          ddelta = fmaf(g, fmaf(a[n], eh, uv * bn), ddelta);
-          dA[n] = fmaf(g * delta, eh, dA[n]);
-          du_acc = fmaf(g * delta, bn, du_acc);
-          gc[n] = e * g;
-          const float sb = warp_sum(g * delta * uv);
-          const float sc = warp_sum(dyv * hcur);
-          if (lane == 0) {
-            red[n] = sb;
-            red[N + n] = sc;
-          }
-        }
-      }
-      const float dx = ddelta * dsp_s[t * kThreads + tid];
-      dbias_acc += dx;
-      if (active) du[idx] = du_acc;
-      if (R > 0) {
-        for (int r = 0; r < R; ++r) {
-          dw_s[r * kThreads + tid] = fmaf(dx, dt_s[t * R + r], dw_s[r * kThreads + tid]);
-          const float s = warp_sum(dx * w_s[r * kThreads + tid]);
-          if (lane == 0) red[2 * N + r] = s;
-        }
-      } else if (active) {
-        ddt[idx] = dx;
+        for (int j = 0; j < kPer; ++j) h[j] = fmaf(exp2_approx(delta * a2[j]), h[j], dbu * bv[j]);
+        hp += kHS;
+        *reinterpret_cast<float4*>(hp) = make_float4(h[0], h[1], h[2], h[3]);
       }
     }
     __syncthreads();
-    // the block's sums over d of this chunk, in a fixed order
-    for (int i = tid; i < Tc * V; i += kThreads) {
-      const int t = i / V, v = i % V;
-      float s = red_s[(size_t)t * V + v];
-      for (int w = 1; w < kWarps; ++w) s += red_s[((size_t)w * T + t) * V + v];
-      const size_t row = ((size_t)bk * n_dblk + dblk) * L + l0 + t;
-      if (v < N) {
-        dB_p[row * N + v] = s;
-      } else if (v < 2 * N) {
-        dC_p[row * N + v - N] = s;
-      } else {
-        ddt[row * R + v - 2 * N] = s;
+    // dC_n[t] = sum over the block's d of dy * h_l: threads over (t, half of
+    // the d, n), the two halves joined by one shuffle
+    for (int j = tid; j < Tc * 2 * kMaxN; j += kThreads) {
+      const int t = j / (2 * kMaxN), half = (j / kMaxN) % 2, n = j % kMaxN;
+      const float* hv = h_s + (t + 1) * kHS + half * (kDB / 2) * kMaxN + n;
+      const float* dv = dy_s + t * kDB + half * (kDB / 2);
+      float s = 0.f;
+#pragma unroll 8
+      for (int dd = 0; dd < kDB / 2; ++dd) s = fmaf(dv[dd], hv[dd * kMaxN], s);
+      s += __shfl_xor_sync(0xffffffffu, s, kMaxN);
+      if (half == 0 && n < N) dC_p[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * N + n] = s;
+    }
+    __syncthreads();
+
+    // the adjoint over the tile, last step first
+#pragma unroll 2
+    for (int t = Tc - 1; t >= 0; --t) {
+      const float delta = del_s[t * kDB + dl];
+      const float uv = u_s[t * kDB + dl];
+      const float dyv = dy_s[t * kDB + dl];
+      float bv[kPer], cv[kPer], term[kPer];
+      load_group<FULL>(b_s + t * N, N, g, bv);
+      load_group<FULL>(c_s + t * N, N, g, cv);
+      float* hp = h_s + t * kHS + tid * kPer;
+      const float4 hq = *reinterpret_cast<const float4*>(hp);
+      const float hprev[kPer] = {hq.x, hq.y, hq.z, hq.w};
+      float ddelta = 0.f, du_acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float gv = fmaf(cv[j], dyv, gc[j]);
+        const float e = exp2_approx(delta * a2[j]);
+        const float eh = e * hprev[j];
+        const float gd = gv * delta;
+        ddelta = fmaf(gv, fmaf(a[j], eh, uv * bv[j]), ddelta);
+        dA[j] = fmaf(gd, eh, dA[j]);
+        du_acc = fmaf(gd, bv[j], du_acc);
+        gc[j] = e * gv;
+        term[j] = gd * uv;
       }
+      *reinterpret_cast<float4*>(hp) = make_float4(term[0], term[1], term[2], term[3]);
+      ddelta = group_sum(ddelta);
+      du_acc = group_sum(du_acc);
+      if (g == 0) {  // the shuffles above order the other lanes' reads of u before this
+        const float dx = ddelta * dx_s[t * kDB + dl];
+        dx_s[t * kDB + dl] = dx;
+        u_s[t * kDB + dl] = fmaf(dskip, dyv, du_acc);
+        dbias_acc += dx;
+        dD = fmaf(dyv, uv, dD);
+      }
+    }
+    __syncthreads();
+
+    // the tile's sums over d, in a fixed order, and its whole-tile stores
+    for (int j = tid; j < Tc * 2 * kMaxN; j += kThreads) {
+      const int t = j / (2 * kMaxN), half = (j / kMaxN) % 2, n = j % kMaxN;
+      const float* tv = h_s + t * kHS + half * (kDB / 2) * kMaxN + n;
+      float s = 0.f;
+#pragma unroll 8
+      for (int dd = 0; dd < kDB / 2; ++dd) s += tv[dd * kMaxN];
+      s += __shfl_xor_sync(0xffffffffu, s, kMaxN);
+      if (half == 0 && n < N) dB_p[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * N + n] = s;
+    }
+    store_rows<kDB>(du + (row0 + l0) * dim + d0, dim, u_s, Tc, cols, tid, kThreads);
+    if (R > 0) {
+      for (int j = tid; j < Tc * R; j += kThreads) {
+        const int t = j / R, r = j - t * R;
+        float s = 0.f;
+        for (int dd = 0; dd < kDB; ++dd) s = fmaf(dx_s[t * kDB + dd], w_s[r * (kDB + 1) + dd], s);
+        ddt[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * R + r] = s;
+      }
+      for (int j = tid; j < kDB * R; j += kThreads) {
+        const int dd = j % kDB, r = j / kDB;
+        float s = dw_s[r * (kDB + 1) + dd];
+        for (int t = 0; t < Tc; ++t) s = fmaf(dx_s[t * kDB + dd], dt_s[t * R + r], s);
+        dw_s[r * (kDB + 1) + dd] = s;
+      }
+    } else {
+      store_rows<kDB>(ddt + (row0 + l0) * dim + d0, dim, dx_s, Tc, cols, tid, kThreads);
     }
   }
 
-  if (!active) return;
-  const size_t ch = (size_t)bk * dim + d;
-#pragma unroll
-  for (int n = 0; n < kMaxN; ++n) {
-    if (n < N) dA_p[ch * N + n] = dA[n];
+  // this chunk's per-channel partials
+  const size_t at = ((size_t)bk * n_chunk + c) * dim;
+  if (active) {
+    store_states<FULL>(dA_p + at * N, d, N, g, dA);
+    if (g == 0) {
+      if (dD_p) dD_p[at + d] = dD;
+      if (dbias_p) dbias_p[at + d] = dbias_acc;
+    }
   }
-  if (dD_p) dD_p[ch] = dD;
-  if (dbias_p) dbias_p[ch] = dbias_acc;
-  for (int r = 0; r < R; ++r) dW_p[ch * R + r] = dw_s[r * kThreads + tid];
+  if (R > 0) {
+    __syncthreads();
+    for (int j = tid; j < cols * R; j += kThreads) {
+      const int dd = j / R, r = j - dd * R;
+      dW_p[(at + d0 + dd) * R + r] = dw_s[r * (kDB + 1) + dd];
+    }
+  }
 }
+
+// One launch sums every partial in a fixed order. A segment's output (o, r),
+// o < O, r < inner, is the sum over q < Q and p < P of
+// src[((q * O + o) * P + p) * inner + r]: the d-blocks of a (b, k) row
+// (Q = 1, O = B*K, P = n_dblk), or the batch and the chunks of a parameter's
+// gradient (Q = B, O = K, P = n_chunk).
+struct ReduceSeg {
+  const float* src;
+  float* dst;
+  int Q, O, P, inner, begin;
+};
+constexpr int kMaxSeg = 7;
+struct ReduceArgs {
+  ReduceSeg seg[kMaxSeg];
+  int n_seg, total;
+};
+
+__global__ void __launch_bounds__(256) scan_bwd_reduce_kernel(const ReduceArgs args) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= args.total) return;
+  int s = 0;
+  while (s + 1 < args.n_seg && i >= args.seg[s + 1].begin) ++s;
+  const ReduceSeg seg = args.seg[s];
+  const int j = i - seg.begin, o = j / seg.inner, r = j - o * seg.inner;
+  float acc = 0.f;
+  for (int q = 0; q < seg.Q; ++q) {
+    const float* p = seg.src + (((size_t)q * seg.O + o) * seg.P) * seg.inner + r;
+    for (int pp = 0; pp < seg.P; ++pp) acc += p[(size_t)pp * seg.inner];
+  }
+  seg.dst[j] = acc;
+}
+
+inline size_t round4s(size_t x) { return (x + 3) & ~(size_t)3; }
 
 }  // namespace
 
-// ddt is (B*K, n_dblk, L, R) partials when R > 0 (summed over n_dblk by the
-// caller), else (B*K, L, D); dW_p (B*K, D, R), dA_p (B*K, D, N), dB_p and
-// dC_p (B*K, n_dblk, L, N), dD_p and dbias_p (B*K, D) or null, with
-// n_dblk = ceil(D / 64).
+// hsave (B*K, ceil(L/T), D, N) from the forward. The gradients come out in
+// their inputs' shapes: du (B,K,L,D); ddt (B,K,L,R), or (B,K,L,D) when R == 0;
+// dW (K,D,R); dA (K,D,N); dB, dC (B,K,L,N); dD, dbias (K,D) or null. `scratch`
+// holds the partials and the carries, each segment rounded up to 4 floats,
+// with n_chunk = ceil(L/chunk_len), n_dblk = ceil(D/64), BK = B*K: ddt's
+// BK*n_dblk*L*R, dB's and dC's BK*n_dblk*L*N each, dA's BK*n_chunk*D*N, dD's
+// and dbias' BK*n_chunk*D each, dW's BK*n_chunk*D*R, the carries BK*n_chunk*D*N
+// and the chunks' sums of delta BK*n_chunk*D. chunk_len is a multiple of 16
+// and T divides 16.
 extern "C" int fm_selective_scan_bwd(const float* u, const float* dt, const float* W,
                                      const float* A, const float* Bm, const float* Cm,
                                      const float* Dp, const float* bias, const float* hsave,
-                                     const float* dy, float* du, float* ddt, float* dW_p,
-                                     float* dA_p, float* dB_p, float* dC_p, float* dD_p,
-                                     float* dbias_p, int batch, int K, int L, int dim, int N,
-                                     int R, int T, int softplus, cudaStream_t stream) {
-  if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || T < 1 || batch * K < 1) {
+                                     const float* dy, float* du, float* ddt, float* dW, float* dA,
+                                     float* dB, float* dC, float* dD, float* dbias, float* scratch,
+                                     int batch, int K, int L, int dim, int N, int R, int T,
+                                     int softplus, int chunk_len, cudaStream_t stream) {
+  if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || T < 1 || batch * K < 1 ||
+      kTileL % T != 0 || chunk_len < kTileL || chunk_len % kTileL != 0 || !scratch) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t smem = sizeof(float) * smem_floats(N, R, T);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        selective_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int n_chunk = (L + chunk_len - 1) / chunk_len;
+  const int n_dblk = (dim + kDB - 1) / kDB;
+  const size_t BK = (size_t)batch * K;
+  float* next = scratch;
+  auto take = [&](size_t n) {
+    float* p = next;
+    next += round4s(n);
+    return p;
+  };
+  float* ddt_p = take(BK * n_dblk * L * R);
+  float* dB_p = take(BK * n_dblk * L * N);
+  float* dC_p = take(BK * n_dblk * L * N);
+  float* dA_p = take(BK * n_chunk * dim * N);
+  float* dD_p = take(BK * n_chunk * dim);
+  float* dbias_p = take(BK * n_chunk * dim);
+  float* dW_p = take(BK * n_chunk * dim * R);
+  float* carry = take(BK * n_chunk * dim * N);
+  float* sdel = take(BK * n_chunk * dim);
+
+  const bool full = N == kMaxN;
+  cudaError_t err;
+  if (n_chunk > 1) {
+    const size_t smem = sizeof(float) * local_smem_floats(N, R);
+    auto kernel = full ? selective_scan_bwd_local_kernel<true>
+                       : selective_scan_bwd_local_kernel<false>;
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    const dim3 grid(n_dblk, n_chunk - 1, batch * K);  // chunk 0 hands nothing on
+    kernel<<<grid, kThreads, smem, stream>>>(dt, W, A, Cm, bias, dy, carry, sdel, K, L, dim, N, R,
+                                             softplus, chunk_len, n_chunk);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    err = launch_carry(carry, sdel, A, batch, K, dim, N, n_chunk, 1, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((dim + kThreads - 1) / kThreads, batch * K);
-  selective_scan_bwd_kernel<<<grid, kThreads, smem, stream>>>(
-      u, dt, W, A, Bm, Cm, Dp, bias, hsave, dy, du, ddt, dW_p, dA_p, dB_p, dC_p, dD_p, dbias_p,
-      K, L, dim, N, R, T, softplus);
+  const size_t smem = sizeof(float) * smem_floats(N, R, T);
+  auto kernel = full ? selective_scan_bwd_kernel<true> : selective_scan_bwd_kernel<false>;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(n_dblk, n_chunk, batch * K);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      u, dt, W, A, Bm, Cm, Dp, bias, hsave, n_chunk > 1 ? carry : nullptr, dy, du,
+      R > 0 ? ddt_p : ddt, dW_p, dA_p, dB_p, dC_p, dD ? dD_p : nullptr,
+      dbias ? dbias_p : nullptr, K, L, dim, N, R, T, softplus, chunk_len, n_chunk);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  ReduceArgs args;
+  int n_seg = 0, total = 0;
+  auto add = [&](const float* src, float* dst, int Q, int O, int P, size_t inner) {
+    if (!dst || inner == 0) return;
+    args.seg[n_seg++] = ReduceSeg{src, dst, Q, O, P, (int)inner, total};
+    total += O * (int)inner;
+  };
+  add(ddt_p, R > 0 ? ddt : nullptr, 1, (int)BK, n_dblk, (size_t)L * R);
+  add(dB_p, dB, 1, (int)BK, n_dblk, (size_t)L * N);
+  add(dC_p, dC, 1, (int)BK, n_dblk, (size_t)L * N);
+  add(dA_p, dA, batch, K, n_chunk, (size_t)dim * N);
+  add(dD_p, dD, batch, K, n_chunk, dim);
+  add(dbias_p, dbias, batch, K, n_chunk, dim);
+  add(dW_p, R > 0 ? dW : nullptr, batch, K, n_chunk, (size_t)dim * R);
+  args.n_seg = n_seg;
+  args.total = total;
+  scan_bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(args);
   return (int)cudaGetLastError();
 }

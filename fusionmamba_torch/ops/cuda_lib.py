@@ -34,12 +34,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # u, dt, W, A, B, C, D, bias, out, hsave, batch, K, L, dim, N, R, softplus,
-    # save_every, stream
-    "fm_selective_scan_fwd": (_P,) * 10 + (_I,) * 8 + (_P,),
-    # u, dt, W, A, B, C, D, bias, hsave, dy, du, ddt, dW_p, dA_p, dB_p, dC_p,
-    # dD_p, dbias_p, batch, K, L, dim, N, R, T, softplus, stream
-    "fm_selective_scan_bwd": (_P,) * 18 + (_I,) * 8 + (_P,),
+    # u, dt, W, A, B, C, D, bias, out, hsave, carry, sdel, batch, K, L, dim, N,
+    # R, softplus, save_every, chunk_len, stream
+    "fm_selective_scan_fwd": (_P,) * 12 + (_I,) * 9 + (_P,),
+    # u, dt, W, A, B, C, D, bias, hsave, dy, du, ddt, dW, dA, dB, dC, dD, dbias,
+    # scratch, batch, K, L, dim, N, R, T, softplus, chunk_len, stream
+    "fm_selective_scan_bwd": (_P,) * 19 + (_I,) * 9 + (_P,),
     # x, w (C,9), bias, out, B, H, W, C, act_silu, stream
     "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 5 + (_P,),
     # x, w (C,9), bias, dy, dx, part, B, H, W, C, act_silu, stream

@@ -3,28 +3,56 @@
 `fusionmamba_tpu/ops/scan_pallas.py::_fwd_kernel`) and the backward
 (`csrc/selective_scan_bwd.cu`; replaces `::_bwd_kernel`).
 
-Both run one thread per (b, k, d) channel with its 16 states in registers
-and stage dt, B and C of a chunk of steps in shared memory. The forward is
-bound by the bytes of u and y and, at the deep stages, by how few channels
-there are to run in parallel; the backward by that latency too, as it walks
-every channel's steps twice. For training the forward saves the states at
-the start of every `SAVE_EVERY` steps, from which the backward recomputes
-each chunk of states. See the sources for the designs.
+Both spread a (b, k, d) channel's 16 states over 4 lanes, stage every input
+of the serial loop in shared memory one tile ahead (cp.async), and cut L into
+chunks that run in parallel and are joined by carries where the channels
+alone cannot fill the card (`chunk_len` picks the cut;
+`tests/test_torch_scan_chunked.py` holds the algebra in plain PyTorch against
+the sequential scan). For training the forward saves the
+states at the start of every `SAVE_EVERY` steps, from which the backward
+recomputes each tile of states. See the sources for the designs.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import cuda_lib
 
 MAX_STATE = 16      # kMaxN in the sources
-SAVE_EVERY = 16     # steps between saved states: the backward's chunk
-_SMEM_LIMIT = 48 * 1024
-_BWD_SMEM_LIMIT = 227 * 1024
-_BWD_THREADS = 64   # kThreads of the backward: channels per block
+SAVE_EVERY = 8      # steps between saved states: the backward's tile
+TILE = 16           # the kernels stage 16 steps at a time: chunks are multiples
+MIN_CHUNK = 64      # no chunk shorter than this: each costs a carry
+_SMEM_LIMIT = 227 * 1024
+_FWD_BLOCK, _BWD_BLOCK = 32, 64   # channels per block (kDB in the sources)
+_LANES = 4          # lanes per channel
+# (enough, target) warps an SM for `chunk_len`: L is cut where the unchunked
+# call would keep fewer than `enough` warps on an SM, into the largest power
+# of two of chunks that does not pass `target`. A chunked forward repeats
+# every exp in its local pass, so it is cut only on a mostly empty card; the
+# backward's local pass is a small part of it, so it is cut earlier and finer
+# (tools/scan_tune.py times both)
+FWD_WARPS_PER_SM = (8, 40)
+BWD_WARPS_PER_SM = (16, 72)
 
 launches = 0
 bwd_launches = 0
+
+
+def chunk_len(L: int, threads: int, enough_threads: int, target_threads: int) -> int:
+    """Steps per chunk, a multiple of TILE. One chunk (a length >= L, no
+    carry pass) where the unchunked call's `threads` already reach
+    `enough_threads`: cutting L repeats every exp in a local pass, which pays
+    only on a card that is mostly empty. Else the largest power of two of
+    chunks (two or more) that passes neither `target_threads` nor
+    L / MIN_CHUNK."""
+    n = 1
+    if threads < enough_threads:
+        most = min(L // MIN_CHUNK, target_threads // max(threads, 1))
+        if most >= 2:
+            n = 1 << (most.bit_length() - 1)
+    return max(TILE, -(-(-(-L // n)) // TILE) * TILE)
 
 
 def _check(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight):
@@ -34,10 +62,8 @@ def _check(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight):
     R = 0 if dt_lowrank_weight is None else dt_lowrank_weight.shape[-1]
     if N > MAX_STATE:
         raise ValueError(f"selective_scan: d_state {N} > {MAX_STATE}")
-    if batch * K > 65535:   # the grid's y dimension
+    if batch * K > 65535:   # the grid's z dimension
         raise ValueError(f"selective_scan: batch * K = {batch * K} > 65535")
-    if 4 * (64 * R + 32 * (R + 2 * N)) > _SMEM_LIMIT:
-        raise ValueError(f"selective_scan: dt rank {R} too large for the kernel")
     want_dt = (batch, K, L, R) if R else (batch, K, L, dim)
     if (tuple(delta.shape) != want_dt or tuple(A.shape) != (K, dim, N)
             or tuple(Bmat.shape) != (batch, K, L, N) or Cmat.shape != Bmat.shape):
@@ -53,77 +79,121 @@ def _check(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight):
     return batch, K, L, dim, N, R
 
 
+def _round4(x):
+    return (x + 3) & ~3
+
+
+def fwd_smem_bytes(N, R):
+    """Dynamic shared memory of a forward block (`smem_floats` in the source)."""
+    stage = TILE * _FWD_BLOCK + (TILE * R if R else TILE * _FWD_BLOCK) + 2 * TILE * N
+    return 4 * (_round4(R * (_FWD_BLOCK + 1)) + _FWD_BLOCK + TILE * _FWD_BLOCK * (1 + _LANES)
+                + 2 * stage)
+
+
+def bwd_smem_bytes(N, R):
+    """Dynamic shared memory of a block of the backward's main pass."""
+    DB, T = _BWD_BLOCK, SAVE_EVERY
+    stage = (2 * T * DB + (_round4(T * R) if R else T * DB) + 2 * _round4(T * N)
+             + DB * MAX_STATE)
+    return 4 * (2 * _round4(R * (DB + 1)) + DB + 2 * T * DB
+                + (T + 1) * (DB * MAX_STATE + 16) + 2 * stage)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _pick_chunk(chunk, batch, K, L, dim, device, warps_per_sm):
+    """The chunk length in steps: the caller's, or what fills the card."""
+    if chunk is None:
+        per_warp_an_sm = _sm_count(device.index or 0) * 32
+        return chunk_len(L, batch * K * dim * _LANES, warps_per_sm[0] * per_warp_an_sm,
+                         warps_per_sm[1] * per_warp_an_sm)
+    if chunk < TILE or chunk % TILE:
+        raise ValueError(f"selective_scan: chunk {chunk} is not a multiple of {TILE}")
+    return chunk
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
 def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
-                       dt_lowrank_weight, save_states=False):
+                       dt_lowrank_weight, save_states=False, chunk=None):
     """fp32 scan on the card. Shapes as `selective_scan`; `delta` is the
     low-rank (B, K, L, R) dt when `dt_lowrank_weight` (K, D, R) is given.
     Returns y, or (y, hsave) with `save_states`, hsave being the states at
-    the start of every SAVE_EVERY steps, (B*K, ceil(L/SAVE_EVERY), N, D)."""
+    the start of every SAVE_EVERY steps, (B*K, ceil(L/SAVE_EVERY), D, N).
+    `chunk` overrides the chunk length (a multiple of 16 steps)."""
     global launches
     batch, K, L, dim, N, R = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
                                     dt_lowrank_weight)
+    if fwd_smem_bytes(N, R) > _SMEM_LIMIT:
+        raise ValueError(f"selective_scan: dt rank {R} too large for the kernel")
+    dev = u.device
     out = torch.empty_like(u)
     hsave = None
     if save_states:
-        n_save = -(-L // SAVE_EVERY)
-        hsave = torch.empty((batch * K, n_save, N, dim), device=u.device, dtype=torch.float32)
+        hsave = torch.empty((batch * K, -(-L // SAVE_EVERY), dim, N), device=dev,
+                            dtype=torch.float32)
+    chunk = _pick_chunk(chunk, batch, K, L, dim, dev, FWD_WARPS_PER_SM)
+    n_chunk = -(-L // chunk)
+    carry = sdel = None
+    if n_chunk > 1:   # scratch of the carry pass
+        carry = torch.empty((batch * K, n_chunk, dim, N), device=dev, dtype=torch.float32)
+        sdel = torch.empty((batch * K, n_chunk, dim), device=dev, dtype=torch.float32)
     cuda_lib.launch(
         "fm_selective_scan_fwd", u.data_ptr(), delta.data_ptr(),
         _ptr(dt_lowrank_weight), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
-        _ptr(D), _ptr(delta_bias), out.data_ptr(), _ptr(hsave), batch, K, L, dim, N, R,
-        int(delta_softplus), SAVE_EVERY, device=u.device)
+        _ptr(D), _ptr(delta_bias), out.data_ptr(), _ptr(hsave), _ptr(carry), _ptr(sdel),
+        batch, K, L, dim, N, R, int(delta_softplus), SAVE_EVERY, chunk, device=dev)
     launches += 1
     return (out, hsave) if save_states else out
 
 
+def bwd_scratch_floats(batch, K, L, dim, N, R, n_chunk):
+    """Floats of the backward's scratch: its partials and carries, each
+    segment rounded up to 4 floats (the layout is in the source)."""
+    BK, n_dblk = batch * K, -(-dim // _BWD_BLOCK)
+    per_chunk = BK * n_chunk * dim
+    segments = (BK * n_dblk * L * R, BK * n_dblk * L * N, BK * n_dblk * L * N, per_chunk * N,
+                per_chunk, per_chunk, per_chunk * R, per_chunk * N, per_chunk)
+    return sum(_round4(n) for n in segments)
+
+
 def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight,
-                       hsave, dy, delta_softplus):
+                       hsave, dy, delta_softplus, chunk=None):
     """Gradients of `selective_scan_fwd` for the cotangent dy (B, K, L, D),
     given the states it saved: (du, ddelta, dA, dB, dC, dD, dbias, dW), each
-    in the shape of its input (None for an input that was None). The
-    kernel's per-d-block and per-batch partials are summed here."""
+    in the shape of its input (None for an input that was None). `chunk`
+    overrides the chunk length (a multiple of 16 steps; it need not be the
+    forward's)."""
     global bwd_launches
     batch, K, L, dim, N, R = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
                                     dt_lowrank_weight)
-    n_chunk = -(-L // SAVE_EVERY)
-    if tuple(hsave.shape) != (batch * K, n_chunk, N, dim) or dy.shape != u.shape:
-        raise ValueError("selective_scan backward: inconsistent shapes")
+    dev = u.device
     cuda_lib.check_cuda_float32("selective_scan backward", u, hsave, dy)
-    smem = 4 * (2 * R * _BWD_THREADS + SAVE_EVERY * (R + 2 * N)
-                + 2 * SAVE_EVERY * _BWD_THREADS + (SAVE_EVERY + 1) * N * _BWD_THREADS
-                + 2 * SAVE_EVERY * (2 * N + R))
-    if smem > _BWD_SMEM_LIMIT:
+    if (tuple(hsave.shape) != (batch * K, -(-L // SAVE_EVERY), dim, N)
+            or dy.shape != u.shape):
+        raise ValueError("selective_scan backward: inconsistent shapes")
+    if bwd_smem_bytes(N, R) > _SMEM_LIMIT:
         raise ValueError(f"selective_scan backward: dt rank {R} too large for the kernel")
-    n_dblk = -(-dim // _BWD_THREADS)
-    BK, dev = batch * K, u.device
+    chunk = _pick_chunk(chunk, batch, K, L, dim, dev, BWD_WARPS_PER_SM)
+    n_chunk = -(-L // chunk)
 
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
+    def like(t):
+        return None if t is None else torch.empty_like(t)
 
-    du = torch.empty_like(u)
-    ddt = empty(BK, n_dblk, L, R) if R else torch.empty_like(delta)
-    dW_p = empty(BK, dim, R) if R else None
-    dA_p, dB_p, dC_p = empty(BK, dim, N), empty(BK, n_dblk, L, N), empty(BK, n_dblk, L, N)
-    dD_p = None if D is None else empty(BK, dim)
-    dbias_p = None if delta_bias is None else empty(BK, dim)
+    du, ddt, dA, dB, dC = like(u), like(delta), like(A), like(Bmat), like(Cmat)
+    dD, dbias, dW = like(D), like(delta_bias), like(dt_lowrank_weight)
+    scratch = torch.empty(bwd_scratch_floats(batch, K, L, dim, N, R, n_chunk), device=dev,
+                          dtype=torch.float32)
     cuda_lib.launch(
         "fm_selective_scan_bwd", u.data_ptr(), delta.data_ptr(), _ptr(dt_lowrank_weight),
         A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), _ptr(D), _ptr(delta_bias),
-        hsave.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), _ptr(dW_p),
-        dA_p.data_ptr(), dB_p.data_ptr(), dC_p.data_ptr(), _ptr(dD_p), _ptr(dbias_p),
-        batch, K, L, dim, N, R, SAVE_EVERY, int(delta_softplus), device=dev)
+        hsave.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), _ptr(dW),
+        dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias), scratch.data_ptr(),
+        batch, K, L, dim, N, R, SAVE_EVERY, int(delta_softplus), chunk, device=dev)
     bwd_launches += 1
-
-    def over_batch(p, *tail):
-        return None if p is None else p.view(batch, K, *tail).sum(0)
-
-    def over_dblk(p, width):
-        return p.view(batch, K, n_dblk, L, width).sum(2)
-
-    return (du, over_dblk(ddt, R) if R else ddt, over_batch(dA_p, dim, N),
-            over_dblk(dB_p, N), over_dblk(dC_p, N), over_batch(dD_p, dim),
-            over_batch(dbias_p, dim), over_batch(dW_p, dim, R))
+    return du, ddt, dA, dB, dC, dD, dbias, dW

@@ -35,37 +35,60 @@ def _rand(gen, *shape, scale=1.0, shift=0.0):
     return torch.randn(*shape, generator=gen) * scale + shift
 
 
-@pytest.mark.parametrize("batch,L,D,N,R", [
-    (2, 1, 8, 4, 3), (2, 33, 70, 16, 0), (1, 100, 64, 16, 5),
-    (16, 1024, 192, 16, 6), (16, 16, 1536, 16, 48)])
-def test_scan_kernel(dev, batch, L, D, N, R):
-    g = torch.Generator().manual_seed(L * 7 + D)
+# every (L, D, R) of the full config's scans at a small batch, the decoder's
+# batch 6 and the serving encoder's 16 at L = 1024, and L around multiples of
+# the 16-step tile and of the chunk (chunk = 32 steps where it is given)
+_SCAN_SHAPES = [
+    (2, 1, 8, 4, 3, None), (2, 33, 70, 16, 0, None), (1, 100, 64, 16, 5, None),
+    (16, 1024, 192, 16, 6, None), (16, 16, 1536, 16, 48, None),
+    (6, 1024, 192, 16, 6, None), (2, 256, 384, 16, 12, None), (2, 64, 768, 16, 24, None),
+    (2, 16, 1536, 16, 48, None), (1, 1024, 192, 16, 6, 64),
+    (2, 65, 40, 16, 6, 32), (2, 63, 40, 16, 0, 32), (2, 64, 40, 8, 6, 32),
+    (1, 97, 33, 3, 5, 32), (1, 15, 192, 16, 6, None), (1, 17, 192, 16, 6, None)]
+
+
+def _scan_case(seed, batch, L, D, N, R, shift=-2.0, a_spread=2.5, a_scale=1.0):
+    g = torch.Generator().manual_seed(seed)
     K = 4
-    u = _rand(g, batch, K, L, D)
-    W = _rand(g, K, D, R, scale=R ** -0.5) if R else None
-    dt = _rand(g, batch, K, L, R or D, scale=0.5)
-    A = -torch.exp(torch.rand(K, D, N, generator=g) * 2.5)
-    Bm, Cm = _rand(g, batch, K, L, N), _rand(g, batch, K, L, N)
-    Dp, bias = _rand(g, K, D), _rand(g, K, D, scale=0.5, shift=-2.0)
-    args = [t if t is None else t.to(dev) for t in (u, dt, A, Bm, Cm, Dp, bias)]
+    return [_rand(g, batch, K, L, D), _rand(g, batch, K, L, R or D, scale=0.5),
+            -a_scale * torch.exp(torch.rand(K, D, N, generator=g) * a_spread),
+            _rand(g, batch, K, L, N), _rand(g, batch, K, L, N), _rand(g, K, D),
+            _rand(g, K, D, scale=0.5, shift=shift),
+            _rand(g, K, D, R, scale=R ** -0.5) if R else None]
+
+
+@pytest.mark.parametrize("batch,L,D,N,R,chunk", _SCAN_SHAPES)
+def test_scan_kernel(dev, batch, L, D, N, R, chunk):
+    """Forward against the plain version, with and without saved states;
+    two launches bit-identical; an explicit chunk length where given."""
+    args = [t if t is None else t.to(dev) for t in _scan_case(L * 7 + D, batch, L, D, N, R)]
     before = scan_cuda.launches
-    Wd = None if W is None else W.to(dev)
-    got = selective_scan(*args, delta_softplus=True, dt_lowrank_weight=Wd)
+    if chunk is None:
+        got = selective_scan(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
+    else:
+        got = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], chunk=chunk)
     torch.cuda.synchronize()
     assert scan_cuda.launches == before + 1
-    want = selective_scan_plain(*args, delta_softplus=True, dt_lowrank_weight=Wd)
+    want = selective_scan_plain(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
     torch.testing.assert_close(got, want, **TOL)
+    again, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True,
+                                                chunk=chunk)
+    assert torch.equal(got, again)
+    assert hsave.shape == (batch * 4, -(-L // scan_cuda.SAVE_EVERY), D, N)
+    assert torch.isfinite(hsave).all()
 
 
-def test_scan_kernel_large_dt(dev):
-    """dt * A far past the TPU kernel's rescale clip: exact here too."""
+@pytest.mark.parametrize("chunk", [None, 32])
+def test_scan_kernel_large_dt(dev, chunk):
+    """dt * A far past the TPU kernel's rescale clip: exact here too, also
+    where the carries between chunks underflow to 0."""
     g = torch.Generator().manual_seed(3)
     B, K, L, D, N = 2, 4, 200, 32, 16
     u, Bm, Cm = _rand(g, B, K, L, D), _rand(g, B, K, L, N), _rand(g, B, K, L, N)
     dt = _rand(g, B, K, L, D, shift=8.0)
     A = -torch.exp(torch.rand(K, D, N, generator=g) * 1.5)
     args = [t.to(dev) for t in (u, dt, A, Bm, Cm)]
-    got = selective_scan(*args, delta_softplus=True)
+    got = scan_cuda.selective_scan_fwd(*args, None, None, True, None, chunk=chunk)
     want = selective_scan_plain(*args, delta_softplus=True)
     torch.testing.assert_close(got, want, **TOL)
 
@@ -189,19 +212,16 @@ def _check_backward(kernel, plain, inputs, dy, counter):
 
 @pytest.mark.parametrize("batch,L,D,N,R,shift", [
     (2, 1, 8, 4, 3, 0.0), (2, 33, 70, 16, 0, 0.0), (1, 100, 64, 16, 5, 0.0),
-    (2, 1024, 192, 16, 6, -4.0), (12, 16, 1536, 16, 48, -4.0), (2, 64, 96, 16, 0, 8.0)])
+    (2, 1024, 192, 16, 6, -4.0), (12, 16, 1536, 16, 48, -4.0), (2, 64, 96, 16, 0, 8.0),
+    (6, 1024, 192, 16, 6, -4.0), (2, 256, 384, 16, 12, -4.0), (2, 64, 768, 16, 24, -4.0),
+    (1, 15, 192, 16, 6, -4.0), (1, 17, 192, 16, 6, -4.0)])
 def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
     """shift 8: softplus(dt) ~ 8 per step, far past the TPU kernel's rescale
     clip; the backward is exact there too."""
-    g = torch.Generator().manual_seed(L * 3 + D)
-    K = 4
-    inputs = [_rand(g, batch, K, L, D), _rand(g, batch, K, L, R or D, scale=0.5),
-              -torch.exp(torch.rand(K, D, N, generator=g) * 1.5),
-              _rand(g, batch, K, L, N), _rand(g, batch, K, L, N), _rand(g, K, D),
-              _rand(g, K, D, scale=0.5, shift=shift),
-              _rand(g, K, D, R, scale=R ** -0.5) if R else None]
-    inputs = [None if t is None else t.to(dev) for t in inputs]
-    dy = _rand(g, batch, K, L, D).to(dev)
+    inputs = [None if t is None else t.to(dev)
+              for t in _scan_case(L * 3 + D, batch, L, D, N, R, shift, 1.5)]
+    g = torch.Generator().manual_seed(L + D)
+    dy = _rand(g, batch, 4, L, D).to(dev)
 
     def kernel(*a):
         return selective_scan(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
@@ -210,6 +230,53 @@ def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
         return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
 
     _check_backward(kernel, plain, inputs, dy, (scan_cuda, "bwd_launches"))
+
+
+@pytest.mark.parametrize("batch,L,D,N,R,chunk,shift", [
+    (1, 1024, 192, 16, 6, 64, -4.0), (2, 65, 40, 16, 6, 32, 0.0), (2, 63, 40, 16, 0, 32, 0.0),
+    (2, 64, 40, 8, 6, 32, 0.0), (1, 97, 33, 3, 5, 32, 0.0), (2, 96, 32, 16, 0, 32, 8.0),
+    (2, 256, 384, 16, 12, 256, -4.0)])
+def test_scan_backward_kernel_chunks(dev, batch, L, D, N, R, chunk, shift):
+    """The backward with an explicit chunk length (several chunks joined by
+    adjoint carries, or one) against autograd of the plain version; two
+    launches bit-identical."""
+    t = [None if x is None else x.to(dev)
+         for x in _scan_case(L * 5 + D, batch, L, D, N, R, shift, 1.5)]
+    g = torch.Generator().manual_seed(L + 2 * D)
+    dy = _rand(g, batch, 4, L, D).to(dev)
+    _, hsave = scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=True, chunk=chunk)
+    got = scan_cuda.selective_scan_bwd(*t, hsave, dy, True, chunk=chunk)
+    again = scan_cuda.selective_scan_bwd(*t, hsave, dy, True, chunk=chunk)
+    torch.cuda.synchronize()
+    live = [x.detach().requires_grad_(True) for x in t if x is not None]
+    args = live + [None] * (8 - len(live))
+    out = selective_scan_plain(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
+    want = torch.autograd.grad(out, live, dy)
+    _assert_grads_close([x for x in got if x is not None], want)
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("L,D,R,chunk", [(96, 40, 6, 32), (96, 70, 0, 32), (256, 32, 2, 64),
+                                         (100, 130, 6, 48)])
+def test_scan_backward_kernel_ragged_d_slow_decay(dev, L, D, R, chunk):
+    """D not a multiple of the block's 64 channels, several chunks of three or
+    more 8-step tiles each, and |A| near 0.01, so that a state or an adjoint
+    hardly decays within a chunk: whatever a lane past D carried would reach
+    the sums over the block's channels (dB, dC, d(dt)) at full size."""
+    t = [None if x is None else x.to(dev)
+         for x in _scan_case(L + D, 2, L, D, 16, R, 0.0, 1.5, a_scale=0.01)]
+    g = torch.Generator().manual_seed(L * D)
+    dy = _rand(g, 2, 4, L, D).to(dev)
+    y, hsave = scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=True, chunk=chunk)
+    got = scan_cuda.selective_scan_bwd(*t, hsave, dy, True, chunk=chunk)
+    torch.cuda.synchronize()
+    live = [x.detach().requires_grad_(True) for x in t if x is not None]
+    args = live + [None] * (8 - len(live))
+    out = selective_scan_plain(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
+    want = torch.autograd.grad(out, live, dy)
+    torch.testing.assert_close(y, out.detach(), **TOL)
+    _assert_grads_close([x for x in got if x is not None], want)
 
 
 @pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum"])
