@@ -14,7 +14,10 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                (CUDA events, warm L2; where there is a library call also the
                profiler's device time of both), and the bound: the largest of
                bytes, fp32 operations and, for the scans, special-function
-               calls. The scan and the MLP must repeat themselves bit for bit.
+               calls. The scan, the MLP and the dwconv must repeat themselves
+               bit for bit. The LN's library call (F.layer_norm) computes the
+               same function only where there is no gate: it is timed there
+               alone, with the kernel's times at those shapes beside it.
   4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12):
                each forward kernel as in 3, and each of the five backward
                kernels against the autograd of its plain version: every
@@ -121,7 +124,7 @@ KERNELS = {
                  "fusionmamba_tpu/ops/scan_pallas.py:1155"),
     "layer_norm": ("triton", "fusionmamba_torch/ops/ln_triton.py",
                    "fusionmamba_tpu/ops/ln_pallas.py:79"),
-    "layer_norm_bwd": ("triton", "fusionmamba_torch/ops/ln_triton.py",
+    "layer_norm_bwd": ("cuda", "fusionmamba_torch/csrc/layer_norm_bwd.cu",
                        "fusionmamba_tpu/ops/ln_pallas.py:89"),
     "ln_mean": ("triton", "fusionmamba_torch/ops/ln_triton.py",
                 "fusionmamba_tpu/ops/ln_pallas.py:220"),
@@ -308,12 +311,15 @@ def make_case(kernel, shape, dev, gen):
             inputs.append(rnd(rows, C))
 
         def backward(t, dy):
-            return lambda: ln_triton.layer_norm_bwd(*t[:3], t[3] if len(t) > 3 else None, dy,
-                                                    1e-6, gate_act)
+            return lambda: layer_norm.layer_norm_bwd(*t[:3], t[3] if len(t) > 3 else None, dy,
+                                                     1e-6, gate_act)
 
+        # F.layer_norm computes the same function only without a gate
+        library = (lambda x, s, b: F.layer_norm(x, (C,), s, b, 1e-6)) if gate_act == "none" \
+            else None
         return (inputs, lambda *t: layer_norm.layer_norm_fused(*t, eps=1e-6, gate_act=gate_act),
                 lambda *t: layer_norm.layer_norm_plain(*t, eps=1e-6, gate_act=gate_act),
-                lambda x, s, b, *_: F.layer_norm(x, (C,), s, b, 1e-6), backward)
+                library, backward)
     if kernel == "ln_mean":
         B, rows, C = shape
         return ([rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)],
@@ -369,9 +375,20 @@ def _bound(kernel, shape):
 
 
 def _new_agg():
-    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, device_ms=0.0,
-                library_device_ms=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, sfu_ms=0.0,
-                fp32_cores_bound_ms=0.0)
+    """Sums over a kernel's shapes of calls x time. The library call's times
+    cover only the shapes where there is one (the LN's ungated shapes), and
+    the kernel's times at those same shapes stand beside them
+    (`ms_at_library_shapes`, `device_ms_at_library_shapes`); `_summary`
+    turns them to None where no shape had a library call. A device time
+    stays None once a shape had none."""
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0, library_shapes=0,
+                library_ms=0.0, library_device_ms=0.0, ms_at_library_shapes=0.0,
+                device_ms_at_library_shapes=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
+                sfu_ms=0.0, fp32_cores_bound_ms=0.0)
+
+
+def _plus(total, n, t):
+    return None if t is None or total is None else total + n * t
 
 
 def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms, sfu_ms,
@@ -379,17 +396,30 @@ def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms
     agg["max_abs_err"] = max(agg["max_abs_err"], err)
     agg["ms"] += n * ms
     agg["plain_ms"] += n * plain_ms
-    agg["library_ms"] = (None if lib_ms is None or agg["library_ms"] is None
-                         else agg["library_ms"] + n * lib_ms)
-    agg["device_ms"] = (None if dev_ms is None or agg["device_ms"] is None
-                        else agg["device_ms"] + n * dev_ms)
-    agg["library_device_ms"] = (None if lib_dev_ms is None or agg["library_device_ms"] is None
-                                else agg["library_device_ms"] + n * lib_dev_ms)
+    agg["device_ms"] = _plus(agg["device_ms"], n, dev_ms)
+    if lib_ms is not None:
+        agg["library_shapes"] += 1
+        agg["library_ms"] += n * lib_ms
+        agg["ms_at_library_shapes"] += n * ms
+        agg["library_device_ms"] = _plus(agg["library_device_ms"], n, lib_dev_ms)
+        agg["device_ms_at_library_shapes"] = _plus(agg["device_ms_at_library_shapes"], n,
+                                                   dev_ms)
     agg["bound_ms"] += n * max(bytes_ms, ops_ms, sfu_ms)
     agg["bytes_ms"] += n * bytes_ms
     agg["ops_ms"] += n * ops_ms
     agg["sfu_ms"] += n * sfu_ms
     agg["fp32_cores_bound_ms"] += n * cores_ms
+
+
+def _summary(agg):
+    """The sums of `_new_agg` to report: the library's times None where no
+    shape had a library call."""
+    out = {k: v for k, v in agg.items() if k != "library_shapes"}
+    if not agg["library_shapes"]:
+        for k in ("library_ms", "library_device_ms", "ms_at_library_shapes",
+                  "device_ms_at_library_shapes"):
+            out[k] = None
+    return out
 
 
 def _bound_by(kernel, bytes_ms, ops_ms, sfu_ms):
@@ -418,12 +448,12 @@ def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms):
 def _forward_line(phase, kernel, shape, n, case):
     """Check and time one forward kernel at `shape`; emit its line and return
     (err, ms, plain_ms, library_ms, device_ms, library_device_ms, bytes_ms,
-    ops_ms, sfu_ms, cores_ms). The scan and the MLP must also repeat themselves
-    bit for bit."""
+    ops_ms, sfu_ms, cores_ms). The scan, the MLP and the dwconv must also repeat
+    themselves bit for bit."""
     inputs, op, plain, library, _ = case
     with torch.no_grad():
         got, want = op(*inputs), plain(*inputs)
-        repeats = kernel in ("mlp", "scan")
+        repeats = kernel in ("mlp", "scan", "dwconv")
         same = not repeats or torch.equal(got, op(*inputs))
         torch.cuda.synchronize()
         err = (got - want).abs()
@@ -511,11 +541,10 @@ def phase_kernel_train(calls, dev):
                 dev_ms = device_ms(run)
             lib_ms = lib_dev_ms = None
             if library is not None:
-                lib_in = inputs[:3] if op == "layer_norm" else inputs   # F.layer_norm: no gate
-                out_l = library(*lib_in)
+                out_l = library(*inputs)
 
                 def lib_run():
-                    return torch.autograd.grad(out_l, lib_in, dy, retain_graph=True)
+                    return torch.autograd.grad(out_l, inputs, dy, retain_graph=True)
 
                 lib_ms = cuda_ms(lib_run, 20)
                 lib_dev_ms = device_ms(lib_run)
@@ -623,7 +652,7 @@ def phase_scan_paths(train_shapes, serve_shapes, dev):
 # where each kernel's launch counter lives
 _COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launches"),
              "layer_norm": (ln_triton, "layer_norm_launches"),
-             "layer_norm_bwd": (ln_triton, "layer_norm_bwd_launches"),
+             "layer_norm_bwd": (layer_norm, "layer_norm_bwd_launches"),
              "ln_mean": (ln_triton, "ln_mean_launches"),
              "ln_mean_bwd": (ln_triton, "ln_mean_bwd_launches"),
              "dwconv": (dwconv, "launches"), "dwconv_bwd": (dwconv, "bwd_launches"),
@@ -783,7 +812,7 @@ def phase_train_parity(dev, steps: int = 5):
 _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 "scan_bwd": ("selective_scan_bwd", "scan_bwd_reduce"),
                 "scan_carry": ("carry_kernel",),   # the chunk carries, forward and backward
-                "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd",),
+                "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd_kernel", "ln_bwd_reduce"),
                 "ln_mean": ("lnm_partial", "lnm_reduce"), "ln_mean_bwd": ("lnm_bwd",),
                 "dwconv": ("dwconv3x3_fwd_kernel",), "dwconv_bwd": ("dwconv3x3_bwd_kernel",),
                 "mlp": ("mlp_fwd_",), "mlp_bwd": ("mlp_bwd_",),
@@ -903,7 +932,7 @@ def main() -> None:
     phase_mlp_paths(tcalls["mlp"], dev)
     phase_scan_paths(tcalls["scan"], calls["scan"], dev)
     emit({"phase": "kernel", "per_forward_of_serving": {
-        k: {m: v for m, v in r.items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
+        k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
         for k, r in serving.items()}})
     phase_main_path(calls, smi)
@@ -915,7 +944,7 @@ def main() -> None:
 
     kernels = []
     for k, (route, source, replaces) in KERNELS.items():
-        r = results[k]
+        r = _summary(results[k])
         kernels.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -923,6 +952,8 @@ def main() -> None:
             **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
             "library_ms": r["library_ms"], "device_ms": r["device_ms"],
             "library_device_ms": r["library_device_ms"],
+            "ms_at_library_shapes": r["ms_at_library_shapes"],
+            "device_ms_at_library_shapes": r["device_ms_at_library_shapes"],
             **({"fp32_cores_bound_ms": r["fp32_cores_bound_ms"]}
                if k in TENSOR_CORE_KERNELS else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

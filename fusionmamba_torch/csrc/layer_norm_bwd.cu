@@ -1,0 +1,256 @@
+// LayerNorm (+ gate) backward for Hopper (sm_90a), fp32: dx, dgate, dscale, dbias.
+//
+// Replaces fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel (built by
+// _bwd_pallas). The forward is y = (xhat * scale + bias) * act(g) over the
+// last axis of x (rows, C), xhat = (x - mean) * rs, rs = rsqrt(E[x^2] -
+// E[x]^2 + eps) (the fast variance, recomputed here from x), act being none,
+// silu or "silu_sum" (s1 + silu(s1), s1 = silu(g)). With u = dy * act(g) and
+// w = u * scale:
+//   dgate  = dy * (xhat * scale + bias) * act'(g)
+//   dx     = rs * (w - mean(w) - xhat * mean(w * xhat))
+//   dscale = sum over rows of u * xhat,   dbias = sum over rows of u.
+//
+// What bounds it: bytes (x, dy and the gate read once, dx and dgate written
+// once), with some 20-40 flops an element.
+//
+// Design. A group of G lanes owns one row at a time; lane l holds channels
+// l, l + G, ..., l + (V-1) G in registers, so every load and store is a
+// coalesced run of the row and, at the model's widths (templates below, V *
+// G = C), no lane is idle. A row's two pairs of sums (of x and x^2, then of
+// w and w * xhat) are xor-shuffle butterflies inside a warp (every lane ends
+// with the same bits) and, for rows wider than a warp, one exchange through
+// shared memory summed in warp order. The widest rows span 4 warps so that
+// a lane holds at most 12 values of each of x, dy and the gate, next to 12
+// each of scale, bias and the two gradient sums (no spills). Any other C
+// takes a masked variant (12 values a lane, lanes past C hold zeros).
+// dscale and dbias are folded in: the grid is a few blocks an SM (the
+// wrapper's plan, fusionmamba_torch/ops/layer_norm.py::bwd_plan), each group
+// walks rows in a grid-stride loop and keeps its channels' two sums in
+// registers, each block sums its groups in group order and writes one (2, C)
+// partial, and a second kernel sums the P partials, 32 interleaved slices in
+// order and then the slices in order. No atomics, so two launches give the
+// same bits, and one call is two launches (no separate reductions).
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBlock = 256;          // threads of a block of groups of at most 256 lanes
+constexpr int kReduceCols = 32;      // the reduce kernel: columns of a block
+constexpr int kReduceSlices = 32;    // and interleaved slices of the partials
+
+__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
+
+// The sums of v over a group of G lanes, the same bits in every lane. For G
+// above 32 the warps meet in red (one slot a warp), behind a barrier that
+// every thread of the block reaches.
+template <int G>
+__device__ __forceinline__ float2 group_sum(float2 v, float2* red) {
+#pragma unroll
+  for (int off = (G < 32 ? G : 32) / 2; off > 0; off >>= 1) {
+    v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
+    v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
+  }
+  if constexpr (G > 32) {
+    const int warp = threadIdx.x / 32, first = warp / (G / 32) * (G / 32);
+    if (threadIdx.x % 32 == 0) red[warp] = v;
+    __syncthreads();
+    v = red[first];
+#pragma unroll
+    for (int i = 1; i < G / 32; ++i) {
+      v.x += red[first + i].x;
+      v.y += red[first + i].y;
+    }
+  }
+  return v;
+}
+
+// At least two blocks of 256 threads an SM (the plan's grid for 12 values a
+// lane): it caps registers at 128, under which ptxas keeps every template
+// free of spills (left to itself it spilled one of them at 80).
+template <int V, int G, int GATE, bool MASK>
+__global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
+ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
+              const float* __restrict__ scale, const float* __restrict__ bias,
+              const float* __restrict__ dy, float* __restrict__ dx, float* __restrict__ dg,
+              float* __restrict__ part, int rows, int C, float eps) {
+  constexpr int T = G > kBlock ? G : kBlock;
+  constexpr int GPB = T / G;  // groups (rows at a time) of a block
+  // the two rounds of row sums each take their own slots, so one barrier a
+  // round keeps a round's reads ahead of the next round's writes
+  __shared__ float2 red[2][T / 32];
+  __shared__ float sums[GPB > 1 ? GPB : 1][2][GPB > 1 ? V * G : 1];
+  const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+
+  float sc[V], bi[V], ds[V], db[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int c = lane + v * G;
+    const bool ok = !MASK || c < C;
+    sc[v] = ok ? scale[c] : 0.f;
+    bi[v] = GATE && ok ? bias[c] : 0.f;
+    ds[v] = 0.f;
+    db[v] = 0.f;
+  }
+  const float fc = (float)C;
+
+  for (int base = blockIdx.x * GPB; base < rows; base += gridDim.x * GPB) {
+    const int r = base + grp;
+    const bool live = r < rows;
+    const int off = r * C + lane;
+    float xv[V], d[V], gv[V];
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool ok = live && (!MASK || lane + v * G < C);
+      xv[v] = ok ? x[off + v * G] : 0.f;
+      d[v] = ok ? dy[off + v * G] : 0.f;
+      gv[v] = GATE && ok ? gate[off + v * G] : 0.f;
+      s.x += xv[v];
+      s.y = fmaf(xv[v], xv[v], s.y);
+    }
+    s = group_sum<G>(s, red[0]);
+    const float mu = s.x / fc;
+    const float rs = rsqrtf(s.y / fc - mu * mu + eps);
+    float2 m = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool ok = live && (!MASK || lane + v * G < C);
+      const float xh = ok ? (xv[v] - mu) * rs : 0.f;
+      float u = d[v];
+      if (GATE) {
+        const float g = gv[v], sg = sigmoid(g), s1 = g * sg;
+        float dgate = sg * (1.f + g * (1.f - sg));  // silu'(g)
+        float act = s1;
+        if (GATE == 2) {
+          const float ss = sigmoid(s1);
+          act = s1 + s1 * ss;
+          dgate = (1.f + ss * (1.f + s1 * (1.f - ss))) * dgate;
+        }
+        if (ok) dg[off + v * G] = u * (xh * sc[v] + bi[v]) * dgate;
+        u *= act;
+      }
+      ds[v] = fmaf(u, xh, ds[v]);
+      db[v] += u;
+      const float wv = u * sc[v];
+      m.x += wv;
+      m.y = fmaf(wv, xh, m.y);
+      xv[v] = xh;
+      d[v] = wv;
+    }
+    m = group_sum<G>(m, red[1]);
+    const float m1 = m.x / fc, m2 = m.y / fc;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (live && (!MASK || lane + v * G < C)) dx[off + v * G] = rs * (d[v] - m1 - xv[v] * m2);
+    }
+  }
+
+  float* out = part + blockIdx.x * 2 * C;
+  if constexpr (GPB == 1) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = lane + v * G;
+      if (!MASK || c < C) {
+        out[c] = ds[v];
+        out[C + c] = db[v];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      sums[grp][0][lane + v * G] = ds[v];
+      sums[grp][1][lane + v * G] = db[v];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      for (int c = threadIdx.x; c < C; c += T) {
+        float t = sums[0][k][c];
+#pragma unroll
+        for (int g = 1; g < GPB; ++g) t += sums[g][k][c];
+        out[k * C + c] = t;
+      }
+    }
+  }
+}
+
+// dscale[c] and dbias[c] from the (P, 2, C) partials
+__global__ void __launch_bounds__(kReduceCols * kReduceSlices)
+ln_bwd_reduce(const float* __restrict__ part, int P, int C, float* __restrict__ dscale,
+              float* __restrict__ dbias) {
+  __shared__ float s[kReduceSlices][kReduceCols + 1];
+  const int col = blockIdx.x * kReduceCols + threadIdx.x;  // of the 2C
+  float acc = 0.f;
+  if (col < 2 * C) {
+    for (int p = threadIdx.y; p < P; p += kReduceSlices) acc += part[p * 2 * C + col];
+  }
+  s[threadIdx.y][threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.y == 0 && col < 2 * C) {
+    float t = s[0][threadIdx.x];
+    for (int y = 1; y < kReduceSlices; ++y) t += s[y][threadIdx.x];
+    if (col < C) {
+      dscale[col] = t;
+    } else {
+      dbias[col - C] = t;
+    }
+  }
+}
+
+template <int V, int G, bool MASK>
+int launch(int gate_kind, int blocks, cudaStream_t stream, const float* x, const float* gate,
+           const float* scale, const float* bias, const float* dy, float* dx, float* dg,
+           float* part, int rows, int C, float eps) {
+  constexpr int T = G > kBlock ? G : kBlock;
+  switch (gate_kind) {
+    case 0:
+      ln_bwd_kernel<V, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                             part, rows, C, eps);
+      break;
+    case 1:
+      ln_bwd_kernel<V, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                             part, rows, C, eps);
+      break;
+    default:
+      ln_bwd_kernel<V, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                             part, rows, C, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy, dx (and gate, dg when gate_kind is 1 (silu) or 2 (silu_sum)):
+// (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,
+// lanes, masked: the template (bwd_plan); blocks: the grid of the first
+// kernel.
+extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float* scale,
+                                 const float* bias, const float* dy, float* dx, float* dg,
+                                 float* part, float* dscale, float* dbias, int rows, int C,
+                                 int gate_kind, int values, int lanes, int masked, int blocks,
+                                 float eps, cudaStream_t stream) {
+  if (rows < 1 || C < 1 || (long long)rows * C >= (1ll << 31) || blocks < 1 ||
+      (long long)blocks * 2 * C >= (1ll << 31) || gate_kind < 0 || gate_kind > 2 ||
+      (gate_kind && (!gate || !dg)) || (masked ? values * lanes < C : values * lanes != C)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int err = (int)cudaErrorInvalidValue;
+#define FM_LN_BWD(V, G, MASK)                                                                \
+  if (values == V && lanes == G && (masked != 0) == MASK)                                    \
+    err = launch<V, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, part, \
+                             rows, C, eps);
+  FM_LN_BWD(3, 8, false)
+  FM_LN_BWD(3, 32, false)
+  FM_LN_BWD(6, 32, false)
+  FM_LN_BWD(12, 32, false)
+  FM_LN_BWD(12, 64, false)
+  FM_LN_BWD(12, 128, false)
+  FM_LN_BWD(12, 32, true)
+  FM_LN_BWD(12, 128, true)
+  FM_LN_BWD(12, 512, true)
+#undef FM_LN_BWD
+  if (err != 0) return err;
+  ln_bwd_reduce<<<(2 * C + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceSlices), 0,
+                  stream>>>(part, blocks, C, dscale, dbias);
+  return (int)cudaGetLastError();
+}

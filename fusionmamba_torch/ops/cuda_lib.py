@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -25,13 +26,14 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "fusionmamba_torch"
 SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
-           "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu")
+           "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "layer_norm_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfusionmamba_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # argument types of each C entry point (pointers and the stream as c_void_p)
 SIGNATURES = {
     # u, dt, W, A, B, C, D, bias, out, hsave, carry, sdel, batch, K, L, dim, N,
@@ -40,8 +42,9 @@ SIGNATURES = {
     # u, dt, W, A, B, C, D, bias, hsave, dy, du, ddt, dW, dA, dB, dC, dD, dbias,
     # scratch, batch, K, L, dim, N, R, T, softplus, chunk_len, stream
     "fm_selective_scan_bwd": (_P,) * 19 + (_I,) * 9 + (_P,),
-    # x, w (C,9), bias, out, B, H, W, C, act_silu, stream
-    "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 5 + (_P,),
+    # x, w (C,9), bias, out, B, H, W, C, act_silu, cq, tw, th, grid x, y, z,
+    # stream
+    "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 11 + (_P,),
     # x, w (C,9), bias, dy, dx, part, B, H, W, C, act_silu, stream
     "fm_dwconv3x3_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     # x, w1 (H,C), b1, w2 (C_out,H), b2, y, hidden (or null), partial (or
@@ -50,6 +53,9 @@ SIGNATURES = {
     # x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx,
     # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, stream
     "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
+    # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
+    # gate kind, values, lanes, masked, blocks, eps, stream
+    "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -127,6 +133,16 @@ def launch(name: str, *args, device: torch.device) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({torch.cuda.get_device_name(device)})")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of the card `device`."""
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
 
 
 def needs_grad(*tensors) -> bool:

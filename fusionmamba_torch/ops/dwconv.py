@@ -4,14 +4,18 @@ PyTorch version, and the wrappers of the CUDA kernels: the forward
 `fusionmamba_tpu/ops/dwconv_pallas.py::_fwd_kernel`) and the backward
 (`csrc/dwconv3x3_bwd.cu`; replaces `::_bwd_kernel`).
 
-Both kernels are bound by bytes. The forward runs one thread per output
-element, C fastest, so a warp moves one coalesced row of channels, and the
-cache serves the nine taps' re-reads of x. The backward runs one thread per
-(b, h, c) row that slides register windows of x and dz along w, recomputing
-the pre-activation, and writes dw and dbias as per-block partials that are
-summed here. See the sources for the designs.
+Both kernels are bound by bytes. The forward stages a tile of rows of x,
+halo included, in shared memory with 16-byte copies, and each thread walks
+down a column with 4 channels as one float4; `fwd_plan` sizes the tile and
+the grid. The backward runs one thread per (b, h, c) row that slides
+register windows of x and dz along w, recomputing the pre-activation, and
+writes dw and dbias as per-block partials that are summed here. See the
+sources for the designs.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +23,11 @@ import torch.nn.functional as F
 from . import cuda_lib
 
 ACTS = ("none", "silu")
+# the forward kernel's limits (csrc/dwconv3x3_fwd.cu)
+FWD_MAX_THREADS = 128
+FWD_MAX_SMEM = 48 * 1024
+FWD_MAX_ROWS = 8           # rows of a tile
+FWD_BLOCKS_PER_SM = 4      # fewer blocks than this an SM: shorter tiles
 
 launches = 0
 bwd_launches = 0
@@ -35,6 +44,39 @@ def depthwise_conv3x3_plain(x, w, bias=None, act="none"):
     if bias is not None:
         acc = acc + bias
     return F.silu(acc) if act == "silu" else acc
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class FwdPlan(NamedTuple):
+    """The forward kernel's tiling: a block covers 4 * cq channels, tw columns
+    and th rows of one image with cq * tw threads; the grid is (channel
+    blocks, column tiles, B x row tiles), and the staged tile, halo
+    included, takes smem_bytes of shared memory."""
+    cq: int
+    tw: int
+    th: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem_bytes: int
+
+
+def fwd_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> FwdPlan:
+    """Tile sizes and grid of the forward kernel for x (B, H, W, C) on a card
+    with `sms` SMs. A thread takes 4 channels; up to 16 threads span 64
+    channels, so every width of the model (192 * 2^k) splits into whole
+    blocks; up to 128 threads a block along W; rows of a tile halve from 8
+    while the grid would leave fewer than FWD_BLOCKS_PER_SM blocks an SM."""
+    cq = min(16, _pow2_at_least(-(-C // 4)))
+    tw = min(FWD_MAX_THREADS // cq, _pow2_at_least(W))
+    c_blocks, w_tiles = -(-C // (4 * cq)), -(-W // tw)
+    th = min(FWD_MAX_ROWS, _pow2_at_least(H))
+    while th > 1 and c_blocks * w_tiles * B * math.ceil(H / th) < FWD_BLOCKS_PER_SM * sms:
+        th //= 2
+    return FwdPlan(cq, tw, th, (c_blocks, w_tiles, B * math.ceil(H / th)), cq * tw,
+                   (th + 2) * (tw + 2) * cq * 16)
 
 
 def _checked(x, w, bias):
@@ -54,9 +96,11 @@ def _dwconv_cuda(x, w, bias, act):
     global launches
     w_c = _checked(x, w, bias)
     out = torch.empty_like(x)
+    plan = fwd_plan(*x.shape, sms=cuda_lib.sm_count(x.device))
     cuda_lib.launch("fm_dwconv3x3_fwd", x.data_ptr(), w_c.data_ptr(),
                     None if bias is None else bias.data_ptr(), out.data_ptr(),
-                    *x.shape, int(act == "silu"), device=x.device)
+                    *x.shape, int(act == "silu"), plan.cq, plan.tw, plan.th, *plan.grid,
+                    device=x.device)
     launches += 1
     return out
 

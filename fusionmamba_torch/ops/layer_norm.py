@@ -1,6 +1,8 @@
 """Fused LayerNorm (+ gate) and LN-spatial-mean: the public ops, their plain
-PyTorch versions, and the dispatch to the Triton kernels (`ln_triton.py`),
-forward and backward.
+PyTorch versions, the dispatch to the Triton kernels (`ln_triton.py`: the LN
+forward, the LN-mean forward and backward), and the wrapper of the CUDA
+kernel of the LN backward (`csrc/layer_norm_bwd.cu`; replaces
+`fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel`).
 
 Numerics follow `fusionmamba_tpu/ops/ln_pallas.py`: fp32 statistics with the
 fast variance E[x^2] - E[x]^2 (not F.layer_norm's two-pass form), then
@@ -8,13 +10,30 @@ rsqrt(var + eps).
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
-from . import ln_triton
+from . import cuda_lib, ln_triton
 from .cuda_lib import needs_grad
 
 GATE_ACTS = ("none", "silu", "silu_sum")
+_GATE_CODES = {"silu": 1, "silu_sum": 2}
+
+# The LN backward kernel's templates (csrc/layer_norm_bwd.cu): C -> (values
+# a lane holds, lanes a row), values * lanes = C, for every width the model
+# normalises (3 * 2^k); any other C takes a masked variant of 12 values a
+# lane with the fewest of BWD_MASKED_LANES lanes that hold it.
+BWD_TEMPLATES = {24: (3, 8), 96: (3, 32), 192: (6, 32), 384: (12, 32), 768: (12, 64),
+                 1536: (12, 128)}
+BWD_MASKED_VALUES = 12
+BWD_MASKED_LANES = (32, 128, 512)
+BWD_BLOCK = 256             # threads of a block whose rows take at most 256 lanes
+BWD_REDUCE_SLICES = 32      # the partials' reduce: interleaved slices summed in order
+
+layer_norm_bwd_launches = 0
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -27,6 +46,69 @@ def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
         s1 = F.silu(g_raw)
         return s1 + F.silu(s1)
     return g_raw
+
+
+class BwdPlan(NamedTuple):
+    """The LN backward kernel's layout: `lanes` lanes a row, each holding
+    `values` channels (lanes past C masked when `masked`); a block of
+    `threads` takes `rows_per_step` rows at a time and walks the rows in a
+    grid-stride loop over `blocks` blocks, each writing one (2, C) partial."""
+    values: int
+    lanes: int
+    masked: bool
+    threads: int
+    rows_per_step: int
+    blocks: int
+
+
+def bwd_plan(rows: int, C: int, sms: int = 132) -> BwdPlan:
+    """The LN backward's template and grid for (rows, C) on a card with `sms`
+    SMs: 4 blocks an SM (2 where a lane holds 12 values and uses about twice
+    the registers), never more blocks than row steps."""
+    if C in BWD_TEMPLATES:
+        values, lanes = BWD_TEMPLATES[C]
+        masked = False
+    else:
+        values = BWD_MASKED_VALUES
+        lanes = next((n for n in BWD_MASKED_LANES if n * values >= C), None)
+        if lanes is None:
+            raise ValueError(f"layer_norm_fused backward: C = {C} is wider than the card's "
+                             f"kernel takes ({BWD_MASKED_VALUES * BWD_MASKED_LANES[-1]})")
+        masked = True
+    threads = max(BWD_BLOCK, lanes)
+    step = threads // lanes
+    per_sm = 2 if values > 6 else 4
+    return BwdPlan(values, lanes, masked, threads, step,
+                   max(1, min(math.ceil(rows / step), per_sm * sms)))
+
+
+def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
+    """Gradients of the fused LN for the cotangent dy, on the card: (dx,
+    dgate or None, dscale, dbias), fp32. Two launches: the rows, then the
+    sum of the per-block partials of dscale and dbias."""
+    global layer_norm_bwd_launches
+    C = x.shape[-1]
+    tensors = [x, scale, bias, dy] + ([] if gate is None else [gate])
+    cuda_lib.check_cuda_float32("layer_norm_fused backward", *tensors)
+    if dy.shape != x.shape or (gate is not None and gate.shape != x.shape):
+        raise ValueError("layer_norm_fused backward: dy and the gate must have x's shape")
+    if scale.shape != (C,) or bias.shape != (C,):
+        raise ValueError("layer_norm_fused backward: scale and bias must be (C,)")
+    rows = x.numel() // C
+    plan = bwd_plan(rows, C, cuda_lib.sm_count(x.device))
+    dx = torch.empty_like(x)
+    dg = None if gate is None else torch.empty_like(gate)
+    part = torch.empty((plan.blocks, 2, C), device=x.device, dtype=torch.float32)
+    ds = torch.empty(C, device=x.device, dtype=torch.float32)
+    db = torch.empty(C, device=x.device, dtype=torch.float32)
+    cuda_lib.launch("fm_layer_norm_bwd", x.data_ptr(), None if gate is None else gate.data_ptr(),
+                    scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
+                    db.data_ptr(), rows, C, 0 if gate is None else _GATE_CODES[gate_act],
+                    plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
+                    device=x.device)
+    layer_norm_bwd_launches += 1
+    return dx, dg, ds, db
 
 
 def _stats(x, eps):
@@ -60,8 +142,8 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, bias, gate = ctx.saved_tensors
-        dx, dg, ds, db = ln_triton.layer_norm_bwd(x, scale, bias, gate, dy.contiguous(),
-                                                  ctx.eps, ctx.gate_act)
+        dx, dg, ds, db = layer_norm_bwd(x, scale, bias, gate, dy.contiguous(), ctx.eps,
+                                        ctx.gate_act)
         return dx, ds, db, dg, None, None
 
 
@@ -83,13 +165,17 @@ def layer_norm_fused(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
     """LayerNorm over the last axis of x (..., C), times the activated gate
     (same shape as x) when one is given. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the Triton kernel and, when a
-    gradient is needed, its backward kernel."""
+    gradient is needed, the CUDA backward kernel. The card's kernels take a
+    gate only with gate_act "silu" or "silu_sum"."""
     if gate_act not in GATE_ACTS:
         raise ValueError(f"unknown gate_act {gate_act!r}")
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, gate, eps, gate_act)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_fused: no implementation for {x.device}")
+    if gate is not None and gate_act == "none":
+        raise ValueError('layer_norm_fused: on the card a gate needs gate_act "silu" or '
+                         '"silu_sum"')
     if needs_grad(x, scale, bias, gate):
         return _LayerNormFn.apply(x, scale, bias, gate, eps, gate_act)
     return ln_triton.layer_norm_fwd(x, scale, bias, gate, eps, gate_act)

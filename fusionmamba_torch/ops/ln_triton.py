@@ -1,19 +1,19 @@
-"""Triton kernels of the fused LayerNorm (+ gate) and of the LN-spatial-mean,
-forward and backward.
+"""Triton kernels of the fused LayerNorm (+ gate) forward and of the
+LN-spatial-mean, forward and backward. (The LN backward is a CUDA kernel,
+`csrc/layer_norm_bwd.cu`.)
 
 Replace `fusionmamba_tpu/ops/ln_pallas.py::_ln_fwd_kernel` (built by
-`_fwd_pallas`), `::_ln_bwd_kernel` (`_bwd_pallas`), `::_lnm_fwd_kernel`
-(`_lnm_core`) and `::_lnm_bwd_kernel` (`_lnm_bwd`). All four are row
-normalisations that do a handful of flops per byte, so they are bound by the
-bytes they move: the LN reads x (and the gate) once and writes y once, its
-backward reads x, dy (and the gate) once and writes dx (and dgate) once; the
-LN-mean reads x once and writes only (B, C), and its backward reads x once
-and writes dx once. One program owns whole rows, `BLOCK_C` being C rounded
-up to a power of two and masked, and the statistics are the fast variance
-E[x^2] - E[x]^2 in fp32, as on the TPU; the backwards recompute them. Every
-sum across programs (the LN-mean's output, dscale and dbias, the LN-mean
-backward's sum of xhat) is written as per-program partials and summed in a
-fixed order afterwards, never with atomics, so results repeat exactly.
+`_fwd_pallas`), `::_lnm_fwd_kernel` (`_lnm_core`) and `::_lnm_bwd_kernel`
+(`_lnm_bwd`). All three are row normalisations that do a handful of flops
+per byte, so they are bound by the bytes they move: the LN reads x (and the
+gate) once and writes y once; the LN-mean reads x once and writes only (B,
+C), and its backward reads x once and writes dx once. One program owns whole
+rows, `BLOCK_C` being C rounded up to a power of two and masked, and the
+statistics are the fast variance E[x^2] - E[x]^2 in fp32, as on the TPU; the
+backward recomputes them. Every sum across programs (the LN-mean's output,
+the LN-mean backward's sum of xhat) is written as per-program partials and
+summed in a fixed order afterwards, never with atomics, so results repeat
+exactly.
 
 `triton` is imported inside the launching functions: the module imports (and
 the CPU path runs) where Triton is absent.
@@ -31,7 +31,6 @@ _ROW_BLOCK_ELEMS = 4096
 
 layer_norm_launches = 0
 ln_mean_launches = 0
-layer_norm_bwd_launches = 0
 ln_mean_bwd_launches = 0
 
 
@@ -95,41 +94,6 @@ def _kernels():
         tl.store(O + bi * C + c, acc * inv_rows, mask=c < C)
 
     @triton.jit
-    def ln_bwd(X, G, S, Bi, DY, DX, DG, DSP, DBP, rows, C, eps, GATE: tl.constexpr,
-               BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        r = pid * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_C)[None, :]
-        mask = (r < rows) & (c < C)
-        offs = r.to(tl.int64) * C + c
-        x = tl.load(X + offs, mask=mask, other=0.0)
-        dy = tl.load(DY + offs, mask=mask, other=0.0)
-        s = tl.load(S + c, mask=c < C, other=0.0)
-        mu = tl.sum(x, axis=1) / C
-        rs = tl.rsqrt(tl.sum(x * x, axis=1) / C - mu * mu + eps)
-        xhat = tl.where(mask, (x - mu[:, None]) * rs[:, None], 0.0)
-        if GATE != 0:
-            b = tl.load(Bi + c, mask=c < C, other=0.0)
-            g = tl.load(G + offs, mask=mask, other=0.0)
-            sg = tl.sigmoid(g)
-            s1 = g * sg
-            dgate = sg * (1.0 + g * (1.0 - sg))        # silu'(g)
-            gv = s1
-            if GATE == 2:
-                ss = tl.sigmoid(s1)
-                gv = s1 + s1 * ss
-                dgate = (1.0 + ss * (1.0 + s1 * (1.0 - ss))) * dgate
-            tl.store(DG + offs, dy * (xhat * s + b) * dgate, mask=mask)
-            dy = dy * gv
-        c1 = tl.arange(0, BLOCK_C)
-        tl.store(DSP + pid * C + c1, tl.sum(dy * xhat, axis=0), mask=c1 < C)
-        tl.store(DBP + pid * C + c1, tl.sum(dy, axis=0), mask=c1 < C)
-        w = dy * s
-        m1 = tl.sum(w, axis=1) / C
-        m2 = tl.sum(w * xhat, axis=1) / C
-        tl.store(DX + offs, rs[:, None] * (w - m1[:, None] - xhat * m2[:, None]), mask=mask)
-
-    @triton.jit
     def lnm_bwd(X, Wt, DX, XSP, rows, C, n_blk, eps,
                 BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
         bi = tl.program_id(0)
@@ -149,7 +113,7 @@ def _kernels():
         m2 = tl.sum(w * xhat, axis=1) / C
         tl.store(DX + offs, rs[:, None] * (w - m1[:, None] - xhat * m2[:, None]), mask=mask)
 
-    return triton, ln_fwd, lnm_partial, lnm_reduce, ln_bwd, lnm_bwd
+    return triton, ln_fwd, lnm_partial, lnm_reduce, lnm_bwd
 
 
 def _blocks(C: int):
@@ -168,7 +132,7 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
         raise ValueError("layer_norm_fused: scale and bias must be (C,)")
     if gate is not None and gate.shape != x.shape:
         raise ValueError("layer_norm_fused: gate must have x's shape")
-    triton, ln_fwd, _, _, _, _ = _kernels()
+    triton, ln_fwd, _, _, _ = _kernels()
     rows = x.numel() // C
     y = torch.empty_like(x)
     block_r, block_c, warps = _blocks(C)
@@ -188,7 +152,7 @@ def ln_spatial_mean_fwd(x, scale, bias, eps):
     check_cuda_float32("ln_spatial_mean", x, scale, bias)
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
-    triton, _, lnm_partial, lnm_reduce, _, _ = _kernels()
+    triton, _, lnm_partial, lnm_reduce, _ = _kernels()
     rows = x.numel() // (B * C)
     block_r, block_c, warps = _blocks(C)
     n_blk = triton.cdiv(rows, block_r)
@@ -203,32 +167,6 @@ def ln_spatial_mean_fwd(x, scale, bias, eps):
     return out
 
 
-def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
-    """Gradients of `layer_norm_fwd` for the cotangent dy: (dx, dgate or None,
-    dscale, dbias), fp32, on the card."""
-    global layer_norm_bwd_launches
-    C = x.shape[-1]
-    tensors = [x, scale, bias, dy] + ([] if gate is None else [gate])
-    check_cuda_float32("layer_norm_fused backward", *tensors)
-    if dy.shape != x.shape:
-        raise ValueError("layer_norm_fused backward: dy must have x's shape")
-    triton, _, _, _, ln_bwd, _ = _kernels()
-    rows = x.numel() // C
-    block_r, block_c, warps = _blocks(C)
-    n_blk = triton.cdiv(rows, block_r)
-    dx = torch.empty_like(x)
-    dg = None if gate is None else torch.empty_like(gate)
-    ds_p = torch.empty((n_blk, C), device=x.device, dtype=torch.float32)
-    db_p = torch.empty((n_blk, C), device=x.device, dtype=torch.float32)
-    code = 0 if gate is None else _GATE_CODES[gate_act]
-    with torch.cuda.device(x.device):
-        ln_bwd[(n_blk,)](x, x if gate is None else gate, scale, bias, dy, dx,
-                         dx if dg is None else dg, ds_p, db_p, rows, C, eps,
-                         GATE=code, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
-    layer_norm_bwd_launches += 1
-    return dx, dg, ds_p.sum(0), db_p.sum(0)
-
-
 def ln_spatial_mean_bwd(x, scale, dm, eps):
     """Gradients of `ln_spatial_mean_fwd` for the cotangent dm (B, C):
     (dx, dscale, dbias), fp32, on the card."""
@@ -237,7 +175,7 @@ def ln_spatial_mean_bwd(x, scale, dm, eps):
     check_cuda_float32("ln_spatial_mean backward", x, scale, dm)
     if dm.shape != (B, C):
         raise ValueError("ln_spatial_mean backward: dm must be (B, C)")
-    triton, _, _, _, _, lnm_bwd = _kernels()
+    triton, _, _, _, lnm_bwd = _kernels()
     rows = x.numel() // (B * C)
     block_r, block_c, warps = _blocks(C)
     n_blk = triton.cdiv(rows, block_r)

@@ -14,7 +14,6 @@ recomputes each tile of states. See the sources for the designs.
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -99,15 +98,10 @@ def bwd_smem_bytes(N, R):
                 + (T + 1) * (DB * MAX_STATE + 16) + 2 * stage)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _pick_chunk(chunk, batch, K, L, dim, device, warps_per_sm):
     """The chunk length in steps: the caller's, or what fills the card."""
     if chunk is None:
-        per_warp_an_sm = _sm_count(device.index or 0) * 32
+        per_warp_an_sm = cuda_lib.sm_count(device) * 32
         return chunk_len(L, batch * K * dim * _LANES, warps_per_sm[0] * per_warp_an_sm,
                          warps_per_sm[1] * per_warp_an_sm)
     if chunk < TILE or chunk % TILE:

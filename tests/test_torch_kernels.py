@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from fusionmamba_torch.device import select_device
-from fusionmamba_torch.ops import dwconv, layer_norm, ln_triton, mlp, scan_cuda
+from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
 
 pytestmark = pytest.mark.cuda
@@ -122,9 +122,21 @@ def test_ln_spatial_mean_kernel(dev, B, rows, C):
     torch.testing.assert_close(got, layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), **TOL)
 
 
+# every training shape (B = 12 and 6), two serving shapes (16 and 8), and
+# ragged ones: C of 3, 6 and 40 (not a multiple of 4, of the block's 64
+# channels), H and W not multiples of the tile (fwd_plan), a 1x1 image
+_DWCONV_SHAPES = [
+    (2, 5, 7, 3), (3, 9, 13, 6), (2, 11, 19, 40), (1, 1, 1, 8), (1, 1, 1, 3), (2, 3, 70, 192),
+    (16, 64, 64, 192), (8, 8, 8, 1536),
+    (12, 64, 64, 192), (6, 64, 64, 192), (12, 32, 32, 384), (6, 32, 32, 384),
+    (12, 16, 16, 768), (6, 16, 16, 768), (12, 8, 8, 1536), (6, 8, 8, 1536)]
+
+
 @pytest.mark.parametrize("act", ["none", "silu"])
-@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 1, 8), (16, 64, 64, 192), (8, 8, 8, 1536)])
+@pytest.mark.parametrize("shape", _DWCONV_SHAPES)
 def test_dwconv_kernel(dev, act, shape):
+    """Against the plain version, with and without a bias; two launches
+    bit-identical."""
     g = torch.Generator().manual_seed(sum(shape))
     C = shape[-1]
     x = _rand(g, *shape).to(dev)
@@ -134,8 +146,29 @@ def test_dwconv_kernel(dev, act, shape):
     torch.cuda.synchronize()
     assert dwconv.launches == before + 1
     torch.testing.assert_close(got, dwconv.depthwise_conv3x3_plain(x, w, b, act), **TOL)
+    assert torch.equal(got, dwconv.depthwise_conv3x3(x, w, b, act))
     torch.testing.assert_close(dwconv.depthwise_conv3x3(x, w, None, act),
                                dwconv.depthwise_conv3x3_plain(x, w, None, act), **TOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 9, 13, 8), (6, 8, 8, 1536)])
+def test_dwconv_kernel_unaligned(dev, shape):
+    """x and the output 4 bytes off a 16-byte boundary: the kernel's scalar
+    loads and stores."""
+    g = torch.Generator().manual_seed(7)
+    n = 1
+    for d in shape:
+        n *= d
+    x = _rand(g, n + 1).to(dev)[1:].view(shape)
+    out = torch.empty(n + 1, device=dev)[1:].view(shape)
+    w, b = _rand(g, 3, 3, shape[-1], scale=0.3).to(dev), _rand(g, shape[-1]).to(dev)
+    want = dwconv.depthwise_conv3x3_plain(x, w, b, "silu")
+    plan = dwconv.fwd_plan(*shape, sms=cuda_lib.sm_count(dev))
+    w_c = w.permute(2, 0, 1).contiguous()    # the kernel's (C, 3, 3) layout
+    cuda_lib.launch("fm_dwconv3x3_fwd", x.data_ptr(), w_c.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), *shape, 1, plan.cq, plan.tw, plan.th, *plan.grid, device=dev)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, **TOL)
 
 
 _MLP_SHAPES = [(1, 16, 64), (37, 96, 384), (100, 20, 72), (512, 768, 3072),
@@ -279,9 +312,17 @@ def test_scan_backward_kernel_ragged_d_slow_decay(dev, L, D, R, chunk):
     _assert_grads_close([x for x in got if x is not None], want)
 
 
+# the training path's widest shapes of each kind ((393216, 24) the final
+# expand, (49152, 96) the first stage, (384, 1536) a gated deep SS2D), every
+# template, C outside the templates (40, 1000: the masked variant), one row,
+# and fewer rows than the grid's row groups
 @pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum"])
-@pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536)])
+@pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536), (393216, 24),
+                                    (49152, 96), (384, 1536), (300, 384), (70, 768), (3, 1536),
+                                    (5, 40), (1, 1000), (300, 1000)])
 def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
+    """Against autograd of the plain version; two launches bit-identical,
+    one count each."""
     g = torch.Generator().manual_seed(rows * C)
     inputs = [_rand(g, rows, C, scale=2.0, shift=0.5), _rand(g, C), _rand(g, C)]
     if gate_act != "none":
@@ -295,7 +336,7 @@ def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
     def plain(x, s, b, gate=None):
         return layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, gate_act)
 
-    _check_backward(kernel, plain, inputs, dy, (ln_triton, "layer_norm_bwd_launches"))
+    _check_backward(kernel, plain, inputs, dy, (layer_norm, "layer_norm_bwd_launches"))
 
 
 @pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (12, 4096, 96), (8, 64, 768)])
