@@ -23,7 +23,8 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                kernels against the autograd of its plain version: every
                input's gradient, its error against the stated bound, two
                launches bit-identical, times of the backward alone (kernel,
-               plain autograd, library autograd) and its bound. The MLP's
+               plain autograd, library autograd), its bound and the bound's
+               share of the kernel's device time. The MLP's
                bounds are reckoned at the tensor cores' 3xTF32 rate, with
                the fp32 CUDA-core bound beside them, and its forward must
                repeat itself bit for bit.
@@ -55,7 +56,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
  10. trace_train - the same over three warm training steps of 6 pairs, with
                forward and backward kernels apart.
 Then the card's name and power limit as nvidia-smi gives them, the kernels
-line (all ten kernels, timed per training step), and the result line.
+line (all ten kernels, timed per training step; a kernel's device total sums
+the shapes the profiler timed, `device_shapes_covered` of `shapes`), and the
+result line.
 Without a CUDA device it fails before any phase. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -93,6 +96,8 @@ TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
 # clock an SM, at the card's top SM clock (set in main from nvidia-smi)
 SFU_PER_CLOCK_PER_SM = 16
 SFU_CALLS_PER_S = None
+# empty profiler captures `device_ms` takes again before it gives up on a shape
+DEVICE_MS_TRIES = 5
 # the MLP kernels form every fp32 product as three TF32 products (3xTF32,
 # fusionmamba_torch/csrc/mma_tf32x3.cuh): their bound is reckoned at a third
 # of the TF32 rate, and each of their lines also gives the CUDA-core bound
@@ -128,7 +133,7 @@ KERNELS = {
                        "fusionmamba_tpu/ops/ln_pallas.py:89"),
     "ln_mean": ("triton", "fusionmamba_torch/ops/ln_triton.py",
                 "fusionmamba_tpu/ops/ln_pallas.py:220"),
-    "ln_mean_bwd": ("triton", "fusionmamba_torch/ops/ln_triton.py",
+    "ln_mean_bwd": ("cuda", "fusionmamba_torch/csrc/layer_norm_bwd.cu",
                     "fusionmamba_tpu/ops/ln_pallas.py:236"),
     "dwconv": ("cuda", "fusionmamba_torch/csrc/dwconv3x3_fwd.cu",
                "fusionmamba_tpu/ops/dwconv_pallas.py:76"),
@@ -325,7 +330,7 @@ def make_case(kernel, shape, dev, gen):
         return ([rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)],
                 lambda *t: layer_norm.ln_spatial_mean(*t, 1e-5),
                 lambda *t: layer_norm.ln_spatial_mean_plain(*t, 1e-5), None,
-                lambda t, dm: lambda: ln_triton.ln_spatial_mean_bwd(t[0], t[1], dm, 1e-5))
+                lambda t, dm: lambda: layer_norm.ln_spatial_mean_bwd(t[0], t[1], dm, 1e-5))
     if kernel == "dwconv":
         B, H, W, C = shape
         return ([rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C, scale=1 / 3)],
@@ -347,12 +352,12 @@ def make_case(kernel, shape, dev, gen):
 def device_ms(fn, reps: int = 3):
     """Device time per call of `fn` (warm), from torch.profiler: the sum of its
     kernels' durations, without the host's launch pace that paces CUDA events
-    over short kernels. None where the profiler recorded no device event in
-    two tries."""
+    over short kernels. A capture sometimes records no device event: it is
+    taken again, and None is returned only after DEVICE_MS_TRIES empty ones."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(2):
+    for _ in range(DEVICE_MS_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -379,16 +384,15 @@ def _new_agg():
     cover only the shapes where there is one (the LN's ungated shapes), and
     the kernel's times at those same shapes stand beside them
     (`ms_at_library_shapes`, `device_ms_at_library_shapes`); `_summary`
-    turns them to None where no shape had a library call. A device time
-    stays None once a shape had none."""
-    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, device_ms=0.0, library_shapes=0,
+    turns them to None where no shape had a library call. The device times
+    sum over the shapes that have one (`device_shapes_covered` of `shapes`;
+    the library's over the shapes where both have one), so a shape without
+    one leaves the others' sum standing, labelled by its count."""
+    return dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, shapes=0, device_shapes_covered=0,
+                device_ms=0.0, library_shapes=0, library_device_shapes_covered=0,
                 library_ms=0.0, library_device_ms=0.0, ms_at_library_shapes=0.0,
                 device_ms_at_library_shapes=0.0, bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0,
                 sfu_ms=0.0, fp32_cores_bound_ms=0.0)
-
-
-def _plus(total, n, t):
-    return None if t is None or total is None else total + n * t
 
 
 def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms, sfu_ms,
@@ -396,14 +400,18 @@ def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms
     agg["max_abs_err"] = max(agg["max_abs_err"], err)
     agg["ms"] += n * ms
     agg["plain_ms"] += n * plain_ms
-    agg["device_ms"] = _plus(agg["device_ms"], n, dev_ms)
+    agg["shapes"] += 1
+    if dev_ms is not None:
+        agg["device_shapes_covered"] += 1
+        agg["device_ms"] += n * dev_ms
     if lib_ms is not None:
         agg["library_shapes"] += 1
         agg["library_ms"] += n * lib_ms
         agg["ms_at_library_shapes"] += n * ms
-        agg["library_device_ms"] = _plus(agg["library_device_ms"], n, lib_dev_ms)
-        agg["device_ms_at_library_shapes"] = _plus(agg["device_ms_at_library_shapes"], n,
-                                                   dev_ms)
+        if lib_dev_ms is not None and dev_ms is not None:
+            agg["library_device_shapes_covered"] += 1
+            agg["library_device_ms"] += n * lib_dev_ms
+            agg["device_ms_at_library_shapes"] += n * dev_ms
     agg["bound_ms"] += n * max(bytes_ms, ops_ms, sfu_ms)
     agg["bytes_ms"] += n * bytes_ms
     agg["ops_ms"] += n * ops_ms
@@ -414,10 +422,10 @@ def _add(agg, n, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, bytes_ms, ops_ms
 def _summary(agg):
     """The sums of `_new_agg` to report: the library's times None where no
     shape had a library call."""
-    out = {k: v for k, v in agg.items() if k != "library_shapes"}
+    out = dict(agg)
     if not agg["library_shapes"]:
-        for k in ("library_ms", "library_device_ms", "ms_at_library_shapes",
-                  "device_ms_at_library_shapes"):
+        for k in ("library_shapes", "library_device_shapes_covered", "library_ms",
+                  "library_device_ms", "ms_at_library_shapes", "device_ms_at_library_shapes"):
             out[k] = None
     return out
 
@@ -434,9 +442,11 @@ def _bound_by(kernel, bytes_ms, ops_ms, sfu_ms):
             "operations_kind": "special_function" if sfu_ms >= ops_ms else arithmetic}
 
 
-def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms):
-    """The bound of one call and what sets it, for a per-shape line."""
-    out = {"bound_ms": max(bytes_ms, ops_ms, sfu_ms),
+def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms, dev_ms):
+    """The bound of one call, what sets it and its share of the kernel's
+    device time, for a per-shape line."""
+    bound = max(bytes_ms, ops_ms, sfu_ms)
+    out = {"bound_ms": bound, "bound_share_of_device_ms": bound / dev_ms if dev_ms else None,
            **_bound_by(kernel, bytes_ms, ops_ms, sfu_ms)}
     if sfu_ms:
         out["special_function_bound_ms"] = sfu_ms
@@ -472,7 +482,7 @@ def _forward_line(phase, kernel, shape, n, case):
           **({"bit_identical_twice": same} if repeats else {}),
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
           "kernel_device_ms": dev_ms, "library_device_ms": lib_dev_ms,
-          **_bound_fields(kernel, *bounds)})
+          **_bound_fields(kernel, *bounds, dev_ms)})
     if not ok:
         fail(f"{kernel} at {shape} disagrees with its plain version "
              f"(max abs err {float(err.max())})")
@@ -554,7 +564,8 @@ def phase_kernel_train(calls, dev):
                   "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
                   "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
                   "library_ms": lib_ms, "kernel_device_ms": dev_ms,
-                  "library_device_ms": lib_dev_ms, **_bound_fields(op + "_bwd", *bounds)})
+                  "library_device_ms": lib_dev_ms,
+                  **_bound_fields(op + "_bwd", *bounds, dev_ms)})
             if not ok:
                 fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
                      f"(max abs err {err}, {scaled} of the largest gradient)")
@@ -654,7 +665,7 @@ _COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launc
              "layer_norm": (ln_triton, "layer_norm_launches"),
              "layer_norm_bwd": (layer_norm, "layer_norm_bwd_launches"),
              "ln_mean": (ln_triton, "ln_mean_launches"),
-             "ln_mean_bwd": (ln_triton, "ln_mean_bwd_launches"),
+             "ln_mean_bwd": (layer_norm, "ln_mean_bwd_launches"),
              "dwconv": (dwconv, "launches"), "dwconv_bwd": (dwconv, "bwd_launches"),
              "mlp": (mlp, "launches"), "mlp_bwd": (mlp, "bwd_launches")}
 
@@ -813,8 +824,10 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 "scan_bwd": ("selective_scan_bwd", "scan_bwd_reduce"),
                 "scan_carry": ("carry_kernel",),   # the chunk carries, forward and backward
                 "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd_kernel", "ln_bwd_reduce"),
-                "ln_mean": ("lnm_partial", "lnm_reduce"), "ln_mean_bwd": ("lnm_bwd",),
-                "dwconv": ("dwconv3x3_fwd_kernel",), "dwconv_bwd": ("dwconv3x3_bwd_kernel",),
+                "ln_mean": ("lnm_partial", "lnm_reduce"),
+                "ln_mean_bwd": ("lnm_bwd_kernel", "lnm_bwd_reduce"),
+                "dwconv": ("dwconv3x3_fwd_kernel",),
+                "dwconv_bwd": ("dwconv3x3_bwd_kernel", "dwconv3x3_bwd_reduce"),
                 "mlp": ("mlp_fwd_",), "mlp_bwd": ("mlp_bwd_",),
                 "library_conv": ("conv", "fprop", "dgrad", "wgrad", "cudnn"),
                 "library_matmul": ("gemm", "cutlass", "cublas"),
@@ -950,7 +963,8 @@ def main() -> None:
             "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
-            "library_ms": r["library_ms"], "device_ms": r["device_ms"],
+            "library_ms": r["library_ms"], "device_ms": r["device_ms"], "shapes": r["shapes"],
+            "device_shapes_covered": r["device_shapes_covered"],
             "library_device_ms": r["library_device_ms"],
             "ms_at_library_shapes": r["ms_at_library_shapes"],
             "device_ms_at_library_shapes": r["device_ms_at_library_shapes"],

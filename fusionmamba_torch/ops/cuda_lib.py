@@ -45,8 +45,9 @@ SIGNATURES = {
     # x, w (C,9), bias, out, B, H, W, C, act_silu, cq, tw, th, grid x, y, z,
     # stream
     "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 11 + (_P,),
-    # x, w (C,9), bias, dy, dx, part, B, H, W, C, act_silu, stream
-    "fm_dwconv3x3_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # x, w (C,9), bias, dy, dx, part, out (10,C), B, H, W, C, act_silu, cq, tw,
+    # th, grid x, y, stream
+    "fm_dwconv3x3_bwd": (_P,) * 7 + (_I,) * 10 + (_P,),
     # x, w1 (H,C), b1, w2 (C_out,H), b2, y, hidden (or null), partial (or
     # null), M, C, H, C_out, slice_h, stream
     "fm_fused_mlp_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
@@ -56,6 +57,9 @@ SIGNATURES = {
     # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
     # gate kind, values, lanes, masked, blocks, eps, stream
     "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    # x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
+    # blocks, eps, stream
+    "fm_ln_mean_bwd": (_P,) * 7 + (_I,) * 7 + (_F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

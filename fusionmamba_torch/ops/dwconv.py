@@ -4,12 +4,12 @@ PyTorch version, and the wrappers of the CUDA kernels: the forward
 `fusionmamba_tpu/ops/dwconv_pallas.py::_fwd_kernel`) and the backward
 (`csrc/dwconv3x3_bwd.cu`; replaces `::_bwd_kernel`).
 
-Both kernels are bound by bytes. The forward stages a tile of rows of x,
-halo included, in shared memory with 16-byte copies, and each thread walks
-down a column with 4 channels as one float4; `fwd_plan` sizes the tile and
-the grid. The backward runs one thread per (b, h, c) row that slides
-register windows of x and dz along w, recomputing the pre-activation, and
-writes dw and dbias as per-block partials that are summed here. See the
+Both kernels are bound by bytes. Both stage tiles of x (and dy), halo
+included, in shared memory with 16-byte copies, and each thread walks down a
+column with 4 channels as one float4; `fwd_plan` and `bwd_plan` size the
+tiles and the grids. The backward computes dz once a position of its haloed
+tile, keeps dw and dbias in registers over a grid-stride walk of tiles and
+sums the per-block partials in a second kernel of the same call. See the
 sources for the designs.
 """
 from __future__ import annotations
@@ -28,6 +28,13 @@ FWD_MAX_THREADS = 128
 FWD_MAX_SMEM = 48 * 1024
 FWD_MAX_ROWS = 8           # rows of a tile
 FWD_BLOCKS_PER_SM = 4      # fewer blocks than this an SM: shorter tiles
+# the backward kernel's limits (csrc/dwconv3x3_bwd.cu)
+BWD_MAX_THREADS = 128
+BWD_MAX_SMEM = 227 * 1024  # the most a block can opt in to
+SMEM_PER_SM = 228 * 1024   # an SM's shared memory; each block also takes 1 KB
+BWD_MAX_COLS = 16          # columns of a tile
+BWD_MAX_ROWS = 8           # rows of a tile
+BWD_BLOCKS_PER_SM = 4      # at most, fewer where the shared memory does not fit
 
 launches = 0
 bwd_launches = 0
@@ -79,6 +86,40 @@ def fwd_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> FwdPlan:
                    (th + 2) * (tw + 2) * cq * 16)
 
 
+class BwdPlan(NamedTuple):
+    """The backward kernel's tiling: a block of cq * tw threads covers 4 * cq
+    channels and walks tiles of th rows x tw columns in a grid-stride loop;
+    the grid is (channel blocks, blocks a channel block), each block writing
+    one (10, C) partial; smem_bytes of dynamic shared memory hold the staged
+    x (halo 2) and dz (halo 1) tiles, and the block's sums at the end."""
+    cq: int
+    tw: int
+    th: int
+    grid: tuple[int, int]
+    threads: int
+    smem_bytes: int
+    tiles: int                 # tiles of a channel block: B x row tiles x column tiles
+
+
+def bwd_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> BwdPlan:
+    """Tile sizes and grid of the backward kernel for x (B, H, W, C) on a
+    card with `sms` SMs. Up to 16 columns and 8 rows a tile, and 4 channels
+    a thread with up to 128 threads a block (so 32 channels at 16 columns,
+    64 at 8). The grid has at most as many blocks as fit on the card at once
+    (shared memory allowing, at most BWD_BLOCKS_PER_SM an SM), spread so that
+    every block walks the same number of tiles but the last. (Shorter tiles
+    at the small shapes gave no gain on the card: tools/bwd_tune.py.)"""
+    tw = min(BWD_MAX_COLS, _pow2_at_least(W))
+    cq = min(16, BWD_MAX_THREADS // tw, _pow2_at_least(-(-C // 4)))
+    th = min(BWD_MAX_ROWS, _pow2_at_least(H))
+    c_blocks = -(-C // (4 * cq))
+    smem = 16 * cq * max((th + 4) * (tw + 4) + (th + 2) * (tw + 2), 10 * tw)
+    per_sm = max(1, min(BWD_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
+    tiles = B * -(-H // th) * -(-W // tw)
+    per_block = -(-tiles // max(1, per_sm * sms // c_blocks))
+    return BwdPlan(cq, tw, th, (c_blocks, -(-tiles // per_block)), cq * tw, smem, tiles)
+
+
 def _checked(x, w, bias):
     """x and w in torch's (C, 3, 3) layout, checked for the kernels."""
     C = x.shape[-1]
@@ -105,22 +146,26 @@ def _dwconv_cuda(x, w, bias, act):
     return out
 
 
-def dwconv_bwd(x, w, bias, dy, act):
+def dwconv_bwd(x, w, bias, dy, act, plan=None):
     """Gradients of the conv for the cotangent dy: (dx, dw in w's (3, 3, C)
-    shape, dbias or None)."""
+    shape, dbias or None). `plan` overrides `bwd_plan`'s layout (to time
+    others)."""
     global bwd_launches
     w_c = _checked(x, w, bias)
     B, H, W, C = x.shape
     if dy.shape != x.shape:
         raise ValueError("depthwise_conv3x3 backward: dy must have x's shape")
     cuda_lib.check_cuda_float32("depthwise_conv3x3 backward", dy)
+    plan = plan or bwd_plan(B, H, W, C, sms=cuda_lib.sm_count(x.device))
     dx = torch.empty_like(x)
-    part = torch.empty((-(-B * H // 8), 10, C), device=x.device, dtype=torch.float32)
+    part = torch.empty((plan.grid[1], 10, C), device=x.device, dtype=torch.float32)
+    sums = torch.empty((10, C), device=x.device, dtype=torch.float32)
     cuda_lib.launch("fm_dwconv3x3_bwd", x.data_ptr(), w_c.data_ptr(),
                     None if bias is None else bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                    part.data_ptr(), B, H, W, C, int(act == "silu"), device=x.device)
+                    part.data_ptr(), sums.data_ptr(), B, H, W, C, int(act == "silu"), plan.cq,
+                    plan.tw, plan.th, *plan.grid, device=x.device)
     bwd_launches += 1
-    sums = part.sum(0)      # rows 0..8 the taps i*3+j, row 9 dbias
+    # rows 0..8 the taps i*3+j, row 9 dbias
     return dx, sums[:9].view(3, 3, C), None if bias is None else sums[9]
 
 

@@ -1,8 +1,8 @@
 """Fused LayerNorm (+ gate) and LN-spatial-mean: the public ops, their plain
 PyTorch versions, the dispatch to the Triton kernels (`ln_triton.py`: the LN
-forward, the LN-mean forward and backward), and the wrapper of the CUDA
-kernel of the LN backward (`csrc/layer_norm_bwd.cu`; replaces
-`fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel`).
+forward, the LN-mean forward), and the wrappers of the CUDA kernels of the
+two backwards (`csrc/layer_norm_bwd.cu`; they replace
+`fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel` and `::_lnm_bwd_kernel`).
 
 Numerics follow `fusionmamba_tpu/ops/ln_pallas.py`: fp32 statistics with the
 fast variance E[x^2] - E[x]^2 (not F.layer_norm's two-pass form), then
@@ -20,7 +20,6 @@ from . import cuda_lib, ln_triton
 from .cuda_lib import needs_grad
 
 GATE_ACTS = ("none", "silu", "silu_sum")
-_GATE_CODES = {"silu": 1, "silu_sum": 2}
 
 # The LN backward kernel's templates (csrc/layer_norm_bwd.cu): C -> (values
 # a lane holds, lanes a row), values * lanes = C, for every width the model
@@ -34,6 +33,7 @@ BWD_BLOCK = 256             # threads of a block whose rows take at most 256 lan
 BWD_REDUCE_SLICES = 32      # the partials' reduce: interleaved slices summed in order
 
 layer_norm_bwd_launches = 0
+ln_mean_bwd_launches = 0
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -61,10 +61,10 @@ class BwdPlan(NamedTuple):
     blocks: int
 
 
-def bwd_plan(rows: int, C: int, sms: int = 132) -> BwdPlan:
-    """The LN backward's template and grid for (rows, C) on a card with `sms`
-    SMs: 4 blocks an SM (2 where a lane holds 12 values and uses about twice
-    the registers), never more blocks than row steps."""
+def _template(C: int, name: str) -> tuple[int, int, bool, int, int, int]:
+    """(values, lanes, masked, threads, rows a block takes at a time, blocks an
+    SM) of the backward kernels' template for width C: 4 blocks an SM, 2
+    where a lane holds 12 values and uses about twice the registers."""
     if C in BWD_TEMPLATES:
         values, lanes = BWD_TEMPLATES[C]
         masked = False
@@ -72,14 +72,29 @@ def bwd_plan(rows: int, C: int, sms: int = 132) -> BwdPlan:
         values = BWD_MASKED_VALUES
         lanes = next((n for n in BWD_MASKED_LANES if n * values >= C), None)
         if lanes is None:
-            raise ValueError(f"layer_norm_fused backward: C = {C} is wider than the card's "
+            raise ValueError(f"{name} backward: C = {C} is wider than the card's "
                              f"kernel takes ({BWD_MASKED_VALUES * BWD_MASKED_LANES[-1]})")
         masked = True
     threads = max(BWD_BLOCK, lanes)
-    step = threads // lanes
-    per_sm = 2 if values > 6 else 4
+    return values, lanes, masked, threads, threads // lanes, 2 if values > 6 else 4
+
+
+def bwd_plan(rows: int, C: int, sms: int = 132) -> BwdPlan:
+    """The LN backward's template and grid for (rows, C) on a card with `sms`
+    SMs: a few blocks an SM (`_template`), never more blocks than row steps."""
+    values, lanes, masked, threads, step, per_sm = _template(C, "layer_norm_fused")
     return BwdPlan(values, lanes, masked, threads, step,
                    max(1, min(math.ceil(rows / step), per_sm * sms)))
+
+
+def lnm_bwd_plan(B: int, rows: int, C: int, sms: int = 132) -> BwdPlan:
+    """The LN-mean backward's template and grid for x (B, rows, C): the LN
+    backward's templates; `blocks` is the blocks of each batch row, so that
+    the B batch rows together take a few blocks an SM, never more blocks than
+    row steps."""
+    values, lanes, masked, threads, step, per_sm = _template(C, "ln_spatial_mean")
+    return BwdPlan(values, lanes, masked, threads, step,
+                   max(1, min(math.ceil(rows / step), per_sm * sms // B)))
 
 
 def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
@@ -104,11 +119,35 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
     cuda_lib.launch("fm_layer_norm_bwd", x.data_ptr(), None if gate is None else gate.data_ptr(),
                     scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
-                    db.data_ptr(), rows, C, 0 if gate is None else _GATE_CODES[gate_act],
+                    db.data_ptr(), rows, C, 0 if gate is None else ln_triton.GATE_CODES[gate_act],
                     plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
                     device=x.device)
     layer_norm_bwd_launches += 1
     return dx, dg, ds, db
+
+
+def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None):
+    """Gradients of the LN-mean for the cotangent dm (B, C), on the card:
+    (dx, dscale, dbias), fp32. Two launches: the rows, then the sums of the
+    per-block partials into dscale and dbias. `plan` overrides
+    `lnm_bwd_plan`'s layout (to time others)."""
+    global ln_mean_bwd_launches
+    B, C = x.shape[0], x.shape[-1]
+    cuda_lib.check_cuda_float32("ln_spatial_mean backward", x, scale, dm)
+    if dm.shape != (B, C) or scale.shape != (C,):
+        raise ValueError("ln_spatial_mean backward: dm must be (B, C) and scale (C,)")
+    rows = x.numel() // (B * C)
+    plan = plan or lnm_bwd_plan(B, rows, C, cuda_lib.sm_count(x.device))
+    dx = torch.empty_like(x)
+    part = torch.empty((B, plan.blocks, C), device=x.device, dtype=torch.float32)
+    ds = torch.empty(C, device=x.device, dtype=torch.float32)
+    db = torch.empty(C, device=x.device, dtype=torch.float32)
+    cuda_lib.launch("fm_ln_mean_bwd", x.data_ptr(), scale.data_ptr(), dm.data_ptr(),
+                    dx.data_ptr(), part.data_ptr(), ds.data_ptr(), db.data_ptr(), B, rows, C,
+                    plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
+                    device=x.device)
+    ln_mean_bwd_launches += 1
+    return dx, ds, db
 
 
 def _stats(x, eps):
@@ -157,7 +196,7 @@ class _LnMeanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dm):
         x, scale = ctx.saved_tensors
-        dx, ds, db = ln_triton.ln_spatial_mean_bwd(x, scale, dm.contiguous(), ctx.eps)
+        dx, ds, db = ln_spatial_mean_bwd(x, scale, dm.contiguous(), ctx.eps)
         return dx, ds, db, None
 
 
@@ -165,17 +204,14 @@ def layer_norm_fused(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
     """LayerNorm over the last axis of x (..., C), times the activated gate
     (same shape as x) when one is given. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the Triton kernel and, when a
-    gradient is needed, the CUDA backward kernel. The card's kernels take a
-    gate only with gate_act "silu" or "silu_sum"."""
+    gradient is needed, the CUDA backward kernel. gate_act "none" with a gate
+    multiplies by the raw gate."""
     if gate_act not in GATE_ACTS:
         raise ValueError(f"unknown gate_act {gate_act!r}")
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, gate, eps, gate_act)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_fused: no implementation for {x.device}")
-    if gate is not None and gate_act == "none":
-        raise ValueError('layer_norm_fused: on the card a gate needs gate_act "silu" or '
-                         '"silu_sum"')
     if needs_grad(x, scale, bias, gate):
         return _LayerNormFn.apply(x, scale, bias, gate, eps, gate_act)
     return ln_triton.layer_norm_fwd(x, scale, bias, gate, eps, gate_act)
@@ -185,7 +221,7 @@ def ln_spatial_mean(x, scale, bias, eps=1e-5):
     """Mean over all positions of LayerNorm(x): x (B, ..., C) -> (B, C) fp32,
     without LN(x) ever being written. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the Triton kernel and, when a
-    gradient is needed, its backward kernel."""
+    gradient is needed, the CUDA backward kernel."""
     if x.device.type == "cpu":
         return ln_spatial_mean_plain(x, scale, bias, eps)
     if x.device.type != "cuda":

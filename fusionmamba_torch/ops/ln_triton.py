@@ -1,19 +1,16 @@
 """Triton kernels of the fused LayerNorm (+ gate) forward and of the
-LN-spatial-mean, forward and backward. (The LN backward is a CUDA kernel,
+LN-spatial-mean forward. (Both backwards are CUDA kernels,
 `csrc/layer_norm_bwd.cu`.)
 
 Replace `fusionmamba_tpu/ops/ln_pallas.py::_ln_fwd_kernel` (built by
-`_fwd_pallas`), `::_lnm_fwd_kernel` (`_lnm_core`) and `::_lnm_bwd_kernel`
-(`_lnm_bwd`). All three are row normalisations that do a handful of flops
-per byte, so they are bound by the bytes they move: the LN reads x (and the
-gate) once and writes y once; the LN-mean reads x once and writes only (B,
-C), and its backward reads x once and writes dx once. One program owns whole
-rows, `BLOCK_C` being C rounded up to a power of two and masked, and the
-statistics are the fast variance E[x^2] - E[x]^2 in fp32, as on the TPU; the
-backward recomputes them. Every sum across programs (the LN-mean's output,
-the LN-mean backward's sum of xhat) is written as per-program partials and
-summed in a fixed order afterwards, never with atomics, so results repeat
-exactly.
+`_fwd_pallas`) and `::_lnm_fwd_kernel` (`_lnm_core`). Both are row
+normalisations that do a handful of flops per byte, so they are bound by the
+bytes they move: the LN reads x (and the gate) once and writes y once; the
+LN-mean reads x once and writes only (B, C). One program owns whole rows,
+`BLOCK_C` being C rounded up to a power of two and masked, and the
+statistics are the fast variance E[x^2] - E[x]^2 in fp32, as on the TPU. The
+LN-mean's sum across programs is written as per-program partials and summed
+in a fixed order afterwards, never with atomics, so results repeat exactly.
 
 `triton` is imported inside the launching functions: the module imports (and
 the CPU path runs) where Triton is absent.
@@ -26,12 +23,13 @@ import torch
 
 from .cuda_lib import check_cuda_float32
 
-_GATE_CODES = {"none": 0, "silu": 1, "silu_sum": 2}
+# the gate kinds of the LN forward and backward kernels when a gate is given
+# (0: no gate): "none" multiplies by the raw gate
+GATE_CODES = {"silu": 1, "silu_sum": 2, "none": 3}
 _ROW_BLOCK_ELEMS = 4096
 
 layer_norm_launches = 0
 ln_mean_launches = 0
-ln_mean_bwd_launches = 0
 
 
 # triton.language, bound by `_kernels()`. Triton resolves the names a kernel
@@ -60,9 +58,10 @@ def _kernels():
         y = (x - mu[:, None]) * rs[:, None] * s + b
         if GATE != 0:
             g = tl.load(G + offs, mask=mask, other=0.0)
-            g = g * tl.sigmoid(g)
-            if GATE == 2:
-                g = g + g * tl.sigmoid(g)
+            if GATE != 3:
+                g = g * tl.sigmoid(g)
+                if GATE == 2:
+                    g = g + g * tl.sigmoid(g)
             y = y * g
         tl.store(Y + offs, y, mask=mask)
 
@@ -93,27 +92,7 @@ def _kernels():
             acc += tl.load(P + (bi * n_blk + i) * C + c, mask=c < C, other=0.0)
         tl.store(O + bi * C + c, acc * inv_rows, mask=c < C)
 
-    @triton.jit
-    def lnm_bwd(X, Wt, DX, XSP, rows, C, n_blk, eps,
-                BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        bi = tl.program_id(0)
-        blk = tl.program_id(1)
-        r = blk * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_C)[None, :]
-        mask = (r < rows) & (c < C)
-        offs = (bi * rows + r).to(tl.int64) * C + c
-        x = tl.load(X + offs, mask=mask, other=0.0)
-        w = tl.load(Wt + bi * C + c, mask=c < C, other=0.0)   # dm * scale / rows
-        mu = tl.sum(x, axis=1) / C
-        rs = tl.rsqrt(tl.sum(x * x, axis=1) / C - mu * mu + eps)
-        xhat = tl.where(mask, (x - mu[:, None]) * rs[:, None], 0.0)
-        c1 = tl.arange(0, BLOCK_C)
-        tl.store(XSP + (bi * n_blk + blk) * C + c1, tl.sum(xhat, axis=0), mask=c1 < C)
-        m1 = tl.sum(w, axis=1) / C
-        m2 = tl.sum(w * xhat, axis=1) / C
-        tl.store(DX + offs, rs[:, None] * (w - m1[:, None] - xhat * m2[:, None]), mask=mask)
-
-    return triton, ln_fwd, lnm_partial, lnm_reduce, lnm_bwd
+    return triton, ln_fwd, lnm_partial, lnm_reduce
 
 
 def _blocks(C: int):
@@ -132,11 +111,11 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
         raise ValueError("layer_norm_fused: scale and bias must be (C,)")
     if gate is not None and gate.shape != x.shape:
         raise ValueError("layer_norm_fused: gate must have x's shape")
-    triton, ln_fwd, _, _, _ = _kernels()
+    triton, ln_fwd, _, _ = _kernels()
     rows = x.numel() // C
     y = torch.empty_like(x)
     block_r, block_c, warps = _blocks(C)
-    code = 0 if gate is None else _GATE_CODES[gate_act]
+    code = 0 if gate is None else GATE_CODES[gate_act]
     with torch.cuda.device(x.device):
         ln_fwd[(triton.cdiv(rows, block_r),)](
             x, x if gate is None else gate, scale, bias, y, rows, C, eps,
@@ -152,7 +131,7 @@ def ln_spatial_mean_fwd(x, scale, bias, eps):
     check_cuda_float32("ln_spatial_mean", x, scale, bias)
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
-    triton, _, lnm_partial, lnm_reduce, _ = _kernels()
+    triton, _, lnm_partial, lnm_reduce = _kernels()
     rows = x.numel() // (B * C)
     block_r, block_c, warps = _blocks(C)
     n_blk = triton.cdiv(rows, block_r)
@@ -166,25 +145,3 @@ def ln_spatial_mean_fwd(x, scale, bias, eps):
     ln_mean_launches += 1
     return out
 
-
-def ln_spatial_mean_bwd(x, scale, dm, eps):
-    """Gradients of `ln_spatial_mean_fwd` for the cotangent dm (B, C):
-    (dx, dscale, dbias), fp32, on the card."""
-    global ln_mean_bwd_launches
-    B, C = x.shape[0], x.shape[-1]
-    check_cuda_float32("ln_spatial_mean backward", x, scale, dm)
-    if dm.shape != (B, C):
-        raise ValueError("ln_spatial_mean backward: dm must be (B, C)")
-    triton, _, _, _, lnm_bwd = _kernels()
-    rows = x.numel() // (B * C)
-    block_r, block_c, warps = _blocks(C)
-    n_blk = triton.cdiv(rows, block_r)
-    w = (dm * scale / rows).contiguous()       # the row-constant cotangent of LN(x)
-    dx = torch.empty_like(x)
-    xs_p = torch.empty((B, n_blk, C), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        lnm_bwd[(B, n_blk)](x, w, dx, xs_p, rows, C, n_blk, eps,
-                            BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
-    ln_mean_bwd_launches += 1
-    xhat_sum = xs_p.sum(1)
-    return dx, (dm * xhat_sum).sum(0) / rows, dm.sum(0)

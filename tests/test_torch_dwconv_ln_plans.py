@@ -159,7 +159,7 @@ def test_dwconv_tile_replay_matches_plain_and_pallas(shape, sms, act, has_bias):
 # ---------------------------------------------------------------------------
 
 _LN_VARIANTS = {(int(v), int(g), m == "true") for v, g, m in re.findall(
-    r"FM_LN_BWD\((\d+), (\d+), (true|false)\)\n", (CSRC / "layer_norm_bwd.cu").read_text())}
+    r"X\((\d+), (\d+), (true|false)\)", (CSRC / "layer_norm_bwd.cu").read_text())}
 _LN_RAGGED = [(1, 24), (5, 40), (1, 1000), (300, 1000), (3, 1536), (7, 3), (2, 6144)]
 
 

@@ -12,6 +12,8 @@ magnitudes summed; 1e-4 relative to the output scale bounds that with room.
 The MLP kernels form each fp32 product as three TF32 products, which keeps
 fp32-class accuracy (tests/test_torch_tf32x3.py holds the margin).
 """
+import math
+
 import pytest
 import torch
 
@@ -93,13 +95,15 @@ def test_scan_kernel_large_dt(dev, chunk):
     torch.testing.assert_close(got, want, **TOL)
 
 
-@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum"])
+# "raw": gate_act "none" with a gate, which multiplies by the raw gate
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
 @pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536)])
 def test_layer_norm_kernel(dev, gate_act, rows, C):
     g = torch.Generator().manual_seed(rows + C)
     x = _rand(g, rows, C, scale=2.0, shift=0.5).to(dev)
     s, b = _rand(g, C).to(dev), _rand(g, C).to(dev)
     gate = None if gate_act == "none" else _rand(g, rows, C).to(dev)
+    gate_act = "none" if gate_act == "raw" else gate_act
     before = ln_triton.layer_norm_launches
     got = layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gate_act)
     torch.cuda.synchronize()
@@ -315,8 +319,9 @@ def test_scan_backward_kernel_ragged_d_slow_decay(dev, L, D, R, chunk):
 # the training path's widest shapes of each kind ((393216, 24) the final
 # expand, (49152, 96) the first stage, (384, 1536) a gated deep SS2D), every
 # template, C outside the templates (40, 1000: the masked variant), one row,
-# and fewer rows than the grid's row groups
-@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum"])
+# and fewer rows than the grid's row groups; "raw" is gate_act "none" with a
+# gate
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
 @pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536), (393216, 24),
                                     (49152, 96), (384, 1536), (300, 384), (70, 768), (3, 1536),
                                     (5, 40), (1, 1000), (300, 1000)])
@@ -329,6 +334,7 @@ def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
         inputs.append(_rand(g, rows, C))
     inputs = [t.to(dev) for t in inputs]
     dy = _rand(g, rows, C).to(dev)
+    gate_act = "none" if gate_act == "raw" else gate_act
 
     def kernel(x, s, b, gate=None):
         return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gate_act)
@@ -339,7 +345,12 @@ def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
     _check_backward(kernel, plain, inputs, dy, (layer_norm, "layer_norm_bwd_launches"))
 
 
-@pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (12, 4096, 96), (8, 64, 768)])
+# the model's widths at B = 12 and 6 (every template it uses), C outside the
+# templates (40, 1000: the masked variant), one row, fewer rows than a block's
+# row groups
+@pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (12, 4096, 96), (8, 64, 768),
+                                      (6, 1024, 192), (12, 1024, 192), (6, 256, 384),
+                                      (12, 256, 384), (6, 64, 768), (5, 37, 40), (2, 9, 1000)])
 def test_ln_spatial_mean_backward_kernel(dev, B, rows, C):
     g = torch.Generator().manual_seed(rows + 7 * C)
     inputs = [_rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev), _rand(g, C).to(dev),
@@ -347,11 +358,32 @@ def test_ln_spatial_mean_backward_kernel(dev, B, rows, C):
     dm = _rand(g, B, C).to(dev)
     _check_backward(lambda x, s, b: layer_norm.ln_spatial_mean(x, s, b, 1e-5),
                     lambda x, s, b: layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5),
-                    inputs, dm, (ln_triton, "ln_mean_bwd_launches"))
+                    inputs, dm, (layer_norm, "ln_mean_bwd_launches"))
 
 
+def _unaligned(g, dev, *shape, **kw):
+    """A contiguous tensor 4 bytes off a 16-byte boundary."""
+    n = math.prod(shape)
+    return _rand(g, n + 1, **kw).to(dev)[1:].view(shape)
+
+
+@pytest.mark.parametrize("B,rows,C", [(6, 256, 384), (2, 9, 40)])
+def test_ln_spatial_mean_backward_kernel_unaligned(dev, B, rows, C):
+    g = torch.Generator().manual_seed(B * rows + C)
+    x = _unaligned(g, dev, B, rows, C, scale=2.0, shift=0.5)
+    s, b, dm = _rand(g, C).to(dev), _rand(g, C).to(dev), _rand(g, B, C).to(dev)
+    got = layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5)
+    _, want = _grads(lambda *a: layer_norm.ln_spatial_mean_plain(*a, 1e-5), [x, s, b], dm)
+    _assert_grads_close(got, want)
+
+
+# every training shape's width at B = 12 and 6, C not a multiple of 4 (3)
+# and of a block's channels (40), H and W not multiples of the tile, a 1x1
+# image
 @pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
-@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 1, 8), (12, 64, 64, 192), (6, 8, 8, 1536)])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 1, 8), (12, 64, 64, 192), (6, 8, 8, 1536),
+                                   (6, 64, 64, 192), (12, 32, 32, 384), (6, 32, 32, 384),
+                                   (12, 16, 16, 768), (2, 11, 19, 40), (3, 9, 13, 6)])
 def test_dwconv_backward_kernel(dev, act, has_bias, shape):
     g = torch.Generator().manual_seed(sum(shape) + has_bias)
     C = shape[-1]
@@ -361,6 +393,19 @@ def test_dwconv_backward_kernel(dev, act, has_bias, shape):
     _check_backward(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act),
                     lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act),
                     inputs, dy, (dwconv, "bwd_launches"))
+
+
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 8), (6, 32, 32, 384)])
+def test_dwconv_backward_kernel_unaligned(dev, act, shape):
+    """x and dy 4 bytes off a 16-byte boundary: the kernel's scalar loads."""
+    g = torch.Generator().manual_seed(sum(shape) + 5)
+    C = shape[-1]
+    x, dy = _unaligned(g, dev, *shape), _unaligned(g, dev, *shape)
+    w, b = _rand(g, 3, 3, C, scale=0.3).to(dev), _rand(g, C).to(dev)
+    got = dwconv.dwconv_bwd(x, w, b, dy, act)
+    _, want = _grads(lambda *a: dwconv.depthwise_conv3x3_plain(*a, act), [x, w, b], dy)
+    _assert_grads_close(got, want)
 
 
 @pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (768, 768, 3072),
