@@ -11,11 +11,12 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                version at every shape of the serving path (full config, 8
                pairs of 256^2; the encoder runs both modalities as 16): max
                abs error and its tolerance, kernel, plain and library times
-               (CUDA events, warm L2; where there is a library call also the
-               profiler's device time of both), and the bound: the largest of
-               bytes, fp32 operations and, for the scans, special-function
-               calls. The scan, the MLP and the dwconv must repeat themselves
-               bit for bit. The LN's library call (F.layer_norm) computes the
+               (CUDA events, warm L2), the profiler's device time of the
+               kernel (and of the library call where there is one), and the
+               bound: the largest of bytes, fp32 operations and, for the
+               scans, special-function calls, with its share of the device
+               time. The scan, the MLP, the dwconv and the LN-mean must repeat
+               themselves bit for bit. The LN's library call (F.layer_norm) computes the
                same function only where there is no gate: it is timed there
                alone, with the kernel's times at those shapes beside it.
   4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12):
@@ -41,13 +42,23 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                run, must equal the calls derived from the config. Reports
                pairs/s over the whole warm run and the time of each batch's
                forward with its copies.
+     evaluate - `python -m fusionmamba_torch.evaluate_fusion` on the first
+               run's outputs against its inputs, with the outputs as their own
+               reference: every metric finite, SSIM against the reference 1.
   6. parity  - one seeded pair through the model on the card (kernels) and on
                the CPU (plain versions).
   7. train   - `python -m fusionmamba_torch.train --model full -B 6 -E 1
-               --synthetic 72`: 12 training steps at 256^2. Every loss finite,
-               the ten launch counters (zeroed just before) equal to 12 times
-               the config's calls per step, the saved state dict loads
-               strictly; step seconds and pairs/s.
+               --synthetic 72 -j 0`: 12 training steps at 256^2, the batches
+               made in the loop. Every loss finite, the ten launch counters
+               (zeroed just before) equal to 12 times the config's calls per
+               step, the saved state dict loads strictly; step seconds and
+               pairs/s.
+     train_disk - the same CLI on a PST900-layout folder of 24 pairs at
+               1280x720 written from a seed (`--dataset pst900 -j 8`, under
+               FUSIONMAMBA_DATA_ROOT): 4 steps through the threaded loader and
+               the device prefetch, the launch counters equal to 4 times the
+               config's, every loss finite; step seconds, pairs/s and the
+               host's wait for the loader a step.
   8. train_parity - the same seeded weights and batches at the test config
                (64^2, batch 2), 5 steps on the card and on the CPU: each
                step's loss and every parameter's step-0 gradient.
@@ -89,6 +100,8 @@ from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_
 
 PAIRS, SIZE, N_IMAGES = 8, 256, 20
 TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
+# training from a PST900 folder: steps, PST900's image size (H, W), loader threads
+DISK_STEPS, DISK_SIZE, DISK_WORKERS = 4, (720, 1280), 8
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
@@ -131,7 +144,7 @@ KERNELS = {
                    "fusionmamba_tpu/ops/ln_pallas.py:79"),
     "layer_norm_bwd": ("cuda", "fusionmamba_torch/csrc/layer_norm_bwd.cu",
                        "fusionmamba_tpu/ops/ln_pallas.py:89"),
-    "ln_mean": ("triton", "fusionmamba_torch/ops/ln_triton.py",
+    "ln_mean": ("cuda", "fusionmamba_torch/csrc/ln_mean_fwd.cu",
                 "fusionmamba_tpu/ops/ln_pallas.py:220"),
     "ln_mean_bwd": ("cuda", "fusionmamba_torch/csrc/layer_norm_bwd.cu",
                     "fusionmamba_tpu/ops/ln_pallas.py:236"),
@@ -458,12 +471,12 @@ def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms, dev_ms):
 def _forward_line(phase, kernel, shape, n, case):
     """Check and time one forward kernel at `shape`; emit its line and return
     (err, ms, plain_ms, library_ms, device_ms, library_device_ms, bytes_ms,
-    ops_ms, sfu_ms, cores_ms). The scan, the MLP and the dwconv must also repeat
-    themselves bit for bit."""
+    ops_ms, sfu_ms, cores_ms). The scan, the MLP, the dwconv and the LN-mean must
+    also repeat themselves bit for bit."""
     inputs, op, plain, library, _ = case
     with torch.no_grad():
         got, want = op(*inputs), plain(*inputs)
-        repeats = kernel in ("mlp", "scan", "dwconv")
+        repeats = kernel in ("mlp", "scan", "dwconv", "ln_mean")
         same = not repeats or torch.equal(got, op(*inputs))
         torch.cuda.synchronize()
         err = (got - want).abs()
@@ -664,7 +677,7 @@ def phase_scan_paths(train_shapes, serve_shapes, dev):
 _COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launches"),
              "layer_norm": (ln_triton, "layer_norm_launches"),
              "layer_norm_bwd": (layer_norm, "layer_norm_bwd_launches"),
-             "ln_mean": (ln_triton, "ln_mean_launches"),
+             "ln_mean": (layer_norm, "ln_mean_launches"),
              "ln_mean_bwd": (layer_norm, "ln_mean_bwd_launches"),
              "dwconv": (dwconv, "launches"), "dwconv_bwd": (dwconv, "bwd_launches"),
              "mlp": (mlp, "launches"), "mlp_bwd": (mlp, "bwd_launches")}
@@ -679,37 +692,38 @@ def zero_launches():
         setattr(module, name, 0)
 
 
-def phase_main_path(calls, smi):
+def phase_main_path(calls, smi, tmp):
+    """The serving CLI twice on N_IMAGES pairs written into `tmp` (`ir`,
+    `vis`; the outputs in `out1`, `out2`)."""
     from PIL import Image
 
     rng = np.random.default_rng(0)
-    with tempfile.TemporaryDirectory() as tmp:
-        for d in ("ir", "vis"):
-            os.makedirs(os.path.join(tmp, d))
-            for i in range(N_IMAGES):
-                img = rng.integers(0, 256, (220, 300), dtype=np.uint8)
-                Image.fromarray(img).save(os.path.join(tmp, d, f"pair{i:02d}.png"))
-        argv = ["--ir_dir", os.path.join(tmp, "ir"), "--vis_dir", os.path.join(tmp, "vis"),
-                "--model", "full", "--size", str(SIZE), "--batch", str(PAIRS),
-                "--device", "cuda"]
-        zero_launches()
-        first = infer.main(argv + ["--out_dir", os.path.join(tmp, "out1")])
-        torch.cuda.synchronize()
-        launches = read_launches(calls)
-        if any(v for k, v in read_launches().items() if k not in calls):
-            fail(f"serving launched a backward kernel: {read_launches()}")
-        second = infer.main(argv + ["--out_dir", os.path.join(tmp, "out2")])
-        names = sorted(os.listdir(os.path.join(tmp, "out1")))
-        if names != sorted(os.listdir(os.path.join(tmp, "out2"))) or len(names) != N_IMAGES:
-            fail(f"main path wrote {len(names)} images, expected {N_IMAGES}")
-        for name in names:
-            a = np.asarray(Image.open(os.path.join(tmp, "out1", name)))
-            b = np.asarray(Image.open(os.path.join(tmp, "out2", name)))
-            if a.shape != (SIZE, SIZE) or a.dtype != np.uint8 or a.min() == a.max():
-                fail(f"main path output {name}: shape {a.shape}, dtype {a.dtype}, "
-                     f"range {a.min()}..{a.max()}")
-            if not np.array_equal(a, b):
-                fail(f"main path output {name} differs between two runs")
+    for d in ("ir", "vis"):
+        os.makedirs(os.path.join(tmp, d))
+        for i in range(N_IMAGES):
+            img = rng.integers(0, 256, (220, 300), dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(tmp, d, f"pair{i:02d}.png"))
+    argv = ["--ir_dir", os.path.join(tmp, "ir"), "--vis_dir", os.path.join(tmp, "vis"),
+            "--model", "full", "--size", str(SIZE), "--batch", str(PAIRS),
+            "--device", "cuda"]
+    zero_launches()
+    first = infer.main(argv + ["--out_dir", os.path.join(tmp, "out1")])
+    torch.cuda.synchronize()
+    launches = read_launches(calls)
+    if any(v for k, v in read_launches().items() if k not in calls):
+        fail(f"serving launched a backward kernel: {read_launches()}")
+    second = infer.main(argv + ["--out_dir", os.path.join(tmp, "out2")])
+    names = sorted(os.listdir(os.path.join(tmp, "out1")))
+    if names != sorted(os.listdir(os.path.join(tmp, "out2"))) or len(names) != N_IMAGES:
+        fail(f"main path wrote {len(names)} images, expected {N_IMAGES}")
+    for name in names:
+        a = np.asarray(Image.open(os.path.join(tmp, "out1", name)))
+        b = np.asarray(Image.open(os.path.join(tmp, "out2", name)))
+        if a.shape != (SIZE, SIZE) or a.dtype != np.uint8 or a.min() == a.max():
+            fail(f"main path output {name}: shape {a.shape}, dtype {a.dtype}, "
+                 f"range {a.min()}..{a.max()}")
+        if not np.array_equal(a, b):
+            fail(f"main path output {name} differs between two runs")
     batches = len(first["batch_seconds"])
     expected = {k: batches * sum(c.values()) for k, c in calls.items()}
     if launches != expected:
@@ -752,7 +766,7 @@ def phase_train(calls, smi):
     steps = TRAIN_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", str(TRAIN_PAIRS * steps), "-B", str(TRAIN_PAIRS), "-E", "1",
-                "--model", "full", "--device", "cuda", "--ckpt_dir", tmp]
+                "-j", "0", "--model", "full", "--device", "cuda", "--ckpt_dir", tmp]
         zero_launches()
         stats = train.main(argv)
         torch.cuda.synchronize()
@@ -776,6 +790,89 @@ def phase_train(calls, smi):
           "warm_run_pairs_per_s": TRAIN_PAIRS * len(warm) / float(np.sum(warm)),
           "cli_seconds": stats["seconds"], "card": smi})
     return launches
+
+
+def _write_pst900(root: str, pairs: int, seed: int = 0) -> None:
+    """A PST900-layout training folder: `pairs` RGB, thermal and label PNGs at
+    PST900's own 1280x720, smooth random fields (coarse noise upsampled by
+    16, plus fine noise) made from `seed`."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    base = os.path.join(root, "PST900_RGBT_Dataset", "train")
+    h, w = DISK_SIZE
+
+    def field(*extra):
+        coarse = rng.uniform(0, 200, (h // 16, w // 16, *extra))
+        up = np.kron(coarse, np.ones((16, 16, *([1] * len(extra)))))
+        return (up + rng.uniform(0, 55, up.shape)).astype(np.uint8)
+
+    for sub in ("rgb", "thermal", "labels"):
+        os.makedirs(os.path.join(base, sub))
+    for i in range(pairs):
+        name = f"{i:04d}.png"
+        Image.fromarray(field(3)).save(os.path.join(base, "rgb", name))
+        Image.fromarray(field()).save(os.path.join(base, "thermal", name))
+        Image.fromarray((field() // 52).astype(np.uint8)).save(os.path.join(base, "labels", name))
+
+
+def phase_train_disk(calls, smi):
+    """DISK_STEPS full-width training steps of the training CLI on a PST900
+    folder through its threaded loader and device prefetch."""
+    pairs = TRAIN_PAIRS * DISK_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _write_pst900(tmp, pairs)
+        write_s = time.perf_counter() - t0
+        before = os.environ.get("FUSIONMAMBA_DATA_ROOT")
+        os.environ["FUSIONMAMBA_DATA_ROOT"] = tmp
+        try:
+            zero_launches()
+            stats = train.main(["--dataset", "pst900", "-B", str(TRAIN_PAIRS), "-E", "1",
+                                "-j", str(DISK_WORKERS), "--model", "full", "--device", "cuda",
+                                "--ckpt_dir", tmp])
+            torch.cuda.synchronize()
+            launches = read_launches()
+        finally:
+            if before is None:
+                del os.environ["FUSIONMAMBA_DATA_ROOT"]
+            else:
+                os.environ["FUSIONMAMBA_DATA_ROOT"] = before
+    torch.cuda.empty_cache()
+    expected = {k: stats["steps"] * sum(c.values()) for k, c in calls.items()}
+    if stats["steps"] != DISK_STEPS or not all(math.isfinite(v) for v in stats["losses"]):
+        fail(f"training on disk ran {stats['steps']} steps with losses {stats['losses']}")
+    if launches != expected:
+        fail(f"training on disk: launch counts {launches} differ from the config's {expected}")
+    steps, waits = stats["step_seconds"], stats["loader_wait_seconds"]
+    emit({"phase": "train_disk", "dataset": "pst900", "pairs": pairs,
+          "image_size": list(DISK_SIZE), "workers": DISK_WORKERS, "steps": stats["steps"],
+          "losses": stats["losses"], "launches": launches, "expected_launches": expected,
+          "step_seconds": steps, "median_warm_step_s": float(np.median(steps[1:])),
+          "pairs_per_s": TRAIN_PAIRS / float(np.median(steps[1:])),
+          "loader_wait_ms_per_step": [1e3 * w for w in waits],
+          "median_warm_loader_wait_ms": 1e3 * float(np.median(waits[1:])),
+          "folder_write_s": write_s, "cli_seconds": stats["seconds"], "card": smi})
+
+
+def phase_evaluate(serving_dir: str):
+    """`fusionmamba_torch.evaluate_fusion` on the serving phase's outputs
+    against their inputs, with the outputs as their own reference."""
+    from fusionmamba_torch import evaluate_fusion
+
+    t0 = time.perf_counter()
+    fused = os.path.join(serving_dir, "out1")
+    got = evaluate_fusion.main(["--ir_dir", os.path.join(serving_dir, "ir"),
+                                "--vis_dir", os.path.join(serving_dir, "vis"),
+                                "--fused_dir", fused, "--ref_dir", fused])
+    means = got["means"]
+    finite = all(math.isfinite(v) for rep in got["rows"].values() for v in rep.values())
+    emit({"phase": "evaluate", "pairs": len(got["rows"]), "means": means,
+          "all_finite": finite, "seconds": time.perf_counter() - t0})
+    if not finite or len(got["rows"]) != N_IMAGES:
+        fail(f"evaluation of {len(got['rows'])} pairs: a metric is not finite")
+    if means["ssim_vs_reference"] != 1.0:
+        fail(f"SSIM of the outputs against themselves is {means['ssim_vs_reference']}, not 1")
 
 
 def phase_train_parity(dev, steps: int = 5):
@@ -824,7 +921,7 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 "scan_bwd": ("selective_scan_bwd", "scan_bwd_reduce"),
                 "scan_carry": ("carry_kernel",),   # the chunk carries, forward and backward
                 "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd_kernel", "ln_bwd_reduce"),
-                "ln_mean": ("lnm_partial", "lnm_reduce"),
+                "ln_mean": ("lnm_fwd_kernel",),
                 "ln_mean_bwd": ("lnm_bwd_kernel", "lnm_bwd_reduce"),
                 "dwconv": ("dwconv3x3_fwd_kernel",),
                 "dwconv_bwd": ("dwconv3x3_bwd_kernel", "dwconv3x3_bwd_reduce"),
@@ -948,9 +1045,12 @@ def main() -> None:
         k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
         for k, r in serving.items()}})
-    phase_main_path(calls, smi)
+    with tempfile.TemporaryDirectory() as serving_dir:
+        phase_main_path(calls, smi, serving_dir)
+        phase_evaluate(serving_dir)
     phase_parity(dev)
     launches = phase_train(tcalls, smi)
+    phase_train_disk(tcalls, smi)
     phase_train_parity(dev)
     phase_trace(dev)
     phase_trace_train(dev)

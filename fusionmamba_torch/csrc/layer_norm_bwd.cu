@@ -23,16 +23,12 @@
 // written once; the LN-mean reads only x and writes dx), with some 20-40
 // flops an element.
 //
-// Design. A group of G lanes owns one row at a time; lane l holds channels
-// l, l + G, ..., l + (V-1) G in registers, so every load and store is a
-// coalesced run of the row and, at the model's widths (templates below, V *
-// G = C), no lane is idle. A row's two pairs of sums (of x and x^2, then of
-// w and w * xhat) are xor-shuffle butterflies inside a warp (every lane ends
-// with the same bits) and, for rows wider than a warp, one exchange through
-// shared memory summed in warp order. The widest rows span 4 warps so that
-// a lane holds at most 12 values of each of x, dy and the gate, next to 12
-// each of scale, bias and the two gradient sums (no spills). Any other C
-// takes a masked variant (12 values a lane, lanes past C hold zeros).
+// Design. The row machinery is ln_common.cuh's: a group of G lanes owns one
+// row at a time, V values a lane (V * G = C at the model's widths, a masked
+// variant for any other C), and a row's two pairs of sums (of x and x^2,
+// then of w and w * xhat) are its group sums. The widest rows span 4 warps
+// so that a lane holds at most 12 values of each of x, dy and the gate,
+// next to 12 each of scale, bias and the two gradient sums (no spills).
 // The sums over rows are folded in: the grid is a few blocks an SM (the
 // wrapper's plans, fusionmamba_torch/ops/layer_norm.py::bwd_plan and
 // lnm_bwd_plan), each group walks rows in a grid-stride loop and keeps its
@@ -47,37 +43,16 @@
 // elementwise ops around them).
 #include <cuda_runtime.h>
 
+#include "ln_common.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;          // threads of a block of groups of at most 256 lanes
+using fm_ln::group_sum;
+using fm_ln::kBlock;
 constexpr int kReduceCols = 32;      // the reduce kernel: columns of a block
 constexpr int kReduceSlices = 32;    // and interleaved slices of the partials
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
-
-// The sums of v over a group of G lanes, the same bits in every lane. For G
-// above 32 the warps meet in red (one slot a warp), behind a barrier that
-// every thread of the block reaches.
-template <int G>
-__device__ __forceinline__ float2 group_sum(float2 v, float2* red) {
-#pragma unroll
-  for (int off = (G < 32 ? G : 32) / 2; off > 0; off >>= 1) {
-    v.x += __shfl_xor_sync(0xffffffffu, v.x, off);
-    v.y += __shfl_xor_sync(0xffffffffu, v.y, off);
-  }
-  if constexpr (G > 32) {
-    const int warp = threadIdx.x / 32, first = warp / (G / 32) * (G / 32);
-    if (threadIdx.x % 32 == 0) red[warp] = v;
-    __syncthreads();
-    v = red[first];
-#pragma unroll
-    for (int i = 1; i < G / 32; ++i) {
-      v.x += red[first + i].x;
-      v.y += red[first + i].y;
-    }
-  }
-  return v;
-}
 
 // At least two blocks of 256 threads an SM (the plan's grid for 12 values a
 // lane): it caps registers at 128, under which ptxas keeps every template
@@ -359,19 +334,6 @@ int launch(int gate_kind, int blocks, cudaStream_t stream, const float* x, const
 }
 
 }  // namespace
-
-// The templates (values a lane, lanes a row, masked) that both backwards
-// compile: layer_norm.py's BWD_TEMPLATES and its masked variants.
-#define FM_LN_TEMPLATES(X) \
-  X(3, 8, false)           \
-  X(3, 32, false)          \
-  X(6, 32, false)          \
-  X(12, 32, false)         \
-  X(12, 64, false)         \
-  X(12, 128, false)        \
-  X(12, 32, true)          \
-  X(12, 128, true)         \
-  X(12, 512, true)
 
 // x, dy, dx (and gate, dg when gate_kind is 1 (silu), 2 (silu_sum) or 3 (raw)):
 // (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,

@@ -1,4 +1,8 @@
-"""Training data of the port."""
-from .datasets import SyntheticFusionDataset, batch_iterator
+"""Training data of the port: the on-disk and synthetic datasets and the batch
+iterator (`datasets.py`), the threaded loader and the device prefetch
+(`prefetch.py`), the Y <-> RGB tools (`color.py`)."""
+from .datasets import (IMG_EXTS, DatasetRoots, FusionDataset, SyntheticFusionDataset,
+                       batch_iterator, prepare_data_path)
 
-__all__ = ["SyntheticFusionDataset", "batch_iterator"]
+__all__ = ["IMG_EXTS", "DatasetRoots", "FusionDataset", "SyntheticFusionDataset",
+           "batch_iterator", "prepare_data_path"]

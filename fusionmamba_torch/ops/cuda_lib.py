@@ -26,7 +26,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "fusionmamba_torch"
 SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
-           "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "layer_norm_bwd.cu")
+           "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "layer_norm_bwd.cu",
+           "ln_mean_fwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfusionmamba_kernels.so"
@@ -60,6 +61,9 @@ SIGNATURES = {
     # x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
     # blocks, eps, stream
     "fm_ln_mean_bwd": (_P,) * 7 + (_I,) * 7 + (_F, _P),
+    # x, scale, bias, out, B, rows, C, values, lanes, masked, cluster, eps,
+    # stream
+    "fm_ln_mean_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,16 +1,13 @@
-"""Triton kernels of the fused LayerNorm (+ gate) forward and of the
-LN-spatial-mean forward. (Both backwards are CUDA kernels,
+"""Triton kernel of the fused LayerNorm (+ gate) forward. (The LN-mean
+forward and both backwards are CUDA kernels, `csrc/ln_mean_fwd.cu` and
 `csrc/layer_norm_bwd.cu`.)
 
-Replace `fusionmamba_tpu/ops/ln_pallas.py::_ln_fwd_kernel` (built by
-`_fwd_pallas`) and `::_lnm_fwd_kernel` (`_lnm_core`). Both are row
-normalisations that do a handful of flops per byte, so they are bound by the
-bytes they move: the LN reads x (and the gate) once and writes y once; the
-LN-mean reads x once and writes only (B, C). One program owns whole rows,
-`BLOCK_C` being C rounded up to a power of two and masked, and the
-statistics are the fast variance E[x^2] - E[x]^2 in fp32, as on the TPU. The
-LN-mean's sum across programs is written as per-program partials and summed
-in a fixed order afterwards, never with atomics, so results repeat exactly.
+Replaces `fusionmamba_tpu/ops/ln_pallas.py::_ln_fwd_kernel` (built by
+`_fwd_pallas`). It is a row normalisation that does a handful of flops per
+byte, so it is bound by the bytes it moves: it reads x (and the gate) once
+and writes y once. One program owns whole rows, `BLOCK_C` being C rounded up
+to a power of two and masked, and the statistics are the fast variance
+E[x^2] - E[x]^2 in fp32, as on the TPU.
 
 `triton` is imported inside the launching functions: the module imports (and
 the CPU path runs) where Triton is absent.
@@ -29,7 +26,6 @@ GATE_CODES = {"silu": 1, "silu_sum": 2, "none": 3}
 _ROW_BLOCK_ELEMS = 4096
 
 layer_norm_launches = 0
-ln_mean_launches = 0
 
 
 # triton.language, bound by `_kernels()`. Triton resolves the names a kernel
@@ -65,34 +61,7 @@ def _kernels():
             y = y * g
         tl.store(Y + offs, y, mask=mask)
 
-    @triton.jit
-    def lnm_partial(X, S, Bi, P, rows, C, n_blk, eps,
-                    BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        bi = tl.program_id(0)
-        blk = tl.program_id(1)
-        r = blk * BLOCK_R + tl.arange(0, BLOCK_R)[:, None]
-        c = tl.arange(0, BLOCK_C)[None, :]
-        mask = (r < rows) & (c < C)
-        offs = (bi * rows + r).to(tl.int64) * C + c
-        x = tl.load(X + offs, mask=mask, other=0.0)
-        s = tl.load(S + c, mask=c < C, other=0.0)
-        b = tl.load(Bi + c, mask=c < C, other=0.0)
-        mu = tl.sum(x, axis=1) / C
-        rs = tl.rsqrt(tl.sum(x * x, axis=1) / C - mu * mu + eps)
-        y = tl.where(mask, (x - mu[:, None]) * rs[:, None] * s + b, 0.0)
-        c1 = tl.arange(0, BLOCK_C)
-        tl.store(P + (bi * n_blk + blk) * C + c1, tl.sum(y, axis=0), mask=c1 < C)
-
-    @triton.jit
-    def lnm_reduce(P, O, C, n_blk, inv_rows, BLOCK_C: tl.constexpr):
-        bi = tl.program_id(0)
-        c = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-        acc = tl.zeros((BLOCK_C,), tl.float32)
-        for i in range(0, n_blk):
-            acc += tl.load(P + (bi * n_blk + i) * C + c, mask=c < C, other=0.0)
-        tl.store(O + bi * C + c, acc * inv_rows, mask=c < C)
-
-    return triton, ln_fwd, lnm_partial, lnm_reduce
+    return triton, ln_fwd
 
 
 def _blocks(C: int):
@@ -111,7 +80,7 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
         raise ValueError("layer_norm_fused: scale and bias must be (C,)")
     if gate is not None and gate.shape != x.shape:
         raise ValueError("layer_norm_fused: gate must have x's shape")
-    triton, ln_fwd, _, _ = _kernels()
+    triton, ln_fwd = _kernels()
     rows = x.numel() // C
     y = torch.empty_like(x)
     block_r, block_c, warps = _blocks(C)
@@ -122,26 +91,3 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
             GATE=code, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
     layer_norm_launches += 1
     return y
-
-
-def ln_spatial_mean_fwd(x, scale, bias, eps):
-    """mean over positions of LN(x): (B, ..., C) -> (B, C) fp32, on the card."""
-    global ln_mean_launches
-    B, C = x.shape[0], x.shape[-1]
-    check_cuda_float32("ln_spatial_mean", x, scale, bias)
-    if scale.shape != (C,) or bias.shape != (C,):
-        raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
-    triton, _, lnm_partial, lnm_reduce = _kernels()
-    rows = x.numel() // (B * C)
-    block_r, block_c, warps = _blocks(C)
-    n_blk = triton.cdiv(rows, block_r)
-    part = torch.empty((B, n_blk, C), device=x.device, dtype=torch.float32)
-    out = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    with torch.cuda.device(x.device):
-        lnm_partial[(B, n_blk)](x, scale, bias, part, rows, C, n_blk, eps,
-                                BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
-        lnm_reduce[(B, triton.cdiv(C, 128))](part, out, C, n_blk, 1.0 / rows,
-                                             BLOCK_C=128)
-    ln_mean_launches += 1
-    return out
-

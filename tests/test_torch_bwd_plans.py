@@ -234,7 +234,7 @@ def test_dwconv_bwd_replay_matches_autograd_and_pallas(shape, sms, act, has_bias
 # ---------------------------------------------------------------------------
 
 _LN_VARIANTS = {(int(v), int(g), m == "true") for v, g, m in re.findall(
-    r"X\((\d+), (\d+), (true|false)\)", (CSRC / "layer_norm_bwd.cu").read_text())}
+    r"X\((\d+), (\d+), (true|false)\)", (CSRC / "ln_common.cuh").read_text())}
 _LNM_RAGGED = [(1, 1, 24), (3, 37, 96), (5, 37, 40), (2, 9, 1000), (12, 5, 768), (1, 300, 3)]
 
 
@@ -252,7 +252,7 @@ def test_lnm_bwd_plan_visits_each_row_once(B, rows, C):
         plan = layer_norm.lnm_bwd_plan(B, rows, C, sms)
         assert (plan.values, plan.lanes, plan.masked) in _LN_VARIANTS
         assert plan.values * plan.lanes >= C
-        assert plan.masked == (C not in layer_norm.BWD_TEMPLATES)
+        assert plan.masked == (C not in layer_norm.TEMPLATES)
         assert plan.rows_per_step * plan.lanes == plan.threads <= 1024
         assert 1 <= plan.blocks <= rows and B <= 65535
         seen = np.zeros(rows, np.int32)

@@ -159,7 +159,7 @@ def test_dwconv_tile_replay_matches_plain_and_pallas(shape, sms, act, has_bias):
 # ---------------------------------------------------------------------------
 
 _LN_VARIANTS = {(int(v), int(g), m == "true") for v, g, m in re.findall(
-    r"X\((\d+), (\d+), (true|false)\)", (CSRC / "layer_norm_bwd.cu").read_text())}
+    r"X\((\d+), (\d+), (true|false)\)", (CSRC / "ln_common.cuh").read_text())}
 _LN_RAGGED = [(1, 24), (5, 40), (1, 1000), (300, 1000), (3, 1536), (7, 3), (2, 6144)]
 
 
@@ -178,7 +178,7 @@ def test_layer_norm_bwd_plan_visits_each_row_once(rows, C):
         plan = layer_norm.bwd_plan(rows, C, sms)
         assert (plan.values, plan.lanes, plan.masked) in _LN_VARIANTS
         assert plan.values * plan.lanes >= C
-        assert plan.masked == (C not in layer_norm.BWD_TEMPLATES)
+        assert plan.masked == (C not in layer_norm.TEMPLATES)
         assert plan.threads == max(layer_norm.BWD_BLOCK, plan.lanes) <= 1024
         assert plan.rows_per_step * plan.lanes == plan.threads
         seen = np.zeros(rows, np.int32)

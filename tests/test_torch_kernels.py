@@ -112,17 +112,40 @@ def test_layer_norm_kernel(dev, gate_act, rows, C):
                                **TOL)
 
 
-@pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (16, 4096, 96), (8, 64, 768)])
+# ragged (rows 1 and 37; C 24, 48, 100 and 1000, masked where not a template
+# width), every training shape (B = 12 and 6) and the serving encoder's 16
+_LNM_SHAPES = [(1, 1, 24), (3, 37, 96), (2, 37, 48), (5, 1, 100), (2, 300, 1000),
+               (12, 4096, 96), (12, 1024, 192), (12, 256, 384), (12, 64, 768),
+               (6, 4096, 96), (6, 1024, 192), (6, 256, 384), (6, 64, 768), (16, 4096, 96),
+               (8, 64, 768)]
+
+
+@pytest.mark.parametrize("B,rows,C", _LNM_SHAPES)
 def test_ln_spatial_mean_kernel(dev, B, rows, C):
+    """Against the plain version; two launches bit-identical."""
     g = torch.Generator().manual_seed(rows + C)
     x = _rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev)
     s, b = _rand(g, C).to(dev), _rand(g, C).to(dev)
-    before = ln_triton.ln_mean_launches
+    before = layer_norm.ln_mean_launches
     got = layer_norm.ln_spatial_mean(x, s, b, 1e-5)
     again = layer_norm.ln_spatial_mean(x, s, b, 1e-5)
     torch.cuda.synchronize()
-    assert ln_triton.ln_mean_launches == before + 2
+    assert layer_norm.ln_mean_launches == before + 2
     assert torch.equal(got, again)
+    torch.testing.assert_close(got, layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), **TOL)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 5, 8, 11, 16])
+def test_ln_spatial_mean_kernel_clusters(dev, cluster):
+    """Every cluster size the plan can pick, at a shape where each block of
+    the largest walks one chunk: against the plain version, bit-identical
+    twice."""
+    g = torch.Generator().manual_seed(cluster)
+    x = _rand(g, 6, 1024, 192, scale=2.0, shift=0.5).to(dev)
+    s, b = _rand(g, 192).to(dev), _rand(g, 192).to(dev)
+    plan = layer_norm.lnm_fwd_plan(6, 1024, 192)._replace(cluster=cluster)
+    got = layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, plan)
+    assert torch.equal(got, layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, plan))
     torch.testing.assert_close(got, layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), **TOL)
 
 

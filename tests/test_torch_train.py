@@ -302,7 +302,11 @@ def test_cli_without_a_card_fails_clearly(tmp_path, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_cli_without_synthetic_fails_clearly(tmp_path, capsys):
+def test_cli_without_synthetic_fails_clearly(tmp_path, capsys, monkeypatch):
+    """Without --synthetic the CLI trains on the dataset under
+    FUSIONMAMBA_DATA_ROOT; where there is none it says so."""
+    monkeypatch.setenv("FUSIONMAMBA_DATA_ROOT", str(tmp_path))
     with pytest.raises(SystemExit):
         ttrain.main(["--device", "cpu", "--ckpt_dir", str(tmp_path)])
-    assert "--synthetic" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "no dataset on disk" in err and "--synthetic" in err
