@@ -19,7 +19,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                themselves bit for bit. The LN's library call (F.layer_norm) computes the
                same function only where there is no gate: it is timed there
                alone, with the kernel's times at those shapes beside it.
-  4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12):
+  4. kernel_train - the training path's shapes (6 pairs; the encoder runs 12),
+               then the segmentation steps' (2 and 4 pairs; a shape checked
+               at an earlier batch is not checked again, only summed):
                each forward kernel as in 3, and each of the five backward
                kernels against the autograd of its plain version: every
                input's gradient, its error against the stated bound, two
@@ -28,13 +30,18 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                share of the kernel's device time. The MLP's
                bounds are reckoned at the tensor cores' 3xTF32 rate, with
                the fp32 CUDA-core bound beside them, and its forward must
-               repeat itself bit for bit.
+               repeat itself bit for bit. A `kernel_train_step` line per batch
+               sums each kernel's times over a step.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
                each training shape: error against the plain version, time.
-     scan_paths - the scan kernels at every training and serving shape with L
-               cut as the wrapper cuts it and, where that is several chunks,
-               as one chunk: forward against the plain version, the two
-               backwards against each other, times.
+     scan_paths - the scan kernels at every training and serving shape, and
+               at the full-resolution scan's (L = H*W at each stage's width,
+               batch 12), with L cut as the wrapper cuts it and, where that
+               is several chunks, as one chunk: forward against the plain
+               version, the two backwards against each other, times.
+     fullres_ss2d - one SS2D(96, scan_variant="fullres") at 64^2 (L = 4096),
+               batch 2, on the card against the same module on the CPU: the
+               output and every parameter's gradient.
   5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
@@ -59,9 +66,26 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                the device prefetch, the launch counters equal to 4 times the
                config's, every loss finite; step seconds, pairs/s and the
                host's wait for the loader a step.
+     train_seg - `python -m fusionmamba_torch.train_segmentation --model full`
+               on the same folder (written once, with a test split of 6
+               pairs): PST900 in mode both, batch 2, 12 steps through `-j 8`
+               and one evaluation (3 forwards); then 4 steps of synthetic
+               MFNet-class pairs at batch 4 in the default mode, `-j 0`, and
+               one evaluation forward. Each: the launch counters (zeroed just
+               before) equal to steps x the config's calls a step plus the
+               evaluation's forwards, every loss and score finite, both saved
+               state dicts loading strictly; step seconds and pairs/s.
+     evaluate_seg - `python -m fusionmamba_torch.evaluate_segmentation` of
+               the PST900 checkpoint on the test split: every metric finite,
+               the report written.
   8. train_parity - the same seeded weights and batches at the test config
                (64^2, batch 2), 5 steps on the card and on the CPU: each
                step's loss and every parameter's step-0 gradient.
+     seg_parity - VSSMFusionSeg at the test config (64^2, batch 2) on the
+               card and on the CPU from the same weights, batches and dropout
+               masks: eval-mode logits and fusion output, then 3 steps of
+               `seg_train_step` (mode both, improved loss): each loss, and
+               the BatchNorm running statistics after them.
   9. trace   - torch.profiler over three warm forwards of a batch of 8: device
                time by kernel and the card's idle share of the window.
  10. trace_train - the same over three warm training steps of 6 pairs, with
@@ -75,6 +99,8 @@ Without a CUDA device it fails before any phase. It imports nothing of JAX.
 from __future__ import annotations
 
 import collections
+import contextlib
+import copy
 import gc
 import json
 import math
@@ -88,13 +114,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fusionmamba_torch import infer, train
+from fusionmamba_torch import evaluate_segmentation, infer, train, train_segmentation
 from fusionmamba_torch.checkpoints import load_reference_checkpoint
 from fusionmamba_torch.config import full_config, test_config
 from fusionmamba_torch.data import SyntheticFusionDataset, batch_iterator
 from fusionmamba_torch.device import select_device
-from fusionmamba_torch.models import VSSMFusion
-from fusionmamba_torch.nn import init_weights
+from fusionmamba_torch.losses import compute_class_weights
+from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
+from fusionmamba_torch.nn import SS2D, init_weights
 from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
 
@@ -102,6 +129,10 @@ PAIRS, SIZE, N_IMAGES = 8, 256, 20
 TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
 # training from a PST900 folder: steps, PST900's image size (H, W), loader threads
 DISK_STEPS, DISK_SIZE, DISK_WORKERS = 4, (720, 1280), 8
+# segmentation: the batches of PST900 (`train_segmentation.py:128`) and of the
+# other datasets (the CLI's default); the PST900 run's 12 steps go over the
+# same 24 training pairs as train_disk, its evaluation over 6 test pairs
+SEG_PAIRS, SEG_PST900_STEPS, SEG_TEST_PAIRS = (2, 4), 12, 6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
@@ -133,6 +164,9 @@ PARITY_ATOL = 1e-3
 # and each step-0 gradient within 1e-3 of its norm (the whole network's
 # forward and backward in another summation order)
 TRAIN_LOSS_RTOL = TRAIN_GRAD_RTOL = 1e-3
+# card vs CPU segmentation training: the BatchNorm running statistics after
+# three steps (0.01 of three batch statistics each, over 64^2 positions)
+SEG_BN_ATOL = 1e-4
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
 KERNELS = {
@@ -443,6 +477,13 @@ def _summary(agg):
     return out
 
 
+def _brief(agg):
+    """A kernel's sums per step, for the per-batch summaries."""
+    return {k: v for k, v in _summary(agg).items()
+            if k in ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms", "shapes",
+                     "device_shapes_covered", "max_abs_err")}
+
+
 def _bound_by(kernel, bytes_ms, ops_ms, sfu_ms):
     """Which of the three terms is the largest. `bound_by` is bytes or
     operations; special-function calls are operations too, so where it is
@@ -468,7 +509,7 @@ def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms, dev_ms):
     return out
 
 
-def _forward_line(phase, kernel, shape, n, case):
+def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS):
     """Check and time one forward kernel at `shape`; emit its line and return
     (err, ms, plain_ms, library_ms, device_ms, library_device_ms, bytes_ms,
     ops_ms, sfu_ms, cores_ms). The scan, the MLP, the dwconv and the LN-mean must
@@ -489,7 +530,7 @@ def _forward_line(phase, kernel, shape, n, case):
             lib_ms = cuda_ms(lambda: library(*inputs), 20)
             lib_dev_ms = device_ms(lambda: library(*inputs))
     bounds = _bound(kernel, shape)
-    emit({"phase": phase, "kernel": kernel, "shape": list(shape),
+    emit({"phase": phase, "kernel": kernel, "shape": list(shape), "pairs": pairs,
           "calls_per_" + ("forward" if phase == "kernel" else "step"): n,
           "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
           **({"bit_identical_twice": same} if repeats else {}),
@@ -523,69 +564,87 @@ def _grads(fn, inputs, dy):
     return torch.autograd.grad(out, inputs, dy)
 
 
-def phase_kernel_train(calls, dev):
-    """Each forward and backward kernel at every training shape; sums per
-    training step. The backward's gradients (through the op's autograd
-    Function) are held against the autograd of the plain version, two direct
-    launches must agree bit for bit, and the backward is timed alone."""
+def _backward_line(op, shape, n_bwd, case, dev, gen, pairs):
+    """Check and time one backward kernel at `shape` through the op's
+    autograd Function against the autograd of the plain version; emit its
+    line and return its `_add` terms."""
+    inputs, fn, plain, library, backward = case
+    inputs = [t.requires_grad_(True) for t in inputs]
+    with torch.no_grad():
+        dy = torch.randn(fn(*inputs).shape, device=dev, generator=gen)
+    got, want = _grads(fn, inputs, dy), _grads(plain, inputs, dy)
+    torch.cuda.synchronize()
+    err, scaled, ok = 0.0, 0.0, True
+    for g, w in zip(got, want):
+        e = (g - w).abs()
+        top = float(w.abs().max())
+        ok &= bool(torch.all(e <= GRAD_RTOL * w.abs() + GRAD_SCALED_ATOL * top))
+        err, scaled = max(err, float(e.max())), max(scaled, float(e.max()) / max(top, 1e-30))
+    with torch.no_grad():
+        run = backward([t.detach() for t in inputs], dy)
+        first, second = run(), run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(first, second) if a is not None)
+        heavy = op == "scan"
+        ms = cuda_ms(run, 5 if heavy else 20)
+    out_p = plain(*inputs)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, inputs, dy, retain_graph=True),
+                       1 if heavy else 10, warmup=1)
+    with torch.no_grad():
+        dev_ms = device_ms(run)
+    lib_ms = lib_dev_ms = None
+    if library is not None:
+        out_l = library(*inputs)
+
+        def lib_run():
+            return torch.autograd.grad(out_l, inputs, dy, retain_graph=True)
+
+        lib_ms = cuda_ms(lib_run, 20)
+        lib_dev_ms = device_ms(lib_run)
+    bounds = _bound(op + "_bwd", shape)
+    emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape), "pairs": pairs,
+          "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
+          "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
+          "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
+          "library_ms": lib_ms, "kernel_device_ms": dev_ms,
+          "library_device_ms": lib_dev_ms,
+          **_bound_fields(op + "_bwd", *bounds, dev_ms)})
+    if not ok:
+        fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
+             f"(max abs err {err}, {scaled} of the largest gradient)")
+    if not same:
+        fail(f"{op} backward at {shape} differs between two launches")
+    return (err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
+
+
+def phase_kernel_train(calls, dev, pairs, checked):
+    """Each forward and backward kernel at every training shape of a step of
+    `pairs` pairs; sums per training step. The backward's gradients (through
+    the op's autograd Function) are held against the autograd of the plain
+    version, two direct launches must agree bit for bit, and the backward is
+    timed alone. `checked` holds the results of each (kernel, shape) checked
+    by an earlier call (the batches share shapes: the encoder runs 2B): such
+    a shape is counted in this step's sums without a second check."""
     results = {}
     gen = torch.Generator(device=dev).manual_seed(1)
     for op in OPS:
         fwd, bwd = _new_agg(), _new_agg()
         for shape, n in sorted(calls[op].items(), key=str):
-            case = make_case(op, shape, dev, gen)
-            _add(fwd, n, *_forward_line("kernel_train", op, shape, n, case))
             n_bwd = calls[op + "_bwd"][shape]
-            if n_bwd == 0:
-                continue
-            inputs, fn, plain, library, backward = case
-            inputs = [t.requires_grad_(True) for t in inputs]
-            with torch.no_grad():
-                dy = torch.randn(fn(*inputs).shape, device=dev, generator=gen)
-            got, want = _grads(fn, inputs, dy), _grads(plain, inputs, dy)
-            torch.cuda.synchronize()
-            err, scaled, ok = 0.0, 0.0, True
-            for g, w in zip(got, want):
-                e = (g - w).abs()
-                top = float(w.abs().max())
-                ok &= bool(torch.all(e <= GRAD_RTOL * w.abs() + GRAD_SCALED_ATOL * top))
-                err, scaled = max(err, float(e.max())), max(scaled, float(e.max()) / max(top, 1e-30))
-            with torch.no_grad():
-                run = backward([t.detach() for t in inputs], dy)
-                first, second = run(), run()
-                torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(first, second) if a is not None)
-                heavy = op == "scan"
-                ms = cuda_ms(run, 5 if heavy else 20)
-            out_p = plain(*inputs)
-            plain_ms = cuda_ms(lambda: torch.autograd.grad(out_p, inputs, dy, retain_graph=True),
-                               1 if heavy else 10, warmup=1)
-            with torch.no_grad():
-                dev_ms = device_ms(run)
-            lib_ms = lib_dev_ms = None
-            if library is not None:
-                out_l = library(*inputs)
-
-                def lib_run():
-                    return torch.autograd.grad(out_l, inputs, dy, retain_graph=True)
-
-                lib_ms = cuda_ms(lib_run, 20)
-                lib_dev_ms = device_ms(lib_run)
-            bounds = _bound(op + "_bwd", shape)
-            emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape),
-                  "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
-                  "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
-                  "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
-                  "library_ms": lib_ms, "kernel_device_ms": dev_ms,
-                  "library_device_ms": lib_dev_ms,
-                  **_bound_fields(op + "_bwd", *bounds, dev_ms)})
-            if not ok:
-                fail(f"{op} backward at {shape} disagrees with autograd of its plain version "
-                     f"(max abs err {err}, {scaled} of the largest gradient)")
-            if not same:
-                fail(f"{op} backward at {shape} differs between two launches")
-            _add(bwd, n_bwd, err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
-            del case, inputs, got, want, first, second, run, out_p
+            todo = [k for k in (op, op + "_bwd")
+                    if (k, shape) not in checked and (k == op or n_bwd)]
+            if todo:
+                case = make_case(op, shape, dev, gen)
+                if op in todo:
+                    checked[(op, shape)] = _forward_line("kernel_train", op, shape, n, case,
+                                                         pairs)
+                if op + "_bwd" in todo:
+                    checked[(op + "_bwd", shape)] = _backward_line(op, shape, n_bwd, case, dev,
+                                                                   gen, pairs)
+                del case
+            _add(fwd, n, *checked[(op, shape)])
+            if n_bwd:
+                _add(bwd, n_bwd, *checked[(op + "_bwd", shape)])
         torch.cuda.empty_cache()
         results[op], results[op + "_bwd"] = fwd, bwd
     return results
@@ -614,17 +673,26 @@ def phase_mlp_paths(calls, dev):
         emit(line)
 
 
-def phase_scan_paths(train_shapes, serve_shapes, dev):
-    """The scan kernels at every training and serving shape with L cut into
-    chunks as the wrapper cuts it (`scan_cuda._pick_chunk`) and, where that is
-    more than one chunk, also with L as one chunk: the forward held against
-    the plain version, the two backwards' gradients against each other, and
-    the times of the serving forward, the training forward (saving states)
-    and the backward."""
+def fullres_scan_shapes(cfg, batch: int, size: int):
+    """(B, L, D, R) of the scan of an SS2D(scan_variant="fullres") at each
+    stage's width, at L = H*W of that stage."""
+    g0 = size // cfg.patch_size
+    return [(batch, (g0 >> i) ** 2, int(cfg.ssm_ratio * C), math.ceil(C / 16))
+            for i, C in enumerate(cfg.dims)]
+
+
+def phase_scan_paths(train_shapes, serve_shapes, fullres_shapes, dev):
+    """The scan kernels at every training and serving shape, and at the
+    full-resolution scan's shapes, with L cut into chunks as the wrapper cuts
+    it (`scan_cuda._pick_chunk`) and, where that is more than one chunk, also
+    with L as one chunk: the forward held against the plain version, the two
+    backwards' gradients against each other, and the times of the serving
+    forward, the training forward (saving states) and the backward."""
     gen = torch.Generator(device=dev).manual_seed(5)
     K = 4
     shapes = {**{s: ("train", n) for s, n in train_shapes.items()},
-              **{s: ("serve", n) for s, n in serve_shapes.items()}}
+              **{s: ("serve", n) for s, n in serve_shapes.items()},
+              **{s: ("fullres", None) for s in fullres_shapes}}
     for shape, (path, n) in sorted(shapes.items(), key=str):
         B, L, D, R = shape
         t, _, plain, _, _ = make_case("scan", shape, dev, gen)
@@ -632,10 +700,12 @@ def phase_scan_paths(train_shapes, serve_shapes, dev):
         picked = {"fwd": scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.FWD_WARPS_PER_SM),
                   "bwd": scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.BWD_WARPS_PER_SM)}
         line = {"phase": "scan_paths", "shape": list(shape), "path": path,
-                "calls_per_" + ("step" if path == "train" else "forward"): n,
+                **({} if n is None else
+                   {"calls_per_" + ("step" if path == "train" else "forward"): n}),
                 "one_chunk": one, "picked_chunk": picked}
+        trains = path != "serve"
         cuts = [("picked", picked["fwd"], picked["bwd"])]
-        if picked["fwd"] < one or (path == "train" and picked["bwd"] < one):
+        if picked["fwd"] < one or (trains and picked["bwd"] < one):
             cuts.append(("one_chunk", one, one))
         with torch.no_grad():
             want = plain(*t)
@@ -651,7 +721,7 @@ def phase_scan_paths(train_shapes, serve_shapes, dev):
                          f"(max abs err {float(err.max())})")
                 line[name + "_max_abs_err"] = float(err.max())
                 line[name + "_fwd_ms"] = cuda_ms(fwd, 10)
-                if path == "train":
+                if trains:
                     line[name + "_fwd_saving_ms"] = cuda_ms(lambda: fwd(True), 10)
                     hsave = fwd(True)[1]
 
@@ -792,14 +862,14 @@ def phase_train(calls, smi):
     return launches
 
 
-def _write_pst900(root: str, pairs: int, seed: int = 0) -> None:
-    """A PST900-layout training folder: `pairs` RGB, thermal and label PNGs at
-    PST900's own 1280x720, smooth random fields (coarse noise upsampled by
-    16, plus fine noise) made from `seed`."""
+def _write_pst900(root: str, splits, seed: int = 0) -> None:
+    """A PST900-layout folder with `splits[split]` pairs a split: RGB, thermal
+    and label PNGs at PST900's own 1280x720, smooth random fields (coarse
+    noise upsampled by 16, plus fine noise) made from `seed`; labels of the
+    5 classes."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    base = os.path.join(root, "PST900_RGBT_Dataset", "train")
     h, w = DISK_SIZE
 
     def field(*extra):
@@ -807,37 +877,43 @@ def _write_pst900(root: str, pairs: int, seed: int = 0) -> None:
         up = np.kron(coarse, np.ones((16, 16, *([1] * len(extra)))))
         return (up + rng.uniform(0, 55, up.shape)).astype(np.uint8)
 
-    for sub in ("rgb", "thermal", "labels"):
-        os.makedirs(os.path.join(base, sub))
-    for i in range(pairs):
-        name = f"{i:04d}.png"
-        Image.fromarray(field(3)).save(os.path.join(base, "rgb", name))
-        Image.fromarray(field()).save(os.path.join(base, "thermal", name))
-        Image.fromarray((field() // 52).astype(np.uint8)).save(os.path.join(base, "labels", name))
+    for split, pairs in splits.items():
+        base = os.path.join(root, "PST900_RGBT_Dataset", split)
+        for sub in ("rgb", "thermal", "labels"):
+            os.makedirs(os.path.join(base, sub))
+        for i in range(pairs):
+            name = f"{i:04d}.png"
+            Image.fromarray(field(3)).save(os.path.join(base, "rgb", name))
+            Image.fromarray(field()).save(os.path.join(base, "thermal", name))
+            Image.fromarray((field() // 52).astype(np.uint8)).save(
+                os.path.join(base, "labels", name))
 
 
-def phase_train_disk(calls, smi):
-    """DISK_STEPS full-width training steps of the training CLI on a PST900
-    folder through its threaded loader and device prefetch."""
+@contextlib.contextmanager
+def data_root(root: str):
+    """FUSIONMAMBA_DATA_ROOT set to `root` inside the block."""
+    before = os.environ.get("FUSIONMAMBA_DATA_ROOT")
+    os.environ["FUSIONMAMBA_DATA_ROOT"] = root
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["FUSIONMAMBA_DATA_ROOT"]
+        else:
+            os.environ["FUSIONMAMBA_DATA_ROOT"] = before
+
+
+def phase_train_disk(calls, smi, root: str, write_s: float):
+    """DISK_STEPS full-width training steps of the training CLI on the PST900
+    folder under `root` through its threaded loader and device prefetch."""
     pairs = TRAIN_PAIRS * DISK_STEPS
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        _write_pst900(tmp, pairs)
-        write_s = time.perf_counter() - t0
-        before = os.environ.get("FUSIONMAMBA_DATA_ROOT")
-        os.environ["FUSIONMAMBA_DATA_ROOT"] = tmp
-        try:
-            zero_launches()
-            stats = train.main(["--dataset", "pst900", "-B", str(TRAIN_PAIRS), "-E", "1",
-                                "-j", str(DISK_WORKERS), "--model", "full", "--device", "cuda",
-                                "--ckpt_dir", tmp])
-            torch.cuda.synchronize()
-            launches = read_launches()
-        finally:
-            if before is None:
-                del os.environ["FUSIONMAMBA_DATA_ROOT"]
-            else:
-                os.environ["FUSIONMAMBA_DATA_ROOT"] = before
+    with tempfile.TemporaryDirectory() as ckpt, data_root(root):
+        zero_launches()
+        stats = train.main(["--dataset", "pst900", "-B", str(TRAIN_PAIRS), "-E", "1",
+                            "-j", str(DISK_WORKERS), "--model", "full", "--device", "cuda",
+                            "--ckpt_dir", ckpt])
+        torch.cuda.synchronize()
+        launches = read_launches()
     torch.cuda.empty_cache()
     expected = {k: stats["steps"] * sum(c.values()) for k, c in calls.items()}
     if stats["steps"] != DISK_STEPS or not all(math.isfinite(v) for v in stats["losses"]):
@@ -853,6 +929,84 @@ def phase_train_disk(calls, smi):
           "loader_wait_ms_per_step": [1e3 * w for w in waits],
           "median_warm_loader_wait_ms": 1e3 * float(np.median(waits[1:])),
           "folder_write_s": write_s, "cli_seconds": stats["seconds"], "card": smi})
+
+
+def _seg_run(argv, cfg, pairs: int, steps: int, eval_forwards: int, ckpt_dir: str, smi,
+             name: str):
+    """One run of the segmentation training CLI: launch counts (zeroed just
+    before) equal to `steps` training steps of `pairs` pairs plus
+    `eval_forwards` forwards of the evaluation, every loss and score finite,
+    both checkpoints loading strictly. Emits its line; returns the launch
+    counts."""
+    zero_launches()
+    stats = train_segmentation.main(argv + ["--model", "full", "--device", "cuda",
+                                            "--ckpt_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    tcalls, fcalls = train_calls(cfg, pairs, SIZE), main_path_calls(cfg, pairs, SIZE)
+    expected = {k: steps * sum(c.values()) + eval_forwards * sum(fcalls.get(k, {}).values())
+                for k, c in tcalls.items()}
+    if stats["steps"] != steps or not all(math.isfinite(v) for v in stats["losses"]):
+        fail(f"{name}: {stats['steps']} steps with losses {stats['losses']}")
+    if launches != expected:
+        fail(f"{name}: launch counts {launches} differ from the config's {expected}")
+    scores = stats["evals"][-1] if stats["evals"] else {}
+    finite = [k for k in ("mean_iou", "mean_acc", "pixel_acc")
+              if k in scores and math.isfinite(scores[k])]
+    if len(stats["evals"]) != 1 or len(finite) != 3:
+        fail(f"{name}: evaluations {stats['evals']}")
+    dataset = argv[argv.index("--dataset") + 1]
+    for suffix in ("", "_best"):
+        load_reference_checkpoint(
+            VSSMFusionSeg(cfg), os.path.join(ckpt_dir, f"segmentation_model_{dataset}{suffix}.pth"))
+    warm = stats["step_seconds"][1:]
+    emit({"phase": "train_seg", "run": name, "argv": argv, "pairs_per_step": pairs,
+          "steps": stats["steps"], "losses": stats["losses"], "launches": launches,
+          "expected_launches": expected, "eval_forwards": eval_forwards,
+          "scores": {k: scores[k] for k in ("pixel_acc", "mean_acc", "mean_iou", "fw_iou")},
+          "class_weights": stats["class_weights"], "step_seconds": stats["step_seconds"],
+          "median_warm_step_s": float(np.median(warm)),
+          "pairs_per_s": pairs / float(np.median(warm)),
+          "loader_wait_ms_per_step": [1e3 * w for w in stats["loader_wait_seconds"]],
+          "cli_seconds": stats["seconds"], "card": smi})
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_seg(smi, root: str, ckpt_dir: str) -> str:
+    """The segmentation training CLI at full width: PST900 on the folder under
+    `root` (mode both: batch 2, 12 steps over its 24 training pairs, the
+    poly lr, class weights from the label counts, the improved loss; one
+    evaluation of its 6 test pairs in 3 forwards), then 4 steps of synthetic
+    MFNet-class pairs at batch 4 in the default mode (segmentation, the
+    unweighted loss; one evaluation forward of 4 pairs). Returns the PST900
+    checkpoint and the PST900 run's launch counts."""
+    with data_root(root):
+        launches = _seg_run(["--dataset", "pst900", "--mode", "both", "-E", "1", "-j", str(DISK_WORKERS)],
+                 full_config(num_seg_classes=5), 2, SEG_PST900_STEPS, 3, ckpt_dir, smi, "pst900")
+    _seg_run(["--dataset", "mfnet", "--synthetic", "16", "-B", "4", "-E", "1", "-j", "0"],
+             full_config(num_seg_classes=9), 4, 4, 1, ckpt_dir, smi, "mfnet_synthetic")
+    return os.path.join(ckpt_dir, "segmentation_model_pst900.pth"), launches
+
+
+def phase_evaluate_seg(ckpt: str, root: str):
+    """`fusionmamba_torch.evaluate_segmentation` of the PST900 checkpoint on
+    the folder's test split: every metric finite, the report written."""
+    with tempfile.TemporaryDirectory() as tmp, data_root(root):
+        out = os.path.join(tmp, "pst900_segmentation_results.txt")
+        got = evaluate_segmentation.main(["--dataset", "pst900", "--ckpt", ckpt, "--model", "full",
+                                          "--batch", "2", "--device", "cuda", "--out", out])
+        written = open(out).read() if os.path.exists(out) else ""
+    values = [v for val in got["metrics"].values()
+              for v in (val if isinstance(val, list) else [val])]
+    finite = all(math.isfinite(v) for v in values)
+    emit({"phase": "evaluate_seg", "samples": got["samples"], "metrics": got["metrics"],
+          "all_finite": finite, "report_written": written == got["report"] + "\n",
+          "seconds": got["seconds"]})
+    if not finite or got["samples"] != SEG_TEST_PAIRS:
+        fail(f"segmentation evaluation of {got['samples']} pairs: {got['metrics']}")
+    if written != got["report"] + "\n":
+        fail("segmentation evaluation did not write its report")
 
 
 def phase_evaluate(serving_dir: str):
@@ -913,6 +1067,90 @@ def phase_train_parity(dev, steps: int = 5):
     if max(loss_rel) > TRAIN_LOSS_RTOL or grad_rel[worst] > TRAIN_GRAD_RTOL:
         fail(f"card vs CPU training: loss rel err {max(loss_rel)}, {worst} grad rel err "
              f"{grad_rel[worst]}")
+
+
+def phase_seg_parity(dev, steps: int = 3):
+    """VSSMFusionSeg at the test config (5 classes, 64^2, batch 2) from the
+    same seeded weights on the card (kernels) and on the CPU (plain
+    versions): the eval-mode logits and fusion output, then `steps` training
+    steps (mode both, the improved loss with class weights from the labels)
+    on the same batches and injected dropout keep-masks: each step's loss,
+    and the BatchNorm running statistics after them."""
+    cfg, B, size = test_config(num_seg_classes=5), 2, 64
+    rng = np.random.default_rng(6)
+
+    def images():
+        coarse = np.kron(rng.uniform(0, 1, (B, size // 8, size // 8)), np.ones((1, 8, 8)))
+        return torch.from_numpy((0.1 + 0.7 * coarse + 0.2 * rng.uniform(
+            0, 1, (B, size, size)))[..., None].astype(np.float32))
+
+    batches = [(images(), images(), torch.from_numpy(np.kron(
+        rng.integers(0, 5, (B, size // 8, size // 8)), np.ones((1, 8, 8), np.int64))))
+        for _ in range(steps)]
+    c2 = 2 * (cfg.dims_decoder[-1] // 4)
+    masks = [torch.from_numpy(rng.uniform(0, 1, (B, size, size, c2)) < 0.7) for _ in range(steps)]
+    weights = compute_class_weights(torch.bincount(
+        torch.cat([b[2].flatten() for b in batches]), minlength=5))
+    runs = []
+    for device in (torch.device("cpu"), dev):
+        net = init_weights(VSSMFusionSeg(cfg), seed=0).to(device)
+        x1, x2 = batches[0][0].to(device), batches[0][1].to(device)
+        with torch.inference_mode():
+            out = {k: v.cpu() for k, v in net.eval()(x1, x2).items()}
+        opt = train.make_seg_optimizer(net.parameters())
+        losses = []
+        for (vis_y, ir, lbl), mask in zip(batches, masks):
+            m = train.seg_train_step(net, opt, vis_y.to(device), ir.to(device), lbl.to(device),
+                                     num_classes=5, mode="both", class_weights=weights.to(device),
+                                     improved=True, drop_mask=mask.to(device))
+            losses.append(float(m["total"]))
+        stats = {k: v.cpu() for k, v in net.state_dict().items() if "running_" in k}
+        runs.append((out, losses, stats))
+    (cpu_o, cpu_l, cpu_s), (gpu_o, gpu_l, gpu_s) = runs
+    out_err = {k: float((gpu_o[k] - cpu_o[k]).abs().max()) for k in cpu_o}
+    loss_rel = [abs(a - b) / abs(a) for a, b in zip(cpu_l, gpu_l)]
+    stat_err = max(float((gpu_s[k] - v).abs().max()) for k, v in cpu_s.items())
+    finite = all(bool(torch.isfinite(v).all()) for v in gpu_o.values())
+    emit({"phase": "seg_parity", "steps": steps, "eval_max_abs_err": out_err,
+          "eval_atol": PARITY_ATOL, "losses_cpu": cpu_l, "losses_card": gpu_l,
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "bn_running_stats_max_abs_err": stat_err, "bn_atol": SEG_BN_ATOL})
+    if not finite or max(out_err.values()) > PARITY_ATOL:
+        fail(f"segmentation card vs CPU: eval outputs differ by {out_err}")
+    if max(loss_rel) > TRAIN_LOSS_RTOL or stat_err > SEG_BN_ATOL:
+        fail(f"segmentation card vs CPU training: loss rel err {max(loss_rel)}, BatchNorm "
+             f"statistics err {stat_err}")
+
+
+def phase_fullres_ss2d(dev):
+    """One SS2D(96, scan_variant="fullres") at 64^2 (the scan at L = 4096),
+    batch 2, on the card (kernels, forward and backward) against the same
+    module on the CPU (plain versions): the output and the gradient of every
+    parameter for a seeded cotangent."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 64, 64, 96)).astype(np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 64, 64, 96)).astype(np.float32))
+    cpu_mod = init_weights(SS2D(96, 16, scan_variant="fullres"), seed=0)
+    runs = []
+    for device, mod in ((torch.device("cpu"), cpu_mod), (dev, copy.deepcopy(cpu_mod).to(dev))):
+        t0 = time.perf_counter()
+        out = mod(x.to(device))
+        (out * cot.to(device)).sum().backward()
+        runs.append((out.detach().cpu(), {k: p.grad.cpu() for k, p in mod.named_parameters()},
+                     time.perf_counter() - t0))
+    (cpu_o, cpu_g, cpu_s), (gpu_o, gpu_g, gpu_s) = runs
+    err = (gpu_o - cpu_o).abs()
+    out_ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * cpu_o.abs()))
+    grad_rel = {k: float((gpu_g[k] - w).norm() / (w.norm() + 1e-12)) for k, w in cpu_g.items()}
+    worst = max(grad_rel, key=grad_rel.get)
+    emit({"phase": "fullres_ss2d", "shape": [2, 64, 64, 96], "scan_L": 64 * 64,
+          "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL,
+          "grad_rel_err": grad_rel, "worst_param": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+          "cpu_seconds": cpu_s, "card_seconds_first_call": gpu_s})
+    if not out_ok:
+        fail(f"fullres SS2D: card vs CPU output differs by {float(err.max())}")
+    if grad_rel[worst] > TRAIN_GRAD_RTOL:
+        fail(f"fullres SS2D: card vs CPU gradient of {worst} differs by {grad_rel[worst]}")
 
 
 # kernel-name fragments of each kernel in a profiler trace, then the groups
@@ -1038,9 +1276,19 @@ def main() -> None:
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
     serving = phase_kernels(calls, dev)
-    results = phase_kernel_train(tcalls, dev)
+    checked = {}
+    results = phase_kernel_train(tcalls, dev, TRAIN_PAIRS, checked)
+    for pairs in SEG_PAIRS:
+        per_step = phase_kernel_train(train_calls(full_config(), pairs, SIZE), dev, pairs,
+                                      checked)
+        emit({"phase": "kernel_train_step", "pairs": pairs, "per_step": {
+            k: _brief(r) for k, r in per_step.items()}})
+    emit({"phase": "kernel_train_step", "pairs": TRAIN_PAIRS, "per_step": {
+        k: _brief(r) for k, r in results.items()}})
     phase_mlp_paths(tcalls["mlp"], dev)
-    phase_scan_paths(tcalls["scan"], calls["scan"], dev)
+    phase_scan_paths(tcalls["scan"], calls["scan"],
+                     fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)
+    phase_fullres_ss2d(dev)
     emit({"phase": "kernel", "per_forward_of_serving": {
         k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
@@ -1050,8 +1298,15 @@ def main() -> None:
         phase_evaluate(serving_dir)
     phase_parity(dev)
     launches = phase_train(tcalls, smi)
-    phase_train_disk(tcalls, smi)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        _write_pst900(root, {"train": TRAIN_PAIRS * DISK_STEPS, "test": SEG_TEST_PAIRS})
+        write_s = time.perf_counter() - t0
+        phase_train_disk(tcalls, smi, root, write_s)
+        ckpt, seg_launches = phase_train_seg(smi, root, os.path.join(root, "ckpt"))
+        phase_evaluate_seg(ckpt, root)
     phase_train_parity(dev)
+    phase_seg_parity(dev)
     phase_trace(dev)
     phase_trace_train(dev)
 
@@ -1060,7 +1315,8 @@ def main() -> None:
         r = _summary(results[k])
         kernels.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": launches[k], "launches_train_seg": seg_launches[k],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
             "library_ms": r["library_ms"], "device_ms": r["device_ms"], "shapes": r["shapes"],
@@ -1072,7 +1328,8 @@ def main() -> None:
                if k in TENSOR_CORE_KERNELS else {})})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "times": "per training step of the main path (full config, 6 pairs of 256^2): "
-                   "sum over its shapes of calls x time; launches from the 12-step run"})
+                   "sum over its shapes of calls x time; launches from the 12-step run, "
+                   "launches_train_seg from the segmentation CLI's PST900 run"})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

@@ -1,11 +1,13 @@
 """JAX params tree (numpy) -> the port's state dict, which is the reference
-`VSSM_Fusion` state-dict layout.
+`VSSM_Fusion` (and `VSSM_Fusion_Segmentation`) state-dict layout.
 
 `fusion_key_map(depths, depths_decoder)` enumerates every
-(torch_key, flax_path, transform) triple of the model; this is the port's own
-copy of the table in `fusionmamba_tpu/checkpoints/torch_import.py`, so the
-port needs nothing from the JAX package to read such weights. Transforms from
-the flax layout:
+(torch_key, flax_path, transform) triple of the fusion model and
+`seg_key_map` those of the segmentation model's parameters; this is the
+port's own copy of the tables in `fusionmamba_tpu/checkpoints/torch_import.py`
+(`convert_seg_state_dict`'s layout for the segmentation head), so the port
+needs nothing from the JAX package to read such weights. Transforms from the
+flax layout:
   * linear : Dense kernel (in, out)      -> Linear weight (out, in)
   * conv   : HWIO (kh, kw, I, O)         -> Conv2d weight (O, I, kh, kw)
   * eca    : (k,)                        -> Conv1d weight (1, 1, k)
@@ -13,7 +15,8 @@ the flax layout:
   * a_logs : (K, D, N)                   -> (K*D, N)
   * ds     : (K, D)                      -> (K*D,)
   * none   : identity
-The LDC modules' constant `base_mask` buffers (ones) are synthesised.
+The LDC modules' constant `base_mask` buffers (ones) are synthesised; the
+head's BatchNorm statistics come from the flax `batch_stats` collection.
 """
 from __future__ import annotations
 
@@ -144,21 +147,59 @@ def fusion_key_map(depths, depths_decoder) -> Iterator[MapEntry]:
     yield from _conv("final_conv", ("final_conv",))
 
 
+_HEAD = "segmentation_head"
+
+
+def seg_key_map(depths, depths_decoder) -> Iterator[MapEntry]:
+    """Every (torch_key, flax_path, transform) of VSSMFusionSeg's parameters:
+    the fusion model's under `fusion_model`, then the head's (the attention
+    conv is the reference's `nn.Sequential`, hence `attention.0`)."""
+    for tk, fp, tr in fusion_key_map(depths, depths_decoder):
+        yield "fusion_model." + tk, ("fusion_model",) + fp, tr
+    for conv in ("conv1", "conv2"):
+        yield from _conv(f"{_HEAD}.{conv}", (_HEAD, conv))
+    yield from _conv(f"{_HEAD}.attention.0", (_HEAD, "attention"))
+    yield from _conv(f"{_HEAD}.final_conv", (_HEAD, "final_conv"))
+    for bn in ("bn1", "bn2"):
+        yield from _layernorm(f"{_HEAD}.{bn}", (_HEAD, bn))
+
+
 def _get(tree: Dict[str, Any], path: Tuple[str, ...]):
     for k in path:
         tree = tree[k]
     return tree
 
 
-def state_dict_from_jax(params: Dict[str, Any], depths,
-                        depths_decoder) -> Dict[str, torch.Tensor]:
-    """The flax params tree of VSSMFusion (nested dicts of numpy arrays) as
-    the port's state dict, `base_mask` buffers included."""
+def _from_map(params: Dict[str, Any], key_map) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
-    for tk, fp, tr in fusion_key_map(depths, depths_decoder):
+    for tk, fp, tr in key_map:
         arr = _TO_TORCH[tr](np.asarray(_get(params, fp), dtype=np.float32))
         sd[tk] = torch.from_numpy(np.ascontiguousarray(arr))
     for tk in list(sd):
         if tk.endswith(".conv.weight") and ("texture_enhance" in tk or "conv_branch" in tk):
             sd[tk[: -len(".conv.weight")] + ".base_mask"] = torch.ones_like(sd[tk])
+    return sd
+
+
+def state_dict_from_jax(params: Dict[str, Any], depths,
+                        depths_decoder) -> Dict[str, torch.Tensor]:
+    """The flax params tree of VSSMFusion (nested dicts of numpy arrays) as
+    the port's state dict, `base_mask` buffers included."""
+    return _from_map(params, fusion_key_map(depths, depths_decoder))
+
+
+def seg_state_dict_from_jax(variables: Dict[str, Any], depths,
+                            depths_decoder) -> Dict[str, torch.Tensor]:
+    """The flax variables of VSSMFusionSeg, {"params": {"fusion_model",
+    "segmentation_head"}, "batch_stats": {"segmentation_head": {"bn1",
+    "bn2": {"mean", "var"}}}}, as the port's state dict: `base_mask`
+    buffers, the BatchNorms' running statistics and `num_batches_tracked`
+    (0: flax keeps no count) included."""
+    sd = _from_map(variables["params"], seg_key_map(depths, depths_decoder))
+    stats = variables["batch_stats"][_HEAD]
+    for bn in ("bn1", "bn2"):
+        for tk, fk in (("running_mean", "mean"), ("running_var", "var")):
+            sd[f"{_HEAD}.{bn}.{tk}"] = torch.from_numpy(
+                np.ascontiguousarray(np.asarray(stats[bn][fk], dtype=np.float32)))
+        sd[f"{_HEAD}.{bn}.num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -27,6 +27,8 @@ class FusionModelConfig:
     # patch norms use torch's default 1e-5, fixed at their call sites
     norm_eps: float = 1e-6
     patch_norm: bool = True
+    # classes of VSSMFusionSeg's segmentation head (MFNet's 9)
+    num_seg_classes: int = 9
 
     @property
     def dims_decoder(self) -> Tuple[int, ...]:

@@ -198,12 +198,20 @@ class SyntheticFusionDataset:
     """Deterministic random pairs standing in for the on-disk datasets: item i
     is (vis_y, ir), float32 (H, W, 1) in [0, 1], each a field of coarse
     uniform noise upsampled by 16 (smooth enough that SSIM windows see
-    structure)."""
+    structure), plus an int32 (H, W) label when `num_classes` is set: binary
+    for 1 (as acod's thresholded ground truth), else 32x32 blocks of class
+    ids."""
 
-    def __init__(self, length: int = 32, size: tuple = (256, 256), seed: int = 0):
+    def __init__(self, length: int = 32, size: tuple = (256, 256),
+                 num_classes: int | None = None, seed: int = 0):
         self.length = length
         self.size = size
+        self.num_classes = num_classes
         self.seed = seed
+
+    @property
+    def has_labels(self) -> bool:
+        return self.num_classes is not None
 
     def __len__(self) -> int:
         return self.length
@@ -216,20 +224,31 @@ class SyntheticFusionDataset:
             coarse = rng.uniform(0, 1, (h // 16, w // 16)).astype(np.float32)
             return np.kron(coarse, np.ones((16, 16), np.float32))
 
-        return field()[..., None], field()[..., None]
+        vis_y, ir = field()[..., None], field()[..., None]
+        if self.num_classes is None:
+            return vis_y, ir
+        if self.num_classes == 1:
+            lbl = (field() > 0.5).astype(np.int32)
+        else:
+            lbl = rng.integers(0, self.num_classes, (h // 32, w // 32)).astype(np.int32)
+            lbl = np.kron(lbl, np.ones((32, 32), np.int32))
+        return vis_y, ir, lbl
 
 
 def batch_iterator(ds, batch_size: int, shuffle: bool = True, seed: int = 0,
-                   epochs: int | None = 1) -> Iterator[tuple]:
+                   drop_last: bool = True, epochs: int | None = 1) -> Iterator[tuple]:
     """Epochs over `ds`, yielding stacked NHWC numpy batches; a last partial
-    batch is dropped."""
+    batch is dropped unless `drop_last` is false."""
     rng = np.random.default_rng(seed)
     epoch = 0
     while epochs is None or epoch < epochs:
         order = np.arange(len(ds))
         if shuffle:
             rng.shuffle(order)
-        for start in range(0, len(order) - batch_size + 1, batch_size):
-            items = [ds[int(i)] for i in order[start:start + batch_size]]
+        for start in range(0, len(order), batch_size):
+            idx = order[start:start + batch_size]
+            if drop_last and len(idx) < batch_size:
+                break
+            items = [ds[int(i)] for i in idx]
             yield tuple(np.stack(parts) for parts in zip(*items))
         epoch += 1

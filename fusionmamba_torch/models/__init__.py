@@ -1,3 +1,3 @@
-from .fusion import VSSMFusion
+from .fusion import VSSMFusion, VSSMFusionSeg
 
-__all__ = ["VSSMFusion"]
+__all__ = ["VSSMFusion", "VSSMFusionSeg"]

@@ -11,6 +11,11 @@ Reproduces the reference `VSSM_Fusion` (`models/vmamba_Fusion_efficross.py:753-9
 
 I/O is NHWC: x1, x2 are (B, H, W, in_chans); the output is (B, H, W, 1).
 Module names are the reference's state-dict keys.
+
+`VSSMFusionSeg` reproduces the reference `VSSM_Fusion_Segmentation`
+(`models/vmamba_Fusion_efficross.py:995-1078`): the fusion network's
+features (everything up to and including final_up) feed both its fusion
+head and a `SegmentationHead`.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from torch import nn
 
 from ..config import FusionModelConfig
 from ..nn.blocks import VSSBlock, VSSBlockCross
+from ..nn.layers import SegmentationHead
 from ..nn.patch import FinalPatchExpand, PatchEmbed, PatchExpand, PatchMerging
 
 
@@ -121,11 +127,13 @@ class VSSMFusion(nn.Module):
         k = len(self.cfg.depths)
         return out[:k], out[k:]
 
-    def forward(self, x1, x2, generator=None, dp_uni=None):
-        """x1, x2 (B, H, W, in_chans) -> (B, H, W, 1). In training with
-        drop_path_rate > 0, DropPath reads one uniform table per call:
-        `dp_uni` (rows, 2B) when given, else drawn from `generator` (the
-        default generator when None) on the inputs' device."""
+    def features(self, x1, x2, generator=None, dp_uni=None):
+        """x1, x2 (B, H, W, in_chans) -> the (B, H, W, dims[0] // 4) map that
+        the fusion and segmentation heads share: the network up to and
+        including final_up. In training with drop_path_rate > 0, DropPath
+        reads one uniform table per call: `dp_uni` (rows, 2B) when given,
+        else drawn from `generator` (the default generator when None) on the
+        inputs' device."""
         nl = len(self.layers)
         enc_dp = dec_dp = [None] * nl
         if self.training and self.cfg.drop_path_rate > 0.0:
@@ -147,6 +155,38 @@ class VSSMFusion(nn.Module):
             if i > 0:
                 x = x + fused[-i]
             x = layer_up(x, dp)
-        out = self.final_conv(self.final_up(x))
-        # the reference's residual `x + x_1 + x_2 + x_1 + x_2`
-        return out + 2.0 * x1 + 2.0 * x2
+        return self.final_up(x)
+
+    def fusion_head(self, feats, x1, x2):
+        """final_conv plus the reference's residual `x + x_1 + x_2 + x_1 + x_2`."""
+        return self.final_conv(feats) + 2.0 * x1 + 2.0 * x2
+
+    def forward(self, x1, x2, generator=None, dp_uni=None):
+        """x1, x2 (B, H, W, in_chans) -> (B, H, W, 1); `generator` and
+        `dp_uni` as in `features`."""
+        return self.fusion_head(self.features(x1, x2, generator, dp_uni), x1, x2)
+
+
+class VSSMFusionSeg(nn.Module):
+    """The fusion network and a segmentation head on its shared features."""
+
+    def __init__(self, cfg: FusionModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.fusion_model = VSSMFusion(cfg)
+        self.segmentation_head = SegmentationHead(cfg.dims_decoder[-1] // 4,
+                                                  cfg.num_seg_classes, dropout_rate=0.3)
+
+    def forward(self, x1, x2, generator=None, dp_uni=None, drop_mask=None,
+                return_fusion: bool = True, return_segmentation: bool = True) -> dict:
+        """x1, x2 (B, H, W, in_chans) -> {"segmentation": (B, H, W, classes)
+        logits, "fusion": (B, H, W, 1)}, each where asked for. In training,
+        DropPath's table (`dp_uni`) and the head's dropout keep-mask
+        (`drop_mask`) are drawn from `generator` where not given."""
+        feats = self.fusion_model.features(x1, x2, generator, dp_uni)
+        out = {}
+        if return_segmentation:
+            out["segmentation"] = self.segmentation_head(feats, generator, drop_mask)
+        if return_fusion:
+            out["fusion"] = self.fusion_model.fusion_head(feats, x1, x2)
+        return out

@@ -4,8 +4,13 @@ The reference applies trunc_normal(std=0.02) to every nn.Linear weight and
 zeros to their biases (`models/vmamba_Fusion_efficross.py:836-851`), leaves
 each Conv at torch's default U(+-1/sqrt(fan_in)), and gives the SSM
 parameters their own schemes (dt: `models/cross.py:542-566`; A: S4D-real
-`:568-583`; D: ones `:585-595`). Every draw comes from one explicit
-`torch.Generator`, in module order, so a seed fixes the weights.
+`:568-583`; D: ones `:585-595`). The segmentation head takes the JAX
+package's init (`fusionmamba_tpu/nn/layers.py::SegmentationHead`): He-normal
+conv weights as flax draws them (fan_in, gain sqrt(2), a normal truncated at
+two standard deviations and rescaled to keep the variance 2 / fan_in), zero
+conv biases, BatchNorm weight 1, bias 0 and fresh running statistics. Every
+draw comes from one explicit `torch.Generator`, in module order, so a seed
+fixes the weights.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import math
 import torch
 from torch import nn
 
-from .layers import LDC, FusedLayerNorm
+from .layers import LDC, FusedLayerNorm, SegmentationHead
 from .ss2d import SSMCore
 
 
@@ -36,12 +41,32 @@ def _ssm(m: SSMCore, gen: torch.Generator, dt_min=0.001, dt_max=0.1,
     m.Ds.fill_(1.0)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
+def _seg_head(head: SegmentationHead, gen: torch.Generator) -> None:
+    for m in head.modules():
+        if isinstance(m, nn.Conv2d):
+            std = math.sqrt(2.0 / m.weight[0].numel()) / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=gen)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Initialise every parameter of `model` (on the CPU) from `seed`."""
     gen = torch.Generator().manual_seed(seed)
+    done = set()
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if m in done:
+            continue
+        if isinstance(m, SegmentationHead):
+            _seg_head(m, gen)
+            done.update(m.modules())
+        elif isinstance(m, nn.Linear):
             nn.init.trunc_normal_(m.weight, std=0.02, a=-0.04, b=0.04, generator=gen)
             if m.bias is not None:
                 m.bias.zero_()

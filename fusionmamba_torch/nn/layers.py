@@ -148,3 +148,49 @@ class CrossLayer(nn.Module):
     def forward(self, fuse, x1, x2):
         d1, d2 = self.Diff_enhance(fuse, x1, x2)
         return self.texture_enhance1(x1) + d1, self.texture_enhance2(x2) + d2
+
+
+class SegmentationHead(nn.Module):
+    """Segmentation head (reference `vmamba_Fusion_efficross.py:932-992`):
+    conv3x3 -> BN -> ReLU -> conv3x3 -> BN -> ReLU -> x * sigmoid(conv1x1(x))
+    -> dropout -> conv1x1 to the classes. NHWC in, NHWC logits out; the
+    convolutions run on the NCHW view of the NHWC memory (channels-last), so
+    nothing is copied on either side.
+
+    The BatchNorms follow the JAX package's flax `nn.BatchNorm` (momentum
+    0.99 there, so 0.01 here; eps 1e-5). torch updates `running_var` with
+    the unbiased batch variance, flax with the biased one: the running
+    variances differ by n / (n - 1), n = B*H*W.
+
+    In training, dropout keeps each activation where `drop_mask` (a bool
+    (B, H, W, 2C) keep-mask, as flax draws it) is true, scaled by
+    1 / (1 - rate); without a mask it draws one from `generator` on the
+    input's device."""
+
+    def __init__(self, in_channels: int, num_classes: int, dropout_rate: float = 0.3):
+        super().__init__()
+        c2 = 2 * in_channels
+        self.dropout_rate = dropout_rate
+        self.conv1 = nn.Conv2d(in_channels, c2, 3, padding=1)
+        self.bn1 = nn.BatchNorm2d(c2, eps=1e-5, momentum=0.01)
+        self.conv2 = nn.Conv2d(c2, c2, 3, padding=1)
+        self.bn2 = nn.BatchNorm2d(c2, eps=1e-5, momentum=0.01)
+        self.attention = nn.Sequential(nn.Conv2d(c2, c2, 1), nn.Sigmoid())
+        self.final_conv = nn.Conv2d(c2, num_classes, 1)
+
+    def forward(self, x, generator=None, drop_mask=None):  # (B, H, W, C)
+        x = x.permute(0, 3, 1, 2)                         # channels-last NCHW view
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn2(self.conv2(x)))
+        x = x * self.attention(x)
+        if self.training and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            B, C2, H, W = x.shape
+            if drop_mask is None:
+                drop_mask = torch.rand((B, H, W, C2), generator=generator,
+                                       device=x.device) < keep
+            elif tuple(drop_mask.shape) != (B, H, W, C2):
+                raise ValueError(f"drop_mask must be {(B, H, W, C2)}, "
+                                 f"got {tuple(drop_mask.shape)}")
+            x = torch.where(drop_mask.permute(0, 3, 1, 2), x / keep, torch.zeros_like(x))
+        return self.final_conv(x).permute(0, 2, 3, 1)

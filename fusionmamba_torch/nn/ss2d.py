@@ -1,14 +1,17 @@
 """SS2D modules: the VMamba 2-D selective-scan core (NHWC).
 
 `SS2D` reproduces the reference `models/cross.py:417-742` (the "efficient"
-core with the stride-2 four-direction scan); `SS2DCross` reproduces
+core with the stride-2 four-direction scan, or with `scan_variant="fullres"`
+the full-resolution four-direction scan of the reference's forward_corev0,
+`models/vmamba_Fusion_efficross.py:391-429`); `SS2DCross` reproduces
 `SS2D_cross_new` (`models/cross.py:890-1230`) with its quirks: one depthwise
 conv shared by both inputs, the pre-scan fusion x1*x2 + x1 + x2, and a gate
 read only from z1 as silu(z1) + silu(silu(z1)).
 
-The scan pipeline: efficient_scan -> per-direction x_proj -> low-rank dt,
-B, C -> fp32 selective scan (A = -exp(A_logs), softplus dt, low-rank dt
-expanded inside the kernel) -> efficient_merge -> LayerNorm x gate.
+The scan pipeline: efficient_scan (cross_scan) -> per-direction x_proj ->
+low-rank dt, B, C -> fp32 selective scan (A = -exp(A_logs), softplus dt,
+low-rank dt expanded inside the kernel) -> efficient_merge (cross_merge) ->
+LayerNorm x gate.
 """
 from __future__ import annotations
 
@@ -18,11 +21,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import depthwise_conv3x3, efficient_merge, efficient_scan
+from ..ops import cross_merge, cross_scan, depthwise_conv3x3, efficient_merge, efficient_scan
 from ..ops.selective_scan import selective_scan
 from .layers import FusedLayerNorm
 
 K_DIRS = 4
+SCAN_VARIANTS = ("efficient", "fullres")
 
 
 class DepthwiseConv2d(nn.Conv2d):
@@ -40,10 +44,18 @@ class DepthwiseConv2d(nn.Conv2d):
 
 class SSMCore(nn.Module):
     """The SSM parameters shared by SS2D and SS2DCross, and the scan pipeline.
-    A_logs and Ds keep the reference's flattened (K*D, N) and (K*D,) shapes."""
+    A_logs and Ds keep the reference's flattened (K*D, N) and (K*D,) shapes.
+    `scan_variant` "efficient" scans the stride-2 decimated sequences of
+    length ceil(H/2)*ceil(W/2); "fullres" scans all H*W positions. The
+    parameters are the same for both."""
 
-    def __init__(self, d_model: int, d_state: int, ssm_ratio: float):
+    def __init__(self, d_model: int, d_state: int, ssm_ratio: float,
+                 scan_variant: str = "efficient"):
         super().__init__()
+        if scan_variant not in SCAN_VARIANTS:
+            raise ValueError(f"scan_variant must be one of {SCAN_VARIANTS}, "
+                             f"got {scan_variant!r}")
+        self.scan_variant = scan_variant
         self.d_inner = int(ssm_ratio * d_model)
         self.d_state = d_state
         self.dt_rank = math.ceil(d_model / 16)
@@ -59,22 +71,24 @@ class SSMCore(nn.Module):
         """x (B, H, W, d_inner) -> out_norm(scan(x)) * act(gate); gate raw."""
         B, H, W, D = x.shape
         N, R = self.d_state, self.dt_rank
-        xs = efficient_scan(x)                                    # (B, 4, L, D)
+        fullres = self.scan_variant == "fullres"
+        xs = cross_scan(x) if fullres else efficient_scan(x)      # (B, 4, L, D)
         x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight)
         dts, Bs, Cs = (t.contiguous() for t in x_dbl.split([R, N, N], dim=-1))
         As = -torch.exp(self.A_logs.float()).view(K_DIRS, D, N)
         ys = selective_scan(xs, dts, As, Bs, Cs, self.Ds.float().view(K_DIRS, D),
                             self.dt_projs_bias.float(), delta_softplus=True,
                             dt_lowrank_weight=self.dt_projs_weight)
-        y = efficient_merge(ys, H, W)
+        y = cross_merge(ys, H, W) if fullres else efficient_merge(ys, H, W)
         return self.out_norm(y, gate=gate, gate_act=gate_act)
 
 
 class SS2D(SSMCore):
     """Single-input SS2D (reference `models/cross.py:417-742`)."""
 
-    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0):
-        super().__init__(d_model, d_state, ssm_ratio)
+    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
+                 scan_variant: str = "efficient"):
+        super().__init__(d_model, d_state, ssm_ratio, scan_variant)
         self.in_proj = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.conv2d = DepthwiseConv2d(self.d_inner)
         self.out_proj = nn.Linear(self.d_inner, d_model, bias=False)
@@ -91,8 +105,9 @@ class SS2D(SSMCore):
 class SS2DCross(SSMCore):
     """Cross-modal SS2D (reference `models/cross.py:890-1230`)."""
 
-    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0):
-        super().__init__(d_model, d_state, ssm_ratio)
+    def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
+                 scan_variant: str = "efficient"):
+        super().__init__(d_model, d_state, ssm_ratio, scan_variant)
         self.in_proj1 = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.in_proj2 = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.conv2d = DepthwiseConv2d(self.d_inner)

@@ -1,4 +1,5 @@
-"""Stride-2 four-direction scan layout (NHWC), pure reshape/permute.
+"""Four-direction 2-D scan layouts (NHWC), pure reshape/permute/flip;
+autograd differentiates them exactly.
 
 `efficient_scan` decimates (B, H, W, C) into four sequences of length
 ceil(H/2) * ceil(W/2):
@@ -7,6 +8,11 @@ ceil(H/2) * ceil(W/2):
 odd H or W is zero-padded first; `efficient_merge` is the exact inverse
 interleave, cropped back to the original size (reference
 `models/cross.py:139-190` and `:34-88`).
+
+`cross_scan` is the full-resolution variant (reference
+`models/vmamba_Fusion_efficross.py:398-429`): four sequences of length H * W,
+row-major, column-major and both reversed; `cross_merge` undoes each
+ordering and sums the four.
 """
 from __future__ import annotations
 
@@ -42,3 +48,19 @@ def efficient_merge(ys: torch.Tensor, ori_h: int, ori_w: int) -> torch.Tensor:
     y = torch.stack([even_h, odd_h], dim=2)   # (B, H2, 2, W2, 2, C)
     y = y.reshape(B, 2 * H2, 2 * W2, C)
     return y[:, :ori_h, :ori_w].contiguous()
+
+
+def cross_scan(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, 4, H*W, C)."""
+    B, H, W, C = x.shape
+    hw = x.reshape(B, H * W, C)
+    wh = x.transpose(1, 2).reshape(B, W * H, C)
+    return torch.stack([hw, wh, hw.flip(1), wh.flip(1)], dim=1)
+
+
+def cross_merge(ys: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, 4, H*W, C) -> (B, H, W, C), the sum of the four directions."""
+    B, _, L, C = ys.shape
+    y1 = ys[:, 1].reshape(B, W, H, C).transpose(1, 2).reshape(B, L, C)
+    y3 = ys[:, 3].flip(1).reshape(B, W, H, C).transpose(1, 2).reshape(B, L, C)
+    return (ys[:, 0] + y1 + ys[:, 2].flip(1) + y3).reshape(B, H, W, C)

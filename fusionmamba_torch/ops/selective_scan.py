@@ -41,12 +41,14 @@ def selective_scan_plain(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
     A = A.float()
     dA = torch.exp(delta[..., None] * A[None, :, None])                # (B,K,L,D,N)
     dBu = (delta * u)[..., None] * Bmat.float()[:, :, :, None, :]       # (B,K,L,D,N)
-    Cf = Cmat.float()
     h = torch.zeros_like(dA[:, :, 0])
     ys = []
-    for l in range(u.shape[2]):
-        h = dA[:, :, l] * h + dBu[:, :, l]
-        ys.append(torch.einsum("bkdn,bkn->bkd", h, Cf[:, :, l]))
+    # unbind, not indexing: autograd then gathers the steps' gradients in one
+    # stack, where each index's backward would write a zero-filled copy of
+    # the whole tensor (quadratic in L)
+    for dA_l, dBu_l, C_l in zip(dA.unbind(2), dBu.unbind(2), Cmat.float().unbind(2)):
+        h = dA_l * h + dBu_l
+        ys.append(torch.einsum("bkdn,bkn->bkd", h, C_l))
     out = torch.stack(ys, dim=2)
     if D is not None:
         out = out + u * D.float()[None, :, None, :]

@@ -1,8 +1,10 @@
-"""Training of the fusion network: the step and optimizer (`loop.py`) and
-the CLI (`cli.py`, run as `python -m fusionmamba_torch.train`)."""
+"""Training: the fusion and segmentation steps and their optimizers
+(`loop.py`) and the fusion CLI (`cli.py`, run as `python -m
+fusionmamba_torch.train`; the segmentation CLI is
+`fusionmamba_torch.train_segmentation`)."""
 from .cli import main
-from .loop import (fusion_train_step, make_fusion_optimizer, reference_fusion_lr,
-                   set_learning_rate)
+from .loop import (fusion_train_step, make_fusion_optimizer, make_seg_optimizer, poly_lr,
+                   reference_fusion_lr, seg_train_step, set_learning_rate)
 
-__all__ = ["fusion_train_step", "main", "make_fusion_optimizer", "reference_fusion_lr",
-           "set_learning_rate"]
+__all__ = ["fusion_train_step", "main", "make_fusion_optimizer", "make_seg_optimizer",
+           "poly_lr", "reference_fusion_lr", "seg_train_step", "set_learning_rate"]

@@ -38,7 +38,7 @@ from ..nn import init_weights
 from .loop import fusion_train_step, make_fusion_optimizer, reference_fusion_lr, set_learning_rate
 
 DATASETS = ("acod", "mfnet", "pst900")
-_CONFIGS = {"full": full_config, "tiny": tiny_config, "test": test_config}
+CONFIGS = {"full": full_config, "tiny": tiny_config, "test": test_config}
 
 
 def parse_args(argv=None):
@@ -46,7 +46,7 @@ def parse_args(argv=None):
     ap.add_argument("--dataset", default="pst900", choices=[*DATASETS, "all"])
     ap.add_argument("--epochs", "-E", type=int, default=2)
     ap.add_argument("--batch_size", "-B", type=int, default=6)
-    ap.add_argument("--model", choices=list(_CONFIGS), default="full",
+    ap.add_argument("--model", choices=list(CONFIGS), default="full",
                     help="full/tiny are the reference variants; test is a miniature")
     ap.add_argument("--ckpt_dir", default="model_last/my_cross")
     ap.add_argument("--num_workers", "-j", type=int, default=8,
@@ -60,8 +60,8 @@ def parse_args(argv=None):
     return ap, ap.parse_args(argv)
 
 
-def _logger() -> logging.Logger:
-    log = logging.getLogger("fusionmamba_torch.train")
+def logger(name: str = "fusionmamba_torch.train") -> logging.Logger:
+    log = logging.getLogger(name)
     if not log.handlers:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("%(levelname)s %(message)s"))
@@ -70,17 +70,53 @@ def _logger() -> logging.Logger:
     return log
 
 
-def _batches(args, ds, epoch: int, device: torch.device):
-    """One epoch's batches as tensors on `device`."""
-    if args.num_workers > 0:
-        return device_prefetch(threaded_batches(ds, args.batch_size, shuffle=True, seed=epoch,
-                                                num_workers=args.num_workers), device)
+def epoch_batches(ds, batch_size: int, num_workers: int, epoch: int, device: torch.device):
+    """One epoch's shuffled batches as tensors on `device`: loaded by
+    `num_workers` threads and copied ahead of the step (`data.prefetch`), or
+    with 0 workers loaded in the loop."""
+    if num_workers > 0:
+        return device_prefetch(threaded_batches(ds, batch_size, shuffle=True, seed=epoch,
+                                                num_workers=num_workers), device)
     return (tuple(torch.from_numpy(b).to(device, non_blocking=True) for b in batch)
-            for batch in batch_iterator(ds, args.batch_size, shuffle=True, seed=epoch))
+            for batch in batch_iterator(ds, batch_size, shuffle=True, seed=epoch))
+
+
+class StepClock:
+    """Step times: a mark of the device's progress (a recorded CUDA event)
+    or, on the CPU, of the host clock, at the start of each step and at the
+    end of each run of steps (`end`). A step's seconds run from its mark to
+    the next, so on the card they include any time the device waited for
+    the host."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.runs = [[]]
+
+    def _stamp(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def mark(self) -> None:
+        self.runs[-1].append(self._stamp())
+
+    def end(self) -> None:
+        if self.runs[-1]:
+            self.runs[-1].append(self._stamp())
+            self.runs.append([])
+
+    def seconds(self) -> list:
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        return [a.elapsed_time(b) / 1e3 if cuda else b - a
+                for run in self.runs for a, b in zip(run, run[1:])]
 
 
 def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logger) -> dict:
-    net = init_weights(VSSMFusion(_CONFIGS[args.model]()), seed=0)
+    net = init_weights(VSSMFusion(CONFIGS[args.model]()), seed=0)
     ckpt = os.path.join(args.ckpt_dir, f"fusion_model_{dataset}.pth")
     if os.path.exists(ckpt):
         log.info(f"warm start from {ckpt}")
@@ -92,31 +128,20 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
     total = steps_per_epoch * args.epochs
     log.info(f"{dataset}: {len(ds)} pairs, {steps_per_epoch} steps/epoch, on {device}")
 
-    timed = device.type == "cuda"
-
-    def stamp():
-        """A mark of the device's progress (a recorded CUDA event) or, on the
-        CPU, of the host clock."""
-        if not timed:
-            return time.perf_counter()
-        event = torch.cuda.Event(enable_timing=True)
-        event.record()
-        return event
-
-    marks, losses = [], []   # a mark at the start of each step and at the end
+    clock, losses = StepClock(device), []
     waits = []               # host seconds each step waited for its batch
     step = 0
     st = glob_st = time.time()
     for epoch in range(1, args.epochs + 1):
         set_learning_rate(opt, reference_fusion_lr(epoch))
-        batches = iter(_batches(args, ds, epoch, device))
+        batches = iter(epoch_batches(ds, args.batch_size, args.num_workers, epoch, device))
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
             if batch is None:
                 break
             waits.append(time.perf_counter() - t0)
-            marks.append(stamp())
+            clock.mark()
             # the on-disk datasets' items also carry a label, which fusion
             # training does not read
             metrics = fusion_train_step(net, opt, batch[0], batch[1], gen)
@@ -133,12 +158,8 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
                         ls=float(metrics["loss_ssim"]), lg=float(metrics["loss_grad"]),
                         t=ed - st, eta=datetime.timedelta(seconds=eta)))
                 st = ed
-    marks.append(stamp())
-    if timed:
-        torch.cuda.synchronize(device)
-        step_seconds = [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])]
-    else:
-        step_seconds = [b - a for a, b in zip(marks, marks[1:])]
+    clock.end()
+    step_seconds = clock.seconds()
     os.makedirs(args.ckpt_dir, exist_ok=True)
     torch.save(net.state_dict(), ckpt)
     log.info(f"saved {ckpt}")
@@ -173,7 +194,7 @@ def main(argv=None) -> dict:
         device = select_device(args.device)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
-    log = _logger()
+    log = logger()
     tic = time.time()
     stats = {"steps": 0, "step_seconds": [], "loader_wait_seconds": [], "losses": []}
     for dataset in (DATASETS if args.dataset == "all" else (args.dataset,)):

@@ -30,7 +30,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import train_calls
+from chip_smoke import SEG_PAIRS, train_calls
 from fusionmamba_torch.config import full_config
 from fusionmamba_torch.ops import dwconv, layer_norm
 from fusionmamba_tpu.ops import dwconv_pallas, ln_pallas
@@ -42,10 +42,14 @@ LNM_SLICES = 32
 GRAD_RTOL = GRAD_SCALED_ATOL = 1e-5
 
 
-def _train_shapes(kernel):
-    shapes = sorted(train_calls(full_config(), 6, 256)[kernel])
+def _train_shapes(kernel, batches=(6,)):
+    """The shapes of `kernel` in a training step of each batch: the fusion
+    step's 6 by default, with SEG_PAIRS the segmentation steps' too."""
+    shapes = set()
+    for pairs in batches:
+        shapes |= set(train_calls(full_config(), pairs, 256)[kernel])
     assert shapes
-    return shapes
+    return sorted(shapes)
 
 
 def _close(got, want):
@@ -86,7 +90,7 @@ def _dw_walk(plan, B, H, W):
             yield py, b, rem // w_tiles * plan.th, rem % w_tiles * plan.tw
 
 
-@pytest.mark.parametrize("shape", _train_shapes("dwconv_bwd") + _DW_RAGGED)
+@pytest.mark.parametrize("shape", _train_shapes("dwconv_bwd", (6, *SEG_PAIRS)) + _DW_RAGGED)
 def test_dwconv_bwd_plan_covers_each_output_once(shape):
     B, H, W, C = shape
     assert len(_DW_CQ) == 5
@@ -246,7 +250,7 @@ def _lnm_walk(plan, rows):
                                      plan.blocks * plan.rows_per_step))
 
 
-@pytest.mark.parametrize("B,rows,C", _train_shapes("ln_mean_bwd") + _LNM_RAGGED)
+@pytest.mark.parametrize("B,rows,C", _train_shapes("ln_mean_bwd", (6, *SEG_PAIRS)) + _LNM_RAGGED)
 def test_lnm_bwd_plan_visits_each_row_once(B, rows, C):
     for sms in (132, 1):
         plan = layer_norm.lnm_bwd_plan(B, rows, C, sms)

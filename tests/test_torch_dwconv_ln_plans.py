@@ -31,7 +31,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import main_path_calls, train_calls
+from chip_smoke import SEG_PAIRS, main_path_calls, train_calls
 from fusionmamba_torch.config import full_config
 from fusionmamba_torch.ops import dwconv, layer_norm
 from fusionmamba_tpu.ops import dwconv_pallas, ln_pallas
@@ -42,8 +42,12 @@ GRAD_RTOL = GRAD_SCALED_ATOL = 1e-5
 
 
 def _model_shapes(op):
+    """Every shape of `op` on the serving path (batch 8), the fusion training
+    step (batch 6) and the segmentation steps (batches 2 and 4)."""
     cfg = full_config()
-    shapes = set(main_path_calls(cfg, 8, 256)[op]) | set(train_calls(cfg, 6, 256)[op])
+    shapes = set(main_path_calls(cfg, 8, 256)[op])
+    for pairs in (6, *SEG_PAIRS):
+        shapes |= set(train_calls(cfg, pairs, 256)[op])
     assert shapes
     return sorted(shapes)
 

@@ -64,6 +64,10 @@ def test_port_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'fusionmamba_tpu')]\n"
         "assert len(mods) >= 20, mods\n"
+        "new = ['fusionmamba_torch.' + m for m in ('train_segmentation', "
+        "'train_pst900_improved', 'evaluate_segmentation', 'losses.segmentation', "
+        "'eval.metrics_seg', 'eval.metrics_sod')]\n"
+        "assert set(new) <= set(mods), new\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

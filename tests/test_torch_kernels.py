@@ -38,11 +38,17 @@ def _rand(gen, *shape, scale=1.0, shift=0.0):
 
 
 # every (L, D, R) of the full config's scans at a small batch, the decoder's
-# batch 6 and the serving encoder's 16 at L = 1024, and L around multiples of
+# batch 6 and the serving encoder's 16 at L = 1024, the segmentation steps'
+# batches 4 and 8 (encoders of 2 and 4 pairs), the full-resolution scan's
+# L = H*W (4096 at 64^2: the training encoder's 12 and one SS2D's 2; and the
+# deeper stages' 1024, 256, 64 at their widths), and L around multiples of
 # the 16-step tile and of the chunk (chunk = 32 steps where it is given)
 _SCAN_SHAPES = [
     (2, 1, 8, 4, 3, None), (2, 33, 70, 16, 0, None), (1, 100, 64, 16, 5, None),
     (16, 1024, 192, 16, 6, None), (16, 16, 1536, 16, 48, None),
+    (4, 1024, 192, 16, 6, None), (8, 256, 384, 16, 12, None), (4, 16, 1536, 16, 48, None),
+    (12, 4096, 192, 16, 6, None), (2, 4096, 192, 16, 6, None), (12, 1024, 384, 16, 12, None),
+    (12, 256, 768, 16, 24, None), (12, 64, 1536, 16, 48, None),
     (6, 1024, 192, 16, 6, None), (2, 256, 384, 16, 12, None), (2, 64, 768, 16, 24, None),
     (2, 16, 1536, 16, 48, None), (1, 1024, 192, 16, 6, 64),
     (2, 65, 40, 16, 6, 32), (2, 63, 40, 16, 0, 32), (2, 64, 40, 8, 6, 32),
@@ -97,7 +103,8 @@ def test_scan_kernel_large_dt(dev, chunk):
 
 # "raw": gate_act "none" with a gate, which multiplies by the raw gate
 @pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
-@pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536)])
+@pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536), (131072, 24),
+                                    (128, 1536)])
 def test_layer_norm_kernel(dev, gate_act, rows, C):
     g = torch.Generator().manual_seed(rows + C)
     x = _rand(g, rows, C, scale=2.0, shift=0.5).to(dev)
@@ -113,11 +120,13 @@ def test_layer_norm_kernel(dev, gate_act, rows, C):
 
 
 # ragged (rows 1 and 37; C 24, 48, 100 and 1000, masked where not a template
-# width), every training shape (B = 12 and 6) and the serving encoder's 16
+# width), every fusion training shape (B = 12 and 6), the serving encoder's
+# 16, and the segmentation steps' (B = 2, 4 and 8)
 _LNM_SHAPES = [(1, 1, 24), (3, 37, 96), (2, 37, 48), (5, 1, 100), (2, 300, 1000),
                (12, 4096, 96), (12, 1024, 192), (12, 256, 384), (12, 64, 768),
                (6, 4096, 96), (6, 1024, 192), (6, 256, 384), (6, 64, 768), (16, 4096, 96),
-               (8, 64, 768)]
+               (8, 64, 768), (2, 4096, 96), (2, 1024, 192), (2, 256, 384), (2, 64, 768),
+               (4, 4096, 96), (4, 64, 768), (8, 4096, 96), (8, 256, 384)]
 
 
 @pytest.mark.parametrize("B,rows,C", _LNM_SHAPES)
@@ -149,14 +158,16 @@ def test_ln_spatial_mean_kernel_clusters(dev, cluster):
     torch.testing.assert_close(got, layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), **TOL)
 
 
-# every training shape (B = 12 and 6), two serving shapes (16 and 8), and
-# ragged ones: C of 3, 6 and 40 (not a multiple of 4, of the block's 64
-# channels), H and W not multiples of the tile (fwd_plan), a 1x1 image
+# every fusion training shape (B = 12 and 6), two serving shapes (16 and 8),
+# the segmentation steps' smallest and largest (B = 2 and 4), and ragged ones:
+# C of 3, 6 and 40 (not a multiple of 4, of the block's 64 channels), H and W
+# not multiples of the tile (fwd_plan), a 1x1 image
 _DWCONV_SHAPES = [
     (2, 5, 7, 3), (3, 9, 13, 6), (2, 11, 19, 40), (1, 1, 1, 8), (1, 1, 1, 3), (2, 3, 70, 192),
     (16, 64, 64, 192), (8, 8, 8, 1536),
     (12, 64, 64, 192), (6, 64, 64, 192), (12, 32, 32, 384), (6, 32, 32, 384),
-    (12, 16, 16, 768), (6, 16, 16, 768), (12, 8, 8, 1536), (6, 8, 8, 1536)]
+    (12, 16, 16, 768), (6, 16, 16, 768), (12, 8, 8, 1536), (6, 8, 8, 1536),
+    (2, 8, 8, 1536), (2, 64, 64, 192), (4, 16, 16, 768), (4, 64, 64, 192)]
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])
@@ -199,7 +210,8 @@ def test_dwconv_kernel_unaligned(dev, shape):
 
 
 _MLP_SHAPES = [(1, 16, 64), (37, 96, 384), (100, 20, 72), (512, 768, 3072),
-               (768, 768, 3072), (384, 768, 3072), (49152, 96, 384)]
+               (768, 768, 3072), (384, 768, 3072), (49152, 96, 384),
+               (128, 768, 3072), (8192, 96, 384)]
 
 
 @pytest.mark.parametrize("M,C,H", _MLP_SHAPES)
@@ -274,7 +286,8 @@ def _check_backward(kernel, plain, inputs, dy, counter):
     (2, 1, 8, 4, 3, 0.0), (2, 33, 70, 16, 0, 0.0), (1, 100, 64, 16, 5, 0.0),
     (2, 1024, 192, 16, 6, -4.0), (12, 16, 1536, 16, 48, -4.0), (2, 64, 96, 16, 0, 8.0),
     (6, 1024, 192, 16, 6, -4.0), (2, 256, 384, 16, 12, -4.0), (2, 64, 768, 16, 24, -4.0),
-    (1, 15, 192, 16, 6, -4.0), (1, 17, 192, 16, 6, -4.0)])
+    (1, 15, 192, 16, 6, -4.0), (1, 17, 192, 16, 6, -4.0),
+    (4, 1024, 192, 16, 6, -4.0), (12, 4096, 192, 16, 6, -4.0), (2, 4096, 192, 16, 6, -4.0)])
 def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
     """shift 8: softplus(dt) ~ 8 per step, far past the TPU kernel's rescale
     clip; the backward is exact there too."""
@@ -347,7 +360,7 @@ def test_scan_backward_kernel_ragged_d_slow_decay(dev, L, D, R, chunk):
 @pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
 @pytest.mark.parametrize("rows,C", [(1, 24), (37, 96), (4096, 192), (64, 1536), (393216, 24),
                                     (49152, 96), (384, 1536), (300, 384), (70, 768), (3, 1536),
-                                    (5, 40), (1, 1000), (300, 1000)])
+                                    (5, 40), (1, 1000), (300, 1000), (128, 1536)])
 def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
     """Against autograd of the plain version; two launches bit-identical,
     one count each."""
@@ -373,7 +386,8 @@ def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
 # row groups
 @pytest.mark.parametrize("B,rows,C", [(1, 1, 24), (3, 37, 96), (12, 4096, 96), (8, 64, 768),
                                       (6, 1024, 192), (12, 1024, 192), (6, 256, 384),
-                                      (12, 256, 384), (6, 64, 768), (5, 37, 40), (2, 9, 1000)])
+                                      (12, 256, 384), (6, 64, 768), (5, 37, 40), (2, 9, 1000),
+                                      (2, 4096, 96), (2, 64, 768), (4, 1024, 192)])
 def test_ln_spatial_mean_backward_kernel(dev, B, rows, C):
     g = torch.Generator().manual_seed(rows + 7 * C)
     inputs = [_rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev), _rand(g, C).to(dev),
@@ -406,7 +420,9 @@ def test_ln_spatial_mean_backward_kernel_unaligned(dev, B, rows, C):
 @pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
 @pytest.mark.parametrize("shape", [(2, 5, 7, 3), (1, 1, 1, 8), (12, 64, 64, 192), (6, 8, 8, 1536),
                                    (6, 64, 64, 192), (12, 32, 32, 384), (6, 32, 32, 384),
-                                   (12, 16, 16, 768), (2, 11, 19, 40), (3, 9, 13, 6)])
+                                   (12, 16, 16, 768), (2, 11, 19, 40), (3, 9, 13, 6),
+                                   (2, 8, 8, 1536), (2, 16, 16, 768), (4, 8, 8, 1536),
+                                   (4, 64, 64, 192)])
 def test_dwconv_backward_kernel(dev, act, has_bias, shape):
     g = torch.Generator().manual_seed(sum(shape) + has_bias)
     C = shape[-1]
@@ -432,7 +448,8 @@ def test_dwconv_backward_kernel_unaligned(dev, act, shape):
 
 
 @pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (768, 768, 3072),
-                                   (384, 768, 3072), (49152, 96, 384)])
+                                   (384, 768, 3072), (49152, 96, 384), (128, 768, 3072),
+                                   (8192, 96, 384)])
 def test_mlp_backward_kernel(dev, M, C, H):
     g = torch.Generator().manual_seed(M + C)
     # weights as nn.Linear's (out, in) tensors passed as `.t()` views, as Mlp does

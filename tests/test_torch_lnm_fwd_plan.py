@@ -29,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import main_path_calls, train_calls
+from chip_smoke import SEG_PAIRS, main_path_calls, train_calls
 from fusionmamba_torch.config import full_config
 from fusionmamba_torch.ops import layer_norm
 from fusionmamba_tpu.ops import ln_pallas
@@ -43,9 +43,12 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def _shapes():
-    shapes = set(train_calls(full_config(), 6, 256)["ln_mean"])
-    shapes |= set(main_path_calls(full_config(), 8, 256)["ln_mean"])
-    assert len(shapes) == 16
+    """The LN-mean's shapes on the serving path (batch 8) and in the fusion
+    (batch 6) and segmentation (batches 2 and 4) training steps."""
+    shapes = set(main_path_calls(full_config(), 8, 256)["ln_mean"])
+    for pairs in (6, *SEG_PAIRS):
+        shapes |= set(train_calls(full_config(), pairs, 256)["ln_mean"])
+    assert len(shapes) == 24
     return sorted(shapes)
 
 

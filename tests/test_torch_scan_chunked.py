@@ -277,10 +277,14 @@ def test_carries_underflow_to_zero_exactly():
     assert torch.isfinite(y).all() and torch.isfinite(saved).all()
 
 
-# (B, L, D) of every scan call of the full config: training (encoder 12,
-# decoder 6) and serving (16, 8)
-_MAIN_SHAPES = [(b, L, D) for L, D in ((1024, 192), (256, 384), (64, 768), (16, 1536))
-                for b in (6, 8, 12, 16)]
+# (B, L, D) of every scan call of the full config: fusion training (encoder
+# 12, decoder 6), serving (16, 8), segmentation training (batch 2: 4 and 2;
+# batch 4: 8 and 4), and the full-resolution scan's L = H*W at each stage
+# (the training encoder's 12, and one SS2D at batch 2)
+_MAIN_SHAPES = ([(b, L, D) for L, D in ((1024, 192), (256, 384), (64, 768), (16, 1536))
+                 for b in (2, 4, 6, 8, 12, 16)]
+                + [(b, L, D) for L, D in ((4096, 192), (1024, 384), (256, 768), (64, 1536))
+                   for b in (2, 12)])
 
 
 @pytest.mark.parametrize("kernel", ["fwd", "bwd"])
