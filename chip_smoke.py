@@ -42,6 +42,11 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
      fullres_ss2d - one SS2D(96, scan_variant="fullres") at 64^2 (L = 4096),
                batch 2, on the card against the same module on the CPU: the
                output and every parameter's gradient.
+     lm_scan_paths - the scan kernel at the Mamba LM's shapes: K = 1 and a
+               full-rank dt (R = 0), d_inner 1536, L = 2048, batch 1 and 4, and
+               the parity config's shape; L cut as the wrapper cuts it and as
+               one chunk, each against the plain version and bit-identical
+               twice, with times and the bound (the full dt's bytes counted).
   5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
@@ -78,6 +83,34 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
      evaluate_seg - `python -m fusionmamba_torch.evaluate_segmentation` of
                the PST900 checkpoint on the test split: every metric finite,
                the report written.
+     visualize_seg - `python -m fusionmamba_torch.visualize_segmentation` of
+               the PST900 checkpoint on its 6 test pairs, batch 1: the launch
+               counters (zeroed just before) equal to 6 batch-1 forwards, six
+               256 x 1280 x 3 grids; seconds a sample.
+     seg_tools - `fusionmamba_torch.tools.color_convert` rgb2y and y2rgb on
+               the folder's test RGB images, `tools.check_dataset` classes,
+               dist (6 pairs a split) and macc: the class counts equal a numpy
+               recount of the label PNGs.
+     visualize_kernel - the five forward kernels at the batch-1 shapes, as
+               in 3; batch1_vs_batch2 - their device time a forward at batch 1
+               and at batch 2, the two measured in turns.
+     lm_score - `MambaLMHeadModel` at mamba-130m's widths (d_model 768, 24
+               layers, vocabulary 50280, RMSNorm), weights from seed 0: 4
+               random sequences of 2048 tokens in inference_mode, 6 forwards
+               with the counters zeroed just before (24 scan launches each, no
+               other kernel), finite logits, tokens/s over 5 warm forwards,
+               then one traced forward (the scan's share of the device time).
+     lm_decode - the cached decode step at each of 2 x 256 positions against
+               the full forward's logits there (1e-3 of the largest |logit|),
+               with no scan launch.
+     lm_generate - `generate` at 4 prompts of 32 tokens, 64 new tokens, greedy
+               and sampled (temperature 0.7, top-p 0.9, repetition penalty
+               1.2), per-token loop and CUDA-graph decode from one generator
+               seed, twice each: identical tokens, no scan launch; new tokens/s
+               and the graph's capture time.
+     lm_parity - a small LM (d_model 64, 2 layers, vocabulary 256) on the card
+               and on the CPU from one state dict: logits within 1e-4, 16
+               greedy tokens identical.
   8. train_parity - the same seeded weights and batches at the test config
                (64^2, batch 2), 5 steps on the card and on the CPU: each
                step's loss and every parameter's step-0 gradient.
@@ -92,8 +125,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                forward and backward kernels apart.
 Then the card's name and power limit as nvidia-smi gives them, the kernels
 line (all ten kernels, timed per training step; a kernel's device total sums
-the shapes the profiler timed, `device_shapes_covered` of `shapes`), and the
-result line.
+the shapes the profiler timed, `device_shapes_covered` of `shapes`; launches
+of the training run, of the segmentation CLI's PST900 run, of the LM's scoring
+forwards and of visualize_segmentation's run), and the result line.
 Without a CUDA device it fails before any phase. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -114,16 +148,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fusionmamba_torch import evaluate_segmentation, infer, train, train_segmentation
+from fusionmamba_torch import (evaluate_segmentation, infer, train, train_segmentation,
+                               visualize_segmentation)
 from fusionmamba_torch.checkpoints import load_reference_checkpoint
 from fusionmamba_torch.config import full_config, test_config
 from fusionmamba_torch.data import SyntheticFusionDataset, batch_iterator
 from fusionmamba_torch.device import select_device
 from fusionmamba_torch.losses import compute_class_weights
 from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
-from fusionmamba_torch.nn import SS2D, init_weights
+from fusionmamba_torch.models.mamba_lm import MambaLMHeadModel, decode_graph, generate
+from fusionmamba_torch.nn import SS2D, init_lm_weights, init_weights
 from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
+from fusionmamba_torch.tools import check_dataset, color_convert
 
 PAIRS, SIZE, N_IMAGES = 8, 256, 20
 TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
@@ -133,6 +170,20 @@ DISK_STEPS, DISK_SIZE, DISK_WORKERS = 4, (720, 1280), 8
 # other datasets (the CLI's default); the PST900 run's 12 steps go over the
 # same 24 training pairs as train_disk, its evaluation over 6 test pairs
 SEG_PAIRS, SEG_PST900_STEPS, SEG_TEST_PAIRS = (2, 4), 12, 6
+# visualize_segmentation: the PST900 checkpoint on the 6 test pairs, batch 1
+VIS_SAMPLES = 6
+# the Mamba LM at mamba-130m's widths (the JAX MambaLMHeadModel defaults:
+# d_model 768, 24 layers, d_state 16, d_inner 1536, dt_rank 48; RMSNorm as the
+# released checkpoints), its vocabulary 50277 padded to a multiple of 8.
+# Scoring: 4 sequences of 2048 tokens, 5 warm forwards timed; the decode check:
+# 2 x 256 positions; generation: 4 prompts of 32 tokens, 64 new tokens
+LM_VOCAB, LM_WIDTH, LM_LAYERS = 50280, 768, 24
+LM_SCORE_BATCH, LM_SCORE_LEN, LM_SCORE_REPS = 4, 2048, 5
+LM_DECODE_BATCH, LM_DECODE_LEN = 2, 256
+LM_GEN_BATCH, LM_GEN_PROMPT, LM_GEN_NEW = 4, 32, 64
+# card vs CPU at a small LM: d_model 64, 2 layers, vocab 256, 2 x 64 tokens
+LM_PARITY_WIDTH, LM_PARITY_LAYERS, LM_PARITY_VOCAB = 64, 2, 256
+LM_PARITY_BATCH, LM_PARITY_LEN = 2, 64
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
@@ -167,6 +218,13 @@ TRAIN_LOSS_RTOL = TRAIN_GRAD_RTOL = 1e-3
 # card vs CPU segmentation training: the BatchNorm running statistics after
 # three steps (0.01 of three batch statistics each, over 64^2 positions)
 SEG_BN_ATOL = 1e-4
+# the LM's cached decode step against its full forward, at every position:
+# the step's plain-torch exp against the scan kernel's ex2.approx (2 ulp a
+# step), through 24 layers and the tied head; 1e-3 of the largest |logit|
+LM_DECODE_RTOL = 1e-3
+# the small LM on the card against the CPU: two layers and a 256-word head,
+# each a fp32 sum in another order
+LM_PARITY_ATOL = 1e-4
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
 KERNELS = {
@@ -209,7 +267,7 @@ def main_path_calls(cfg, pairs: int, size: int, backward: bool = False):
     `pairs` pairs of size x size or, with `backward`, for its backward: the
     same calls but those of the finest VSSBlockCross, whose output the
     decoder never reads (as in the reference), so no gradient runs through
-    it. Shapes: scan (B, L, D, R) with K=4; layer_norm (rows, C, gate);
+    it. Shapes: scan (B, K, L, D, R), K = 4; layer_norm (rows, C, gate);
     ln_mean (B, rows, C); dwconv (B, H, W, C); mlp (M, C, hidden)."""
     calls = {k: collections.Counter() for k in OPS}
     g0, nl = size // cfg.patch_size, len(cfg.dims)
@@ -220,7 +278,7 @@ def main_path_calls(cfg, pairs: int, size: int, backward: bool = False):
     def ssm(B, g, C, convs, gate):
         d = int(cfg.ssm_ratio * C)
         calls["dwconv"][(B, g, g, d)] += convs
-        calls["scan"][(B, ((g + 1) // 2) ** 2, d, math.ceil(C / 16))] += 1
+        calls["scan"][(B, 4, ((g + 1) // 2) ** 2, d, math.ceil(C / 16))] += 1
         ln(B * g * g, d, gate)
 
     def vss_block(B, g, C):
@@ -269,20 +327,23 @@ def bytes_and_ops(kernel: str, shape):
     cotangent and writes a gradient for each input; it recomputes what its
     forward computed."""
     if kernel == "scan":
-        B, L, D, R = shape
-        K, N = 4, 16
+        B, K, L, D, R = shape
+        N = 16
         elems = B * K * L * D
-        nbytes = 4 * (2 * elems + B * K * L * (R + 2 * N) + K * D * (R + N + 2))
+        # dt: the low-rank (B, K, L, R), or at R = 0 the full (B, K, L, D)
+        dt = B * K * L * (R or D)
+        nbytes = 4 * (2 * elems + dt + 2 * B * K * L * N + K * D * (R + N + 2))
         # per state: the exponent, the input term, two FMAs; the dt expansion
         # and softplus. Special functions: an exp per state, softplus' exp and log
         return nbytes, elems * (2 * R + 7 + 7 * N), elems * (N + 2)
     if kernel == "scan_bwd":
-        B, L, D, R = shape
-        K, N = 4, 16
+        B, K, L, D, R = shape
+        N = 16
         elems = B * K * L * D
+        dt = B * K * L * (R or D)
         # also reads the states the forward saved every SAVE_EVERY steps
         nbytes = 4 * (3 * elems + elems * N // scan_cuda.SAVE_EVERY
-                      + 2 * B * K * L * (R + 2 * N) + 2 * K * D * (R + N + 2))
+                      + 2 * (dt + 2 * B * K * L * N) + 2 * K * D * (R + N + 2))
         # recompute (exp, 2 FMAs per state) and the adjoint (about 16 per
         # state), the dt expansion, its two gradients, softplus and its slope.
         # Special functions the gradients need: an exp per state, softplus'
@@ -340,12 +401,15 @@ def make_case(kernel, shape, dev, gen):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
     if kernel == "scan":
-        B, L, D, R = shape
-        K, N = 4, 16
-        inputs = [rnd(B, K, L, D), rnd(B, K, L, R, scale=0.5),
+        # K directions; at R = 0 the dt is full-rank (the Mamba LM's) and
+        # there is no low-rank weight
+        B, K, L, D, R = shape
+        N = 16
+        inputs = [rnd(B, K, L, D), rnd(B, K, L, R or D, scale=0.5),
                   -torch.arange(1.0, N + 1, device=dev).expand(K, D, N).contiguous(),
                   rnd(B, K, L, N), rnd(B, K, L, N), rnd(K, D, scale=0.1, shift=1.0),
-                  rnd(K, D, scale=1.0, shift=-4.0), rnd(K, D, R, scale=R ** -0.5)]
+                  rnd(K, D, scale=1.0, shift=-4.0),
+                  rnd(K, D, R, scale=R ** -0.5) if R else None]
 
         def backward(t, dy):
             _, hsave = scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=True)
@@ -509,11 +573,12 @@ def _bound_fields(kernel, bytes_ms, ops_ms, sfu_ms, cores_ms, dev_ms):
     return out
 
 
-def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS):
-    """Check and time one forward kernel at `shape`; emit its line and return
-    (err, ms, plain_ms, library_ms, device_ms, library_device_ms, bytes_ms,
-    ops_ms, sfu_ms, cores_ms). The scan, the MLP, the dwconv and the LN-mean must
-    also repeat themselves bit for bit."""
+def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS, extra=None):
+    """Check and time one forward kernel at `shape`; emit its line (with
+    `extra`'s fields) and return (err, ms, plain_ms, library_ms, device_ms,
+    library_device_ms, bytes_ms, ops_ms, sfu_ms, cores_ms). The scan, the MLP,
+    the dwconv and the LN-mean must also repeat themselves bit for bit.
+    `pairs` None: the line has none (a shape of the LM)."""
     inputs, op, plain, library, _ = case
     with torch.no_grad():
         got, want = op(*inputs), plain(*inputs)
@@ -530,8 +595,9 @@ def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS):
             lib_ms = cuda_ms(lambda: library(*inputs), 20)
             lib_dev_ms = device_ms(lambda: library(*inputs))
     bounds = _bound(kernel, shape)
-    emit({"phase": phase, "kernel": kernel, "shape": list(shape), "pairs": pairs,
-          "calls_per_" + ("forward" if phase == "kernel" else "step"): n,
+    emit({"phase": phase, "kernel": kernel, "shape": list(shape),
+          **({} if pairs is None else {"pairs": pairs}), **(extra or {}),
+          "calls_per_" + ("step" if phase == "kernel_train" else "forward"): n,
           "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
           **({"bit_identical_twice": same} if repeats else {}),
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -545,15 +611,16 @@ def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS):
     return (float(err.max()), ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
 
 
-def phase_kernels(calls, dev):
-    """Each forward kernel at every serving shape; sums per forward."""
+def phase_kernels(calls, dev, phase="kernel", pairs=PAIRS):
+    """Each forward kernel at every shape of a forward of `pairs` pairs;
+    sums per forward."""
     results = {}
     gen = torch.Generator(device=dev).manual_seed(0)
     for kernel, shapes in calls.items():
         agg = _new_agg()
         for shape, n in sorted(shapes.items(), key=str):
-            _add(agg, n, *_forward_line("kernel", kernel, shape, n,
-                                        make_case(kernel, shape, dev, gen)))
+            _add(agg, n, *_forward_line(phase, kernel, shape, n,
+                                        make_case(kernel, shape, dev, gen), pairs))
         torch.cuda.empty_cache()
         results[kernel] = agg
     return results
@@ -674,10 +741,10 @@ def phase_mlp_paths(calls, dev):
 
 
 def fullres_scan_shapes(cfg, batch: int, size: int):
-    """(B, L, D, R) of the scan of an SS2D(scan_variant="fullres") at each
+    """(B, K, L, D, R) of the scan of an SS2D(scan_variant="fullres") at each
     stage's width, at L = H*W of that stage."""
     g0 = size // cfg.patch_size
-    return [(batch, (g0 >> i) ** 2, int(cfg.ssm_ratio * C), math.ceil(C / 16))
+    return [(batch, 4, (g0 >> i) ** 2, int(cfg.ssm_ratio * C), math.ceil(C / 16))
             for i, C in enumerate(cfg.dims)]
 
 
@@ -689,12 +756,11 @@ def phase_scan_paths(train_shapes, serve_shapes, fullres_shapes, dev):
     backwards' gradients against each other, and the times of the serving
     forward, the training forward (saving states) and the backward."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    K = 4
     shapes = {**{s: ("train", n) for s, n in train_shapes.items()},
               **{s: ("serve", n) for s, n in serve_shapes.items()},
               **{s: ("fullres", None) for s in fullres_shapes}}
     for shape, (path, n) in sorted(shapes.items(), key=str):
-        B, L, D, R = shape
+        B, K, L, D, R = shape
         t, _, plain, _, _ = make_case("scan", shape, dev, gen)
         one = -(-L // 16) * 16
         picked = {"fwd": scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.FWD_WARPS_PER_SM),
@@ -1153,6 +1219,309 @@ def phase_fullres_ss2d(dev):
         fail(f"fullres SS2D: card vs CPU gradient of {worst} differs by {grad_rel[worst]}")
 
 
+def phase_lm_scan_paths(dev):
+    """The scan kernel at the LM's shapes (K = 1, a full-rank dt, R = 0),
+    with L cut as the wrapper cuts it and as one chunk: each against the
+    plain version, two launches bit-identical, times, device times and the
+    bound with the full dt's bytes. The shapes: mamba-130m's d_inner at
+    L = 2048, batch 1 and 4 (the scoring batch), and `lm_parity`'s small LM."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shapes = {(1, 1, LM_SCORE_LEN, 2 * LM_WIDTH, 0): LM_LAYERS,
+              (LM_SCORE_BATCH, 1, LM_SCORE_LEN, 2 * LM_WIDTH, 0): LM_LAYERS,
+              (LM_PARITY_BATCH, 1, LM_PARITY_LEN, 2 * LM_PARITY_WIDTH, 0): LM_PARITY_LAYERS}
+    for shape, n in shapes.items():
+        B, K, L, D, R = shape
+        case = make_case("scan", shape, dev, gen)
+        picked = scan_cuda._pick_chunk(None, B, K, L, D, dev, scan_cuda.FWD_WARPS_PER_SM)
+        one = -(-L // 16) * 16
+        _forward_line(
+            "lm_scan_paths", "scan", shape, n, case, pairs=None,
+            extra={"cut": "picked", "chunk": picked, "chunks": -(-L // picked)})
+        if picked < one:
+            t, plain = case[0], case[2]
+            with torch.no_grad():
+                want = plain(*t)
+
+                def run():
+                    return scan_cuda.selective_scan_fwd(*t[:7], True, t[7], chunk=one)
+                got = run()
+                same = torch.equal(got, run())
+                err = (got - want).abs()
+                ok = bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
+                ms, dev_ms = cuda_ms(run, 5), device_ms(run)
+            bound = max(_bound("scan", shape)[:3])
+            emit({"phase": "lm_scan_paths", "kernel": "scan", "shape": list(shape),
+                  "cut": "one_chunk", "chunk": one, "chunks": 1, "max_abs_err": float(err.max()),
+                  "ok": ok, "bit_identical_twice": same, "kernel_ms": ms,
+                  "kernel_device_ms": dev_ms, "bound_ms": bound,
+                  "bound_share_of_device_ms": bound / dev_ms if dev_ms else None})
+            if not ok or not same:
+                fail(f"scan at {shape} in one chunk: max abs err {float(err.max())}, "
+                     f"bit-identical {same}")
+        del case
+        torch.cuda.empty_cache()
+
+
+def phase_batch1_vs_batch2(dev, rounds: int = 2):
+    """Device ms a forward of each forward kernel at batch 1 (the forward of
+    visualize_segmentation) and at batch 2, from one generator's inputs, the
+    two batches measured in turns (1, 2, then 2, 1, ...) so that both see the
+    card in the same state; a shape's time is the mean over the passes whose
+    profiler capture held a device event (None for a kernel with a shape
+    that had none in any pass)."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    calls = {b: main_path_calls(full_config(), b, SIZE) for b in (1, 2)}
+    out = {}
+    for kernel in OPS:
+        cases = {b: [(n, make_case(kernel, shape, dev, gen))
+                     for shape, n in sorted(calls[b][kernel].items(), key=str)] for b in (1, 2)}
+        times = {b: [[] for _ in cases[b]] for b in (1, 2)}
+        with torch.no_grad():
+            for r in range(rounds):
+                for b in ((1, 2) if r % 2 == 0 else (2, 1)):
+                    for got, (n, (inputs, op, *_)) in zip(times[b], cases[b]):
+                        ms = device_ms(lambda: op(*inputs))
+                        if ms is not None:
+                            got.append(ms)
+        sums = {b: None if not all(times[b]) else sum(
+            n * float(np.mean(t)) for t, (n, _) in zip(times[b], cases[b])) for b in (1, 2)}
+        out[kernel] = {"batch_1": sums[1], "batch_2": sums[2],
+                       "ratio": sums[1] / sums[2] if sums[1] and sums[2] else None}
+        del cases
+        torch.cuda.empty_cache()
+    emit({"phase": "batch1_vs_batch2", "rounds": rounds, "device_ms_per_forward": out})
+
+
+def build_lm(dev):
+    """The LM at mamba-130m's widths (RMSNorm, as the released checkpoints),
+    weights from seed 0, in eval mode on `dev`."""
+    return init_lm_weights(MambaLMHeadModel(LM_VOCAB, LM_WIDTH, LM_LAYERS, rms_norm=True),
+                           seed=0).eval().to(dev)
+
+
+def phase_lm_score(model, dev, smi):
+    """Scoring: B = 4 random sequences of L = 2048 tokens through the full
+    forward in `inference_mode`, 1 + LM_SCORE_REPS forwards with the launch
+    counters zeroed just before: exactly LM_LAYERS scan launches a forward
+    and no other kernel's, finite logits; tokens/s over the warm forwards
+    (CUDA events); then one traced forward: device time by kernel group and
+    the scan's share. Returns the launch counts."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tokens = torch.randint(0, LM_VOCAB, (LM_SCORE_BATCH, LM_SCORE_LEN), device=dev,
+                           generator=gen)
+    forwards = 1 + LM_SCORE_REPS
+    with torch.inference_mode():
+        zero_launches()
+        t0 = time.perf_counter()
+        logits = model(tokens)[0]
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        finite = bool(torch.isfinite(logits).all())
+        shape = list(logits.shape)
+        del logits
+        ms = cuda_ms(lambda: model(tokens), LM_SCORE_REPS, warmup=0)
+        launches = read_launches()
+        got = _trace(lambda: model(tokens), 1)
+    expected = {k: forwards * LM_LAYERS if k == "scan" else 0 for k in KERNELS}
+    line = {"phase": "lm_score", "batch": LM_SCORE_BATCH, "seq_len": LM_SCORE_LEN,
+            "layers": LM_LAYERS, "d_model": LM_WIDTH, "vocab": LM_VOCAB, "forwards": forwards,
+            "launches": launches, "expected_launches": expected, "logits_shape": shape,
+            "logits_finite": finite, "first_forward_s": first_s, "forward_ms": ms,
+            "tokens_per_s": LM_SCORE_BATCH * LM_SCORE_LEN / (ms / 1e3), "card": smi}
+    if got is not None:
+        window, busy, by_kernel = got
+        scan_ms = (by_kernel["scan"] + by_kernel["scan_carry"]) / 1e3
+        bound = LM_LAYERS * max(_bound("scan", (LM_SCORE_BATCH, 1, LM_SCORE_LEN,
+                                                2 * LM_WIDTH, 0))[:3])
+        line.update({"window_ms": window, "device_busy_ms": busy,
+                     "device_idle_share": 1.0 - busy / window,
+                     "device_ms_by_group": {k: v / 1e3 for k, v in by_kernel.most_common()},
+                     "scan_device_ms": scan_ms, "scan_share_of_busy": scan_ms / busy,
+                     "scan_bound_ms": bound, "scan_bound_share": bound / scan_ms})
+    else:
+        line["device_time"] = "not measured (no device events)"
+    emit(line)
+    if shape != [LM_SCORE_BATCH, LM_SCORE_LEN, LM_VOCAB] or not finite:
+        fail(f"LM scoring: logits of shape {shape}, finite {finite}")
+    if launches != expected:
+        fail(f"LM scoring: launch counts {launches} differ from {expected}")
+    return launches
+
+
+def phase_lm_decode(model, dev):
+    """The cached decode step at every position of B = 2 sequences of
+    L = 256 tokens against the full forward's logits there, within
+    LM_DECODE_RTOL of the largest |logit|; no scan launch while decoding."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    tokens = torch.randint(0, LM_VOCAB, (LM_DECODE_BATCH, LM_DECODE_LEN), device=dev,
+                           generator=gen)
+    with torch.inference_mode():
+        full = model(tokens)[0]
+        caches = model.init_caches(LM_DECODE_BATCH)
+        before = scan_cuda.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        err = torch.zeros((), device=dev)
+        for i in range(LM_DECODE_LEN):
+            step = model(tokens[:, i:i + 1], caches)[0]
+            err = torch.maximum(err, (step - full[:, i:i + 1]).abs().max())
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE_LEN
+        scans = scan_cuda.launches - before
+        top = float(full.abs().max())
+    err = float(err)
+    emit({"phase": "lm_decode", "batch": LM_DECODE_BATCH, "positions": LM_DECODE_LEN,
+          "max_abs_err": err, "max_abs_logit": top, "rtol_of_max_logit": LM_DECODE_RTOL,
+          "err_over_max_logit": err / top, "scan_launches_while_decoding": scans,
+          "decode_step_ms": step_ms})
+    if not err <= LM_DECODE_RTOL * top:
+        fail(f"LM decode vs full forward: max abs err {err} > {LM_DECODE_RTOL} x {top}")
+    if scans:
+        fail(f"LM decode launched the scan kernel {scans} times")
+
+
+def phase_lm_parity(dev):
+    """A small LM (d_model 64, 2 layers, vocab 256) on the card and on the
+    CPU from one state dict: logits within LM_PARITY_ATOL, and 16 greedy
+    tokens (the card's through the captured decode step) identical."""
+    cpu = init_lm_weights(MambaLMHeadModel(LM_PARITY_VOCAB, LM_PARITY_WIDTH, LM_PARITY_LAYERS,
+                                           rms_norm=True), seed=1).eval()
+    card = MambaLMHeadModel(LM_PARITY_VOCAB, LM_PARITY_WIDTH, LM_PARITY_LAYERS, rms_norm=True)
+    card.load_state_dict(cpu.state_dict())
+    card.eval().to(dev)
+    gen = torch.Generator().manual_seed(11)
+    tokens = torch.randint(0, LM_PARITY_VOCAB, (LM_PARITY_BATCH, LM_PARITY_LEN), generator=gen)
+    with torch.inference_mode():
+        err = float((card(tokens.to(dev))[0].cpu() - cpu(tokens)[0]).abs().max())
+    prompt = tokens[:, :8]
+    want = generate(cpu, prompt, 16, temperature=0.0)
+    got = generate(card, prompt.to(dev), 16, temperature=0.0).cpu()
+    same = torch.equal(got, want)
+    emit({"phase": "lm_parity", "d_model": LM_PARITY_WIDTH, "layers": LM_PARITY_LAYERS,
+          "vocab": LM_PARITY_VOCAB, "tokens": [LM_PARITY_BATCH, LM_PARITY_LEN],
+          "max_abs_err": err, "atol": LM_PARITY_ATOL, "greedy_tokens_identical": same})
+    if err > LM_PARITY_ATOL or not same:
+        fail(f"LM card vs CPU: logits differ by {err}, greedy tokens identical {same}")
+
+
+def phase_lm_generate(model, dev, smi):
+    """`generate` at full width, B = 4, a 32-token prompt, 64 new tokens,
+    greedy and sampled (temperature 0.7, top_p 0.9, repetition penalty 1.2),
+    each per-token loop (`compiled=False`) and CUDA graph (`compiled=True`)
+    from the same generator seed, twice: all four token sets identical. New
+    tokens/s of each warm run (host clock to a synchronize), the graph's
+    capture time; no scan launch (the prefill runs through decode steps)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    prompt = torch.randint(0, LM_VOCAB, (LM_GEN_BATCH, LM_GEN_PROMPT), device=dev, generator=gen)
+    before = scan_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_graph(model, LM_GEN_BATCH)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    line = {"phase": "lm_generate", "batch": LM_GEN_BATCH, "prompt": LM_GEN_PROMPT,
+            "new_tokens": LM_GEN_NEW, "graph_capture_s": capture_s, "card": smi}
+    for mode, kw in (("greedy", dict(temperature=0.0)),
+                     ("sampled", dict(temperature=0.7, top_p=0.9, repetition_penalty=1.2))):
+        runs = {}
+        for compiled in (False, True, False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = generate(model, prompt, LM_GEN_NEW, compiled=compiled,
+                           generator=torch.Generator(device=dev).manual_seed(13), **kw)
+            torch.cuda.synchronize()
+            name = "graph" if compiled else "loop"
+            line[f"{mode}_{name}_new_tokens_per_s"] = LM_GEN_BATCH * LM_GEN_NEW / (
+                time.perf_counter() - t0)
+            runs.setdefault(name, []).append(out)
+        outs = runs["loop"] + runs["graph"]
+        same = all(torch.equal(outs[0], o) for o in outs[1:])
+        line[f"{mode}_identical"] = same
+        line[f"{mode}_distinct_new_tokens"] = int(outs[0][:, LM_GEN_PROMPT:].unique().numel())
+        if not same or outs[0].shape != (LM_GEN_BATCH, LM_GEN_PROMPT + LM_GEN_NEW):
+            emit(line)
+            fail(f"LM generate ({mode}): loop and graph tokens differ")
+    line["scan_launches"] = scan_cuda.launches - before
+    emit(line)
+    if line["scan_launches"]:
+        fail(f"LM generate launched the scan kernel {line['scan_launches']} times")
+
+
+def phase_visualize_seg(ckpt: str, root: str, smi):
+    """`fusionmamba_torch.visualize_segmentation` of the PST900 checkpoint on
+    VIS_SAMPLES test pairs, one pair a forward: the launch counters, zeroed
+    just before, equal to VIS_SAMPLES x the batch-1 forward's calls; one
+    256 x 1280 x 3 grid a sample. Returns the launch counts."""
+    from PIL import Image
+
+    cfg = full_config(num_seg_classes=5)
+    calls = main_path_calls(cfg, 1, SIZE)
+    with tempfile.TemporaryDirectory() as out, data_root(root):
+        zero_launches()
+        got = visualize_segmentation.main(["--dataset", "pst900", "--ckpt", ckpt,
+                                           "--out_dir", out, "--num_samples", str(VIS_SAMPLES),
+                                           "--model", "full", "--device", "cuda"])
+        torch.cuda.synchronize()
+        launches = read_launches()
+        shapes = [np.asarray(Image.open(os.path.join(out, f))).shape
+                  for f in sorted(os.listdir(out))]
+    expected = {k: VIS_SAMPLES * sum(calls.get(k, {}).values()) for k in KERNELS}
+    secs = got["sample_seconds"]
+    emit({"phase": "visualize_seg", "samples": got["written"], "grid_shapes": shapes,
+          "launches": launches, "expected_launches": expected,
+          "sample_seconds": secs, "median_warm_sample_s": float(np.median(secs[1:])),
+          "cli_seconds": got["seconds"], "card": smi})
+    if got["written"] != VIS_SAMPLES or shapes != [(SIZE, 5 * SIZE, 3)] * VIS_SAMPLES:
+        fail(f"visualize_segmentation wrote {got['written']} grids of shapes {shapes}")
+    if launches != expected:
+        fail(f"visualize_segmentation: launch counts {launches} differ from {expected}")
+    return launches
+
+
+def phase_seg_tools(root: str):
+    """`tools.color_convert` rgb2y on the PST900 folder's test RGB images and
+    y2rgb back into them; `tools.check_dataset` classes on the test split,
+    dist over the first SEG_TEST_PAIRS pairs of each split, macc. The class
+    counts equal a numpy recount of the label PNGs as the dataset reads them
+    (nearest-resized to 256^2, clipped to [0, 8])."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    rgb = os.path.join(root, "PST900_RGBT_Dataset", "test", "rgb")
+    limit = SEG_TEST_PAIRS
+    with tempfile.TemporaryDirectory() as tmp, data_root(root):
+        n_y = color_convert.main(["rgb2y", "--input", rgb, "--output", os.path.join(tmp, "y")])
+        n_rgb = color_convert.main(["y2rgb", "--fused", os.path.join(tmp, "y"), "--rgb", rgb,
+                                    "--output", os.path.join(tmp, "rgb")])
+        back = np.asarray(Image.open(os.path.join(tmp, "rgb", sorted(os.listdir(rgb))[0])))
+        classes = check_dataset.main(["classes", "--dataset", "pst900", "--num_classes", "5"])
+        dist = check_dataset.main(["dist", "--dataset", "pst900", "--num_classes", "5",
+                                   "--limit", str(limit)])
+        macc = check_dataset.main(["macc"])
+
+    def recount(split):
+        counts = np.zeros(5, np.int64)
+        labels = os.path.join(root, "PST900_RGBT_Dataset", split, "labels")
+        for name in sorted(os.listdir(labels))[:limit]:
+            with Image.open(os.path.join(labels, name)) as img:
+                lbl = np.asarray(img.convert("L").resize((SIZE, SIZE), Image.NEAREST))
+            # the dataset clips to [0, 8], the audit to its 5 classes
+            counts += np.bincount(np.clip(lbl, 0, 4).ravel(), minlength=5)
+        return counts
+
+    want = {split: recount(split) for split in ("train", "test")}
+    ok = (np.array_equal(classes["test"], want["test"])
+          and all(np.array_equal(dist[s], want[s]) for s in want))
+    emit({"phase": "seg_tools", "rgb2y_images": n_y, "y2rgb_images": n_rgb,
+          "y2rgb_shape": list(back.shape), "classes_test": classes["test"].tolist(),
+          "dist_train": dist["train"].tolist(), "recount": {k: v.tolist() for k, v in want.items()},
+          "counts_equal_recount": ok, "macc": macc, "seconds": time.perf_counter() - t0})
+    if n_y != limit or n_rgb != limit or back.shape != (DISK_SIZE[0], DISK_SIZE[1], 3):
+        fail(f"color_convert wrote {n_y} and {n_rgb} images, of shape {back.shape}")
+    if not ok:
+        fail(f"check_dataset counts {classes}, {dist} differ from the recount {want}")
+
+
 # kernel-name fragments of each kernel in a profiler trace, then the groups
 # of the library's kernels
 _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
@@ -1289,6 +1658,7 @@ def main() -> None:
     phase_scan_paths(tcalls["scan"], calls["scan"],
                      fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)
     phase_fullres_ss2d(dev)
+    phase_lm_scan_paths(dev)
     emit({"phase": "kernel", "per_forward_of_serving": {
         k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
@@ -1305,6 +1675,20 @@ def main() -> None:
         phase_train_disk(tcalls, smi, root, write_s)
         ckpt, seg_launches = phase_train_seg(smi, root, os.path.join(root, "ckpt"))
         phase_evaluate_seg(ckpt, root)
+        vis_launches = phase_visualize_seg(ckpt, root, smi)
+        phase_seg_tools(root)
+    # the five forward kernels at the batch-1 shapes of visualize_segmentation,
+    # beside their sums a forward at batch 2 (the segmentation step's forward)
+    phase_kernels(main_path_calls(full_config(), 1, SIZE), dev, "visualize_kernel", 1)
+    phase_batch1_vs_batch2(dev)
+    lm = build_lm(dev)
+    lm_launches = phase_lm_score(lm, dev, smi)
+    phase_lm_decode(lm, dev)
+    phase_lm_generate(lm, dev, smi)
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_lm_parity(dev)
     phase_train_parity(dev)
     phase_seg_parity(dev)
     phase_trace(dev)
@@ -1316,6 +1700,7 @@ def main() -> None:
         kernels.append({
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "launches_train_seg": seg_launches[k],
+            "launches_lm": lm_launches[k], "launches_visualize": vis_launches[k],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
@@ -1329,7 +1714,9 @@ def main() -> None:
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "times": "per training step of the main path (full config, 6 pairs of 256^2): "
                    "sum over its shapes of calls x time; launches from the 12-step run, "
-                   "launches_train_seg from the segmentation CLI's PST900 run"})
+                   "launches_train_seg from the segmentation CLI's PST900 run, launches_lm "
+                   "from the LM's scoring forwards, launches_visualize from "
+                   "visualize_segmentation's run"})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

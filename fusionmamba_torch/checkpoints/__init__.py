@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .from_jax import fusion_key_map, seg_key_map, seg_state_dict_from_jax, state_dict_from_jax
+from .from_jax import (fusion_key_map, lm_state_dict_from_jax, seg_key_map,
+                       seg_state_dict_from_jax, state_dict_from_jax)
 
 # keys of the reference checkpoint that the port does not build: the
 # DifferentialEnhance `lastconv`, which the reference forward never uses
@@ -23,5 +24,5 @@ def load_reference_checkpoint(model: nn.Module, path: str) -> None:
     model.load_state_dict({k: v for k, v in sd.items() if _UNUSED_KEY not in k})
 
 
-__all__ = ["fusion_key_map", "load_reference_checkpoint", "seg_key_map",
-           "seg_state_dict_from_jax", "state_dict_from_jax"]
+__all__ = ["fusion_key_map", "lm_state_dict_from_jax", "load_reference_checkpoint",
+           "seg_key_map", "seg_state_dict_from_jax", "state_dict_from_jax"]

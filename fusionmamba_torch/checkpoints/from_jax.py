@@ -14,9 +14,12 @@ flax layout:
   * mask_t : LDC learnable_mask (in, out) -> (out, in)
   * a_logs : (K, D, N)                   -> (K*D, N)
   * ds     : (K, D)                      -> (K*D,)
+  * conv1d : (d_conv, 1, C)              -> Conv1d weight (C, 1, d_conv)
   * none   : identity
 The LDC modules' constant `base_mask` buffers (ones) are synthesised; the
 head's BatchNorm statistics come from the flax `batch_stats` collection.
+`lm_state_dict_from_jax` maps the JAX Mamba LM's parameters onto the port's
+LM, whose names are mamba_ssm's.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ _TO_TORCH = {
     "mask_t": lambda x: x.T,
     "a_logs": lambda x: x.reshape(-1, x.shape[-1]),
     "ds": lambda x: x.reshape(-1),
+    "conv1d": lambda x: x.transpose(2, 1, 0),
 }
 
 MapEntry = Tuple[str, Tuple[str, ...], str]
@@ -173,7 +177,7 @@ def _get(tree: Dict[str, Any], path: Tuple[str, ...]):
 def _from_map(params: Dict[str, Any], key_map) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for tk, fp, tr in key_map:
-        arr = _TO_TORCH[tr](np.asarray(_get(params, fp), dtype=np.float32))
+        arr = _TO_TORCH[tr](np.array(_get(params, fp), dtype=np.float32))
         sd[tk] = torch.from_numpy(np.ascontiguousarray(arr))
     for tk in list(sd):
         if tk.endswith(".conv.weight") and ("texture_enhance" in tk or "conv_branch" in tk):
@@ -203,3 +207,36 @@ def seg_state_dict_from_jax(variables: Dict[str, Any], depths,
                 np.ascontiguousarray(np.asarray(stats[bn][fk], dtype=np.float32)))
         sd[f"{_HEAD}.{bn}.num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+
+def _lm_key_map(params: Dict[str, Any], n_layer: int) -> Iterator[MapEntry]:
+    """Every (torch_key, flax_path, transform) of the Mamba LM; a norm's bias
+    only where the flax tree has one (the LayerNorm flavour)."""
+    def norm(tk, fp):
+        yield tk + ".weight", fp + ("scale",), "none"
+        if "bias" in _get(params, fp):
+            yield tk + ".bias", fp + ("bias",), "none"
+
+    yield "backbone.embedding.weight", ("embedding", "embedding"), "none"
+    for i in range(n_layer):
+        tk, fp = f"backbone.layers.{i}.", (f"blocks_{i}",)
+        yield from norm(tk + "norm", fp + ("norm",))
+        m, mp = tk + "mixer.", fp + ("mixer",)
+        for name in ("in_proj", "x_proj", "out_proj"):
+            yield m + name + ".weight", mp + (name, "kernel"), "linear"
+        yield m + "conv1d.weight", mp + ("conv1d_kernel",), "conv1d"
+        for tname, fname in (("conv1d.bias", "conv1d_bias"), ("dt_proj.weight", "dt_proj_weight"),
+                             ("dt_proj.bias", "dt_proj_bias"), ("A_log", "A_log"), ("D", "D")):
+            yield m + tname, mp + (fname,), "none"
+    yield from norm("backbone.norm_f", ("norm_f",))
+
+
+def lm_state_dict_from_jax(variables: Dict[str, Any], n_layer: int) -> Dict[str, torch.Tensor]:
+    """The flax variables of the JAX `MambaLMHeadModel` ({"params": ...} of
+    numpy arrays) as the state dict of the port's LM (mamba_ssm's names):
+    Dense kernels transposed, `conv1d_kernel` (d_conv, 1, d_inner) ->
+    conv1d.weight (d_inner, 1, d_conv), `dt_proj_weight`, `A_log` and `D` as
+    they are, a norm's `bias` only where it has one."""
+    params = variables["params"]
+    return _from_map(params, _lm_key_map(params, n_layer))

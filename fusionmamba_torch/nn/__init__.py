@@ -1,6 +1,6 @@
 """Layers, SS2D modules, blocks and patch ops of the fusion network (NHWC)."""
 from .blocks import VSSBlock, VSSBlockCross
-from .initializers import init_weights
+from .initializers import init_lm_weights, init_weights
 from .layers import (LDC, BiAttn, CrossLayer, DropPath, ECALayer, FusedLayerNorm, Mlp,
                      SegmentationHead)
 from .patch import FinalPatchExpand, PatchEmbed, PatchExpand, PatchMerging
@@ -10,5 +10,5 @@ __all__ = [
     "BiAttn", "CrossLayer", "DepthwiseConv2d", "DropPath", "ECALayer",
     "FinalPatchExpand", "FusedLayerNorm", "LDC", "Mlp", "PatchEmbed",
     "PatchExpand", "PatchMerging", "SS2D", "SS2DCross", "SegmentationHead",
-    "VSSBlock", "VSSBlockCross", "init_weights",
+    "VSSBlock", "VSSBlockCross", "init_lm_weights", "init_weights",
 ]

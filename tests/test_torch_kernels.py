@@ -42,22 +42,29 @@ def _rand(gen, *shape, scale=1.0, shift=0.0):
 # batches 4 and 8 (encoders of 2 and 4 pairs), the full-resolution scan's
 # L = H*W (4096 at 64^2: the training encoder's 12 and one SS2D's 2; and the
 # deeper stages' 1024, 256, 64 at their widths), and L around multiples of
-# the 16-step tile and of the chunk (chunk = 32 steps where it is given)
+# the 16-step tile and of the chunk (chunk = 32 steps where it is given), all
+# at K = 4 directions; then the Mamba LM's K = 1 with a full-rank dt (R = 0)
+# at mamba-130m's d_inner 1536, L = 2048, batch 1 and 4, as the wrapper cuts
+# L and as one chunk, and a ragged K = 1 case in chunks of 32
 _SCAN_SHAPES = [
-    (2, 1, 8, 4, 3, None), (2, 33, 70, 16, 0, None), (1, 100, 64, 16, 5, None),
-    (16, 1024, 192, 16, 6, None), (16, 16, 1536, 16, 48, None),
-    (4, 1024, 192, 16, 6, None), (8, 256, 384, 16, 12, None), (4, 16, 1536, 16, 48, None),
-    (12, 4096, 192, 16, 6, None), (2, 4096, 192, 16, 6, None), (12, 1024, 384, 16, 12, None),
-    (12, 256, 768, 16, 24, None), (12, 64, 1536, 16, 48, None),
-    (6, 1024, 192, 16, 6, None), (2, 256, 384, 16, 12, None), (2, 64, 768, 16, 24, None),
-    (2, 16, 1536, 16, 48, None), (1, 1024, 192, 16, 6, 64),
-    (2, 65, 40, 16, 6, 32), (2, 63, 40, 16, 0, 32), (2, 64, 40, 8, 6, 32),
-    (1, 97, 33, 3, 5, 32), (1, 15, 192, 16, 6, None), (1, 17, 192, 16, 6, None)]
+    (2, 1, 8, 4, 3, None, 4), (2, 33, 70, 16, 0, None, 4), (1, 100, 64, 16, 5, None, 4),
+    (16, 1024, 192, 16, 6, None, 4), (16, 16, 1536, 16, 48, None, 4),
+    (4, 1024, 192, 16, 6, None, 4), (8, 256, 384, 16, 12, None, 4),
+    (4, 16, 1536, 16, 48, None, 4), (12, 4096, 192, 16, 6, None, 4),
+    (2, 4096, 192, 16, 6, None, 4), (12, 1024, 384, 16, 12, None, 4),
+    (12, 256, 768, 16, 24, None, 4), (12, 64, 1536, 16, 48, None, 4),
+    (6, 1024, 192, 16, 6, None, 4), (2, 256, 384, 16, 12, None, 4),
+    (2, 64, 768, 16, 24, None, 4), (2, 16, 1536, 16, 48, None, 4),
+    (1, 1024, 192, 16, 6, 64, 4), (2, 65, 40, 16, 6, 32, 4), (2, 63, 40, 16, 0, 32, 4),
+    (2, 64, 40, 8, 6, 32, 4), (1, 97, 33, 3, 5, 32, 4), (1, 15, 192, 16, 6, None, 4),
+    (1, 17, 192, 16, 6, None, 4),
+    (1, 2048, 1536, 16, 0, None, 1), (4, 2048, 1536, 16, 0, None, 1),
+    (1, 2048, 1536, 16, 0, 2048, 1), (4, 2048, 1536, 16, 0, 2048, 1),
+    (3, 100, 40, 16, 0, 32, 1)]
 
 
-def _scan_case(seed, batch, L, D, N, R, shift=-2.0, a_spread=2.5, a_scale=1.0):
+def _scan_case(seed, batch, L, D, N, R, shift=-2.0, a_spread=2.5, a_scale=1.0, K=4):
     g = torch.Generator().manual_seed(seed)
-    K = 4
     return [_rand(g, batch, K, L, D), _rand(g, batch, K, L, R or D, scale=0.5),
             -a_scale * torch.exp(torch.rand(K, D, N, generator=g) * a_spread),
             _rand(g, batch, K, L, N), _rand(g, batch, K, L, N), _rand(g, K, D),
@@ -65,11 +72,12 @@ def _scan_case(seed, batch, L, D, N, R, shift=-2.0, a_spread=2.5, a_scale=1.0):
             _rand(g, K, D, R, scale=R ** -0.5) if R else None]
 
 
-@pytest.mark.parametrize("batch,L,D,N,R,chunk", _SCAN_SHAPES)
-def test_scan_kernel(dev, batch, L, D, N, R, chunk):
+@pytest.mark.parametrize("batch,L,D,N,R,chunk,K", _SCAN_SHAPES)
+def test_scan_kernel(dev, batch, L, D, N, R, chunk, K):
     """Forward against the plain version, with and without saved states;
     two launches bit-identical; an explicit chunk length where given."""
-    args = [t if t is None else t.to(dev) for t in _scan_case(L * 7 + D, batch, L, D, N, R)]
+    args = [t if t is None else t.to(dev)
+            for t in _scan_case(L * 7 + D, batch, L, D, N, R, K=K)]
     before = scan_cuda.launches
     if chunk is None:
         got = selective_scan(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
@@ -82,7 +90,7 @@ def test_scan_kernel(dev, batch, L, D, N, R, chunk):
     again, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True,
                                                 chunk=chunk)
     assert torch.equal(got, again)
-    assert hsave.shape == (batch * 4, -(-L // scan_cuda.SAVE_EVERY), D, N)
+    assert hsave.shape == (batch * K, -(-L // scan_cuda.SAVE_EVERY), D, N)
     assert torch.isfinite(hsave).all()
 
 
@@ -492,3 +500,35 @@ def test_model_backward_on_card_matches_cpu(dev):
         assert got is not None, f"{k} has no gradient on the card"
         rel = float((got.cpu() - want).norm() / (want.norm() + 1e-12))
         assert rel < 1e-3, (k, rel)
+
+
+def test_lm_generate_graph_matches_loop_on_card(dev):
+    """A small Mamba LM on the card: its full forward (the scan kernel at
+    K = 1, R = 0) against the same weights on the CPU, 1e-4; then `generate`
+    with the decode step captured in a CUDA graph (`compiled=True`) against
+    the per-token loop (`compiled=False`), greedy and sampled from one
+    generator seed: identical tokens, and no scan launch (the prefill runs
+    through decode steps)."""
+    from fusionmamba_torch.models.mamba_lm import MambaLMHeadModel, generate
+    from fusionmamba_torch.nn import init_lm_weights
+
+    cpu = init_lm_weights(MambaLMHeadModel(256, 64, 2, rms_norm=True), seed=1).eval()
+    model = init_lm_weights(MambaLMHeadModel(256, 64, 2, rms_norm=True), seed=1).eval().to(dev)
+    g = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, 256, (2, 40), generator=g)
+    before = scan_cuda.launches
+    with torch.inference_mode():
+        got = model(tokens.to(dev))[0]
+        want = cpu(tokens)[0]
+    assert scan_cuda.launches == before + 2
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    prompt = tokens[:, :5].to(dev)
+    before = scan_cuda.launches
+    for kw in (dict(temperature=0.0), dict(temperature=0.7, top_p=0.9, repetition_penalty=1.2),
+               dict(temperature=1.0, top_k=8, min_p=0.1)):
+        runs = [generate(model, prompt, 12, compiled=compiled,
+                         generator=torch.Generator(device=dev).manual_seed(4), **kw)
+                for compiled in (False, True, True)]
+        assert runs[0].shape == (2, 17)
+        assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2]), kw
+    assert scan_cuda.launches == before
