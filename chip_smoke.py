@@ -111,6 +111,11 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
      lm_parity - a small LM (d_model 64, 2 layers, vocabulary 256) on the card
                and on the CPU from one state dict: logits within 1e-4, 16
                greedy tokens identical.
+     parallel_kernels - every kernel at the shapes one rank of a 2-rank mesh
+               gives it (batch 3 a rank under --mesh 2,1; d_inner and the MLP's
+               hidden halved under 1,2; L halved, down to 8 steps, under 1,2
+               with the sequence-parallel scan) that no earlier phase checked,
+               forward and backward as in 4, and a step's sums a rank.
   8. train_parity - the same seeded weights and batches at the test config
                (64^2, batch 2), 5 steps on the card and on the CPU: each
                step's loss and every parameter's step-0 gradient.
@@ -119,6 +124,18 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                masks: eval-mode logits and fusion output, then 3 steps of
                `seg_train_step` (mode both, improved loss): each loss, and
                the BatchNorm running statistics after them.
+     one_rank_reference, ddp_train, tp_train, sp_train - the training CLI at
+               full width, batch 6, 3 steps on 18 synthetic pairs: on one rank
+               in a process of its own, then on two ranks sharing cuda:0 over
+               gloo (each spawned with torchrun's environment) under --mesh 2,1, 1,2 and
+               1,2 --scan_impl sp: each rank's launch counts (zeroed in the rank
+               just before) equal to 3 x the calls a step the config gives one
+               rank, the losses and the gathered checkpoint equal to the
+               one-rank run's; pairs/s (the ranks share the card: no scaling
+               measure) and peak memory a rank.
+     remat_train - 3 steps of batch 6 with no remat, remat_light and remat:
+               the same losses, launch counts with remat's repeated forward
+               calls, peak memory of each.
   9. trace   - torch.profiler over three warm forwards of a batch of 8: device
                time by kernel and the card's idle share of the window.
  10. trace_train - the same over three warm training steps of 6 pairs, with
@@ -184,6 +201,11 @@ LM_GEN_BATCH, LM_GEN_PROMPT, LM_GEN_NEW = 4, 32, 64
 # card vs CPU at a small LM: d_model 64, 2 layers, vocab 256, 2 x 64 tokens
 LM_PARITY_WIDTH, LM_PARITY_LAYERS, LM_PARITY_VOCAB = 64, 2, 256
 LM_PARITY_BATCH, LM_PARITY_LEN = 2, 64
+# multi-rank training: two ranks on the one card over gloo, 3 steps of the
+# training batch each; name -> (mesh, scan_impl)
+MULTI_RANK_RUNS = {"ddp_train": ("2,1", "adaptive"), "tp_train": ("1,2", "adaptive"),
+                   "sp_train": ("1,2", "sp")}
+MULTI_RANK_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
@@ -225,6 +247,11 @@ LM_DECODE_RTOL = 1e-3
 # the small LM on the card against the CPU: two layers and a 256-word head,
 # each a fp32 sum in another order
 LM_PARITY_ATOL = 1e-4
+# remat against none over 3 steps: the same deterministic kernels on the same
+# inputs, but a parameter read twice in a block (BiAttn) sums its two
+# gradients in another order, and Adam turns a last-bit change of a
+# near-zero gradient into a full lr step
+REMAT_LOSS_RTOL = 1e-5
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
 KERNELS = {
@@ -262,42 +289,62 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def main_path_calls(cfg, pairs: int, size: int, backward: bool = False):
+def main_path_calls(cfg, pairs: int, size: int, part: str = "forward", n_model: int = 1):
     """op -> Counter(shape -> calls) for one forward of VSSMFusion(cfg) on
-    `pairs` pairs of size x size or, with `backward`, for its backward: the
-    same calls but those of the finest VSSBlockCross, whose output the
-    decoder never reads (as in the reference), so no gradient runs through
-    it. Shapes: scan (B, K, L, D, R), K = 4; layer_norm (rows, C, gate);
-    ln_mean (B, rows, C); dwconv (B, H, W, C); mlp (M, C, hidden)."""
+    `pairs` pairs of size x size (`part` "forward"), for its backward
+    ("backward": the same calls but those of the finest VSSBlockCross, whose
+    output the decoder never reads, as in the reference, so no gradient runs
+    through it), or for the forward calls that its backward makes again
+    ("recompute": with cfg.remat every VSSBlock's, with cfg.remat_light each
+    VSSBlock's two LN-means and its MLP). On one rank of a mesh whose model
+    axis has `n_model` ranks, the shapes are the rank's: SS2D modules whose
+    in_proj is column-parallel (2 * d_inner >= 128) run the dwconv and the
+    scan on d_inner / n_model channels, their out_norm on all of them; MLPs
+    whose hidden is >= 128 run on hidden / n_model; with cfg.scan_impl "sp"
+    every scan runs on all its channels and L / n_model steps. Shapes: scan
+    (B, K, L, D, R), K = 4; layer_norm (rows, C, gate); ln_mean (B, rows, C);
+    dwconv (B, H, W, C); mlp (M, C, hidden)."""
     calls = {k: collections.Counter() for k in OPS}
     g0, nl = size // cfg.patch_size, len(cfg.dims)
+    sp = cfg.scan_impl == "sp" and n_model > 1
+    recompute = part == "recompute"
 
     def ln(rows, C, gate="none"):
         calls["layer_norm"][(rows, C, gate)] += 1
 
     def ssm(B, g, C, convs, gate):
         d = int(cfg.ssm_ratio * C)
-        calls["dwconv"][(B, g, g, d)] += convs
-        calls["scan"][(B, 4, ((g + 1) // 2) ** 2, d, math.ceil(C / 16))] += 1
+        dc = d // n_model if n_model > 1 and 2 * d >= 128 else d
+        L, R = ((g + 1) // 2) ** 2, math.ceil(C / 16)
+        calls["dwconv"][(B, g, g, dc)] += convs
+        calls["scan"][(B, 4, L // n_model, d, R) if sp else (B, 4, L, dc, R)] += 1
         ln(B * g * g, d, gate)
 
     def vss_block(B, g, C):
-        ln(B * g * g, C)
-        ssm(B, g, C, 1, "silu")
+        hidden = int(C * cfg.mlp_ratio)
+        if n_model > 1 and hidden >= 128:
+            hidden //= n_model
+        whole = not recompute or cfg.remat
+        if recompute and not (cfg.remat or cfg.remat_light):
+            return
+        if whole:
+            ln(B * g * g, C)
+            ssm(B, g, C, 1, "silu")
         calls["ln_mean"][(B, g * g, C)] += 2
-        ln(B * g * g, C)
-        calls["mlp"][(B * g * g, C, int(C * cfg.mlp_ratio))] += 1
+        if whole:
+            ln(B * g * g, C)
+        calls["mlp"][(B * g * g, C, hidden)] += 1
 
-    for _ in range(2):                                   # patch embeds
+    for _ in range(0 if recompute else 2):               # patch embeds
         ln(pairs * g0 * g0, cfg.dims[0])
     for i, C in enumerate(cfg.dims):                     # shared encoder, 2B
         g = g0 >> i
         for _ in range(cfg.depths[i]):
             vss_block(2 * pairs, g, C)
-        if i < nl - 1:
+        if i < nl - 1 and not recompute:
             ln(2 * pairs * (g // 2) ** 2, 4 * C)
     for i, C in enumerate(cfg.dims):                     # cross blocks
-        if backward and i == 0:
+        if recompute or (part == "backward" and i == 0):
             continue
         g = g0 >> i
         ln(pairs * g * g, C)
@@ -305,19 +352,22 @@ def main_path_calls(cfg, pairs: int, size: int, backward: bool = False):
         ssm(pairs, g, C, 2, "silu_sum")
     for i, C in enumerate(cfg.dims_decoder):             # decoder
         g = g0 >> (nl - 1 - i)
-        if i > 0:
+        if i > 0 and not recompute:
             ln(pairs * g * g, C)
         for _ in range(cfg.depths_decoder[i]):
             vss_block(pairs, g, C)
-    ln(pairs * (4 * g0) ** 2, cfg.dims_decoder[-1] // 4)  # final_up
+    if not recompute:
+        ln(pairs * (4 * g0) ** 2, cfg.dims_decoder[-1] // 4)  # final_up
     return calls
 
 
-def train_calls(cfg, pairs: int, size: int):
-    """kernel -> Counter(shape -> calls) for one training step, all ten
-    kernels: the forward's calls and the backward's."""
-    fwd, bwd = main_path_calls(cfg, pairs, size), main_path_calls(cfg, pairs, size, True)
-    return {**fwd, **{k + "_bwd": c for k, c in bwd.items()}}
+def train_calls(cfg, pairs: int, size: int, n_model: int = 1):
+    """kernel -> Counter(shape -> calls) for one training step on one rank,
+    all ten kernels: the forward kernels' calls (those that remat repeats in
+    the backward included) and the backward kernels'."""
+    fwd, rec, bwd = (main_path_calls(cfg, pairs, size, part, n_model)
+                     for part in ("forward", "recompute", "backward"))
+    return {**{k: fwd[k] + rec[k] for k in fwd}, **{k + "_bwd": c for k, c in bwd.items()}}
 
 
 def bytes_and_ops(kernel: str, shape):
@@ -597,7 +647,8 @@ def _forward_line(phase, kernel, shape, n, case, pairs=PAIRS, extra=None):
     bounds = _bound(kernel, shape)
     emit({"phase": phase, "kernel": kernel, "shape": list(shape),
           **({} if pairs is None else {"pairs": pairs}), **(extra or {}),
-          "calls_per_" + ("step" if phase == "kernel_train" else "forward"): n,
+          "calls_per_" + ("step" if phase in ("kernel_train", "parallel_kernels")
+                          else "forward"): n,
           "max_abs_err": float(err.max()), "rtol": KERNEL_RTOL, "atol": KERNEL_ATOL, "ok": ok,
           **({"bit_identical_twice": same} if repeats else {}),
           "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -631,7 +682,7 @@ def _grads(fn, inputs, dy):
     return torch.autograd.grad(out, inputs, dy)
 
 
-def _backward_line(op, shape, n_bwd, case, dev, gen, pairs):
+def _backward_line(op, shape, n_bwd, case, dev, gen, pairs, phase="kernel_train"):
     """Check and time one backward kernel at `shape` through the op's
     autograd Function against the autograd of the plain version; emit its
     line and return its `_add` terms."""
@@ -669,7 +720,7 @@ def _backward_line(op, shape, n_bwd, case, dev, gen, pairs):
         lib_ms = cuda_ms(lib_run, 20)
         lib_dev_ms = device_ms(lib_run)
     bounds = _bound(op + "_bwd", shape)
-    emit({"phase": "kernel_train", "kernel": op + "_bwd", "shape": list(shape), "pairs": pairs,
+    emit({"phase": phase, "kernel": op + "_bwd", "shape": list(shape), "pairs": pairs,
           "calls_per_step": n_bwd, "max_abs_err": err, "max_err_over_max_grad": scaled,
           "rtol": GRAD_RTOL, "atol_of_max_grad": GRAD_SCALED_ATOL, "ok": ok,
           "bit_identical_twice": same, "kernel_ms": ms, "plain_ms": plain_ms,
@@ -684,7 +735,7 @@ def _backward_line(op, shape, n_bwd, case, dev, gen, pairs):
     return (err, ms, plain_ms, lib_ms, dev_ms, lib_dev_ms, *bounds)
 
 
-def phase_kernel_train(calls, dev, pairs, checked):
+def phase_kernel_train(calls, dev, pairs, checked, phase="kernel_train"):
     """Each forward and backward kernel at every training shape of a step of
     `pairs` pairs; sums per training step. The backward's gradients (through
     the op's autograd Function) are held against the autograd of the plain
@@ -703,11 +754,10 @@ def phase_kernel_train(calls, dev, pairs, checked):
             if todo:
                 case = make_case(op, shape, dev, gen)
                 if op in todo:
-                    checked[(op, shape)] = _forward_line("kernel_train", op, shape, n, case,
-                                                         pairs)
+                    checked[(op, shape)] = _forward_line(phase, op, shape, n, case, pairs)
                 if op + "_bwd" in todo:
                     checked[(op + "_bwd", shape)] = _backward_line(op, shape, n_bwd, case, dev,
-                                                                   gen, pairs)
+                                                                   gen, pairs, phase)
                 del case
             _add(fwd, n, *checked[(op, shape)])
             if n_bwd:
@@ -1522,6 +1572,236 @@ def phase_seg_tools(root: str):
         fail(f"check_dataset counts {classes}, {dist} differ from the recount {want}")
 
 
+# ---------------------------------------------------------------------------
+# multi-process training: two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def _mesh_calls(mesh: str, scan_impl: str):
+    """(config, pairs a rank, model ranks) of a 2-rank `mesh` at the training
+    batch: 2,1 splits the batch, 1,2 the wide projections (and with "sp" the
+    scans' sequence)."""
+    n_data, n_model = (int(v) for v in mesh.split(","))
+    return full_config(scan_impl=scan_impl), TRAIN_PAIRS // n_data, n_model
+
+
+def phase_parallel_kernels(dev, checked):
+    """Each kernel at every shape one rank of a 2-rank mesh gives it that no
+    earlier phase checked: batch 3 a rank under 2,1; d_inner and the MLP's
+    hidden halved under 1,2; and with the sequence-parallel scan L halved
+    (down to 8 steps, below one 16-step tile): forward and backward against
+    the plain version and its autograd, bit-identical twice. Sums a step on
+    one rank in a `parallel_kernels_step` line per mesh."""
+    t0 = time.perf_counter()
+    for name, (mesh, impl) in MULTI_RANK_RUNS.items():
+        cfg, pairs, n_model = _mesh_calls(mesh, impl)
+        per_step = phase_kernel_train(train_calls(cfg, pairs, SIZE, n_model), dev, pairs,
+                                      checked, "parallel_kernels")
+        emit({"phase": "parallel_kernels_step", "run": name, "mesh": mesh, "scan_impl": impl,
+              "pairs_a_rank": pairs, "per_step": {k: _brief(r) for k, r in per_step.items()}})
+    emit({"phase": "parallel_kernels", "seconds": time.perf_counter() - t0})
+
+
+def _rank_main(rank: int, world: int, port: int, argv, out: str) -> None:
+    """One rank of a multi-rank training run, with torchrun's environment:
+    the training CLI, its launch counts zeroed just before and read just
+    after, saved with its stats to `out`."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    zero_launches()
+    stats = train.main(argv)
+    with open(out, "w") as f:
+        json.dump({"stats": stats, "launches": read_launches()}, f)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(argv, world: int, tmp: str, timeout_s: float = 300.0):
+    """`world` ranks of the training CLI (the spawn method; the kernels are
+    built already, so no rank builds them); their results in rank order. A
+    rank that fails or outlives `timeout_s` fails the run."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port, outs = _free_port(), [os.path.join(tmp, f"rank{r}.json") for r in range(world)]
+    procs = [ctx.Process(target=_rank_main, args=(r, world, port, argv, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes) or not all(os.path.exists(o) for o in outs):
+        fail(f"multi-rank training {argv}: rank exit codes {codes}")
+    return [json.load(open(o)) for o in outs]
+
+
+def _state_close(got: dict, want: dict, steps: int):
+    """The worst parameter of two state dicts after `steps` Adam steps from
+    the same weights, by the gate of tests/test_optimizer_trajectory.py:
+    within 2e-3 by norm, or an rms drift below a quarter of the lr budget.
+    Returns (all pass, worst key, its relative error)."""
+    budget = 1e-4 / 0.75 * steps
+    worst, worst_rel, ok = None, 0.0, set(got) == set(want)
+    for k, v in want.items():
+        a, b = got[k].double(), v.double()
+        if a.shape != b.shape:
+            return False, k, float("inf")
+        rel = float((a - b).norm() / (b.norm() + 1e-12))
+        rms = float((a - b).norm() / math.sqrt(b.numel()))
+        if rel >= 2e-3 and rms >= 0.25 * budget:
+            ok = False
+        if rel > worst_rel:
+            worst, worst_rel = k, rel
+    return ok, worst, worst_rel
+
+
+def _train_argv(ckpt_dir: str):
+    return ["--synthetic", str(TRAIN_PAIRS * MULTI_RANK_STEPS), "-B", str(TRAIN_PAIRS), "-E",
+            "1", "-j", "0", "--model", "full", "--device", "cuda", "--ckpt_dir", ckpt_dir]
+
+
+def phase_one_rank_reference(tmp: str, smi):
+    """The training CLI on one rank in a process of its own (as each rank of
+    the multi-rank runs is), on their data and seed: their reference. Its
+    launch counts equal the config's. Returns its stats and checkpoint."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpt = os.path.join(tmp, "one")
+    got = _run_ranks(_train_argv(ckpt), 1, tmp)[0]
+    stats = got["stats"]
+    expected = {k: MULTI_RANK_STEPS * sum(c.values())
+                for k, c in train_calls(full_config(), TRAIN_PAIRS, SIZE).items()}
+    state = torch.load(os.path.join(ckpt, "fusion_model_pst900.pth"), map_location="cpu",
+                       weights_only=True)
+    warm = stats["step_seconds"][1:]
+    emit({"phase": "one_rank_reference", "steps": stats["steps"], "losses": stats["losses"],
+          "launches": got["launches"], "expected_launches": expected,
+          "step_seconds": stats["step_seconds"], "median_warm_step_s": float(np.median(warm)),
+          "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
+          "peak_memory_bytes": stats["peak_memory_bytes"][0], "card": smi})
+    if got["launches"] != expected or stats["world"] != 1:
+        fail(f"one-rank reference: world {stats['world']}, launch counts {got['launches']} "
+             f"differ from the config's {expected}")
+    return stats, state
+
+
+def phase_multi_rank_train(name: str, reference, tmp: str, smi):
+    """Two ranks on cuda:0 over gloo through the training CLI (`--mesh`):
+    every rank's launch counts equal MULTI_RANK_STEPS times the calls a step
+    that the config gives one rank, the losses and the gathered checkpoint
+    equal the one-rank run's (loss within TRAIN_LOSS_RTOL; parameters by
+    `_state_close`); pairs/s and peak memory a rank. The ranks share the one
+    card: the pairs/s says nothing of scaling."""
+    mesh, impl = MULTI_RANK_RUNS[name]
+    cfg, pairs, n_model = _mesh_calls(mesh, impl)
+    ref_stats, ref_state = reference
+    ckpt = os.path.join(tmp, name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _run_ranks(_train_argv(ckpt) + ["--mesh", mesh, "--scan_impl", impl], 2, tmp)
+    seconds = time.perf_counter() - t0
+    calls = train_calls(cfg, pairs, SIZE, n_model)
+    expected = {k: MULTI_RANK_STEPS * sum(c.values()) for k, c in calls.items()}
+    state = torch.load(os.path.join(ckpt, "fusion_model_pst900.pth"), map_location="cpu",
+                       weights_only=True)
+    load_reference_checkpoint(VSSMFusion(full_config()),
+                              os.path.join(ckpt, "fusion_model_pst900.pth"))
+    ok, worst, worst_rel = _state_close(state, ref_state, MULTI_RANK_STEPS)
+    stats = ranks[0]["stats"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(stats["losses"], ref_stats["losses"])]
+    warm = stats["step_seconds"][1:]
+    emit({"phase": name, "mesh": mesh, "scan_impl": impl, "world": stats["world"],
+          "backend": stats["backend"], "ranks_share_one_card": True,
+          "pairs_per_step": TRAIN_PAIRS, "pairs_a_rank": pairs, "steps": stats["steps"],
+          "losses": stats["losses"], "losses_one_rank": ref_stats["losses"],
+          "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+          "checkpoint_matches_one_rank": ok, "worst_param": worst, "worst_param_rel": worst_rel,
+          "launches_by_rank": [r["launches"] for r in ranks], "expected_launches": expected,
+          "step_seconds": stats["step_seconds"], "median_warm_step_s": float(np.median(warm)),
+          "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
+          "pairs_per_s_note": "two ranks share one card over gloo: not a scaling measurement",
+          "peak_memory_bytes_by_rank": stats["peak_memory_bytes"], "run_seconds": seconds,
+          "card": smi})
+    if stats["world"] != 2 or stats["backend"] != "gloo" or stats["mesh"] != [
+            int(v) for v in mesh.split(",")]:
+        fail(f"{name}: ran as world {stats['world']}, backend {stats['backend']}, "
+             f"mesh {stats['mesh']}")
+    if any(r["launches"] != expected for r in ranks):
+        fail(f"{name}: launch counts {[r['launches'] for r in ranks]} differ from the "
+             f"config's {expected}")
+    if (stats["steps"] != MULTI_RANK_STEPS or max(loss_rel) > TRAIN_LOSS_RTOL
+            or any(r["stats"]["losses"] != stats["losses"] for r in ranks)):
+        fail(f"{name}: losses {[r['stats']['losses'] for r in ranks]} against the one-rank "
+             f"run's {ref_stats['losses']}")
+    if not ok:
+        fail(f"{name}: the gathered checkpoint differs from the one-rank run's at {worst} "
+             f"({worst_rel} by norm)")
+    return ranks[0]["launches"]
+
+
+def phase_remat_train(dev, smi):
+    """MULTI_RANK_STEPS training steps at full width, batch 6, with no remat,
+    remat_light and remat, from the same weights, batches and DropPath
+    generator: the same losses, launch counts equal the config's (remat's
+    repeated forward calls included), and the peak memory of each: remat's
+    below none's, remat_light's not above it. (remat_light recomputes the
+    MLP, BiAttn and ECA, whose fused kernels keep no intermediate that the
+    checkpoint could drop: it saves time in no case and memory hardly.)"""
+    rng = np.random.default_rng(11)
+    batches = [tuple(torch.from_numpy(rng.uniform(0, 1, (TRAIN_PAIRS, SIZE, SIZE, 1)).astype(
+        np.float32)).to(dev) for _ in range(2)) for _ in range(MULTI_RANK_STEPS)]
+    runs = {}
+    for name, flags in (("none", {}), ("remat_light", {"remat_light": True}),
+                        ("remat", {"remat": True})):
+        cfg = full_config(**flags)
+        net = init_weights(VSSMFusion(cfg), seed=0).to(dev)
+        opt = train.make_fusion_optimizer(net.parameters())
+        gen = torch.Generator(device=dev).manual_seed(0)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        losses, seconds = [], []
+        for vis, ir in batches:
+            t0 = time.perf_counter()
+            losses.append(float(train.fusion_train_step(net, opt, vis, ir, gen)["loss_total"]))
+            seconds.append(time.perf_counter() - t0)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: MULTI_RANK_STEPS * sum(c.values())
+                    for k, c in train_calls(cfg, TRAIN_PAIRS, SIZE).items()}
+        runs[name] = losses, peak
+        emit({"phase": "remat_train", "remat": name, "steps": MULTI_RANK_STEPS,
+              "pairs_per_step": TRAIN_PAIRS, "losses": losses, "launches": launches,
+              "expected_launches": expected, "peak_memory_bytes": peak,
+              "peak_over_none": peak / runs["none"][1], "step_seconds": seconds,
+              "card": smi})
+        del net, opt
+        torch.cuda.empty_cache()
+        if launches != expected:
+            fail(f"remat_train {name}: launch counts {launches} differ from the config's "
+                 f"{expected}")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, runs["none"][0]))
+        if rel > REMAT_LOSS_RTOL:
+            fail(f"remat_train {name}: losses {losses} against {runs['none'][0]} without remat")
+        if peak > runs["none"][1] or (name == "remat" and peak >= runs["none"][1]):
+            fail(f"remat_train {name}: peak memory {peak} against {runs['none'][1]} without "
+                 f"remat")
+
+
 # kernel-name fragments of each kernel in a profiler trace, then the groups
 # of the library's kernels
 _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
@@ -1659,6 +1939,7 @@ def main() -> None:
                      fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)
     phase_fullres_ss2d(dev)
     phase_lm_scan_paths(dev)
+    phase_parallel_kernels(dev, checked)
     emit({"phase": "kernel", "per_forward_of_serving": {
         k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")
             and (k in TENSOR_CORE_KERNELS or m != "fp32_cores_bound_ms")}
@@ -1691,6 +1972,11 @@ def main() -> None:
     phase_lm_parity(dev)
     phase_train_parity(dev)
     phase_seg_parity(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference = phase_one_rank_reference(tmp, smi)
+        multi = {name: phase_multi_rank_train(name, reference, tmp, smi)
+                 for name in MULTI_RANK_RUNS}
+    phase_remat_train(dev, smi)
     phase_trace(dev)
     phase_trace_train(dev)
 
@@ -1701,6 +1987,7 @@ def main() -> None:
             "name": k, "route": route, "source": source, "replaces": replaces,
             "launches": launches[k], "launches_train_seg": seg_launches[k],
             "launches_lm": lm_launches[k], "launches_visualize": vis_launches[k],
+            **{f"launches_{name}_rank0": multi[name][k] for name in MULTI_RANK_RUNS},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             **_bound_by(k, r["bytes_ms"], r["ops_ms"], r["sfu_ms"]),
@@ -1716,7 +2003,8 @@ def main() -> None:
                    "sum over its shapes of calls x time; launches from the 12-step run, "
                    "launches_train_seg from the segmentation CLI's PST900 run, launches_lm "
                    "from the LM's scoring forwards, launches_visualize from "
-                   "visualize_segmentation's run"})
+                   "visualize_segmentation's run, launches_<run>_rank0 from rank 0 of "
+                   "each two-rank training run"})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

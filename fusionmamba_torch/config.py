@@ -10,6 +10,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+# the JAX package's scan implementations; "bypass", its timing stub, is not a
+# model and stays unreachable, as there
+SCAN_IMPLS = ("adaptive", "auto", "auto_exact", "ref", "assoc", "pallas", "pallas_exact",
+              "pallas_interpret", "sp")
+
 
 @dataclasses.dataclass(frozen=True)
 class FusionModelConfig:
@@ -29,6 +34,22 @@ class FusionModelConfig:
     patch_norm: bool = True
     # classes of VSSMFusionSeg's segmentation head (MFNet's 9)
     num_seg_classes: int = 9
+    # "sp" runs the scan sequence-parallel over the ambient mesh's "model"
+    # axis (`parallel/seq_scan.py`). Every other name of the JAX package
+    # selects the port's one scan, which is exact at any dt: the JAX names
+    # choose among TPU scans whose exactness differs, a choice the port does
+    # not have
+    scan_impl: str = "adaptive"
+    # recompute each VSSBlock in the backward (torch.utils.checkpoint): every
+    # forward kernel of the block runs again there, for less activation memory
+    remat: bool = False
+    # recompute only the cheap wide branches of each VSSBlock (Mlp, BiAttn,
+    # ECA) in the backward, not the scan or the dwconv
+    remat_light: bool = False
+
+    def __post_init__(self):
+        if self.scan_impl not in SCAN_IMPLS:
+            raise ValueError(f"scan_impl must be one of {SCAN_IMPLS}, got {self.scan_impl!r}")
 
     @property
     def dims_decoder(self) -> Tuple[int, ...]:

@@ -236,9 +236,12 @@ class SyntheticFusionDataset:
 
 
 def batch_iterator(ds, batch_size: int, shuffle: bool = True, seed: int = 0,
-                   drop_last: bool = True, epochs: int | None = 1) -> Iterator[tuple]:
+                   drop_last: bool = True, epochs: int | None = 1,
+                   rows: slice | None = None) -> Iterator[tuple]:
     """Epochs over `ds`, yielding stacked NHWC numpy batches; a last partial
-    batch is dropped unless `drop_last` is false."""
+    batch is dropped unless `drop_last` is false. With `rows`, only those
+    rows of each batch are loaded and yielded (a data-parallel rank's share
+    of one global shuffle)."""
     rng = np.random.default_rng(seed)
     epoch = 0
     while epochs is None or epoch < epochs:
@@ -249,6 +252,6 @@ def batch_iterator(ds, batch_size: int, shuffle: bool = True, seed: int = 0,
             idx = order[start:start + batch_size]
             if drop_last and len(idx) < batch_size:
                 break
-            items = [ds[int(i)] for i in idx]
+            items = [ds[int(i)] for i in (idx if rows is None else idx[rows])]
             yield tuple(np.stack(parts) for parts in zip(*items))
         epoch += 1

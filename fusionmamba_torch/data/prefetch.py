@@ -21,10 +21,10 @@ import torch
 
 def threaded_batches(ds, batch_size: int, *, shuffle: bool = True, seed: int = 0,
                      drop_last: bool = True, num_workers: int = 8, prefetch: int = 4,
-                     epochs: int | None = 1) -> Iterator[tuple]:
+                     epochs: int | None = 1, rows: slice | None = None) -> Iterator[tuple]:
     """Stacked numpy batches of `ds`, its items loaded by `num_workers`
     threads, `prefetch` batches ahead: the same batches in the same order as
-    `batch_iterator` with the same seed."""
+    `batch_iterator` with the same seed (and the same `rows`)."""
     rng = np.random.default_rng(seed)
 
     def epoch_orders():
@@ -41,6 +41,8 @@ def threaded_batches(ds, batch_size: int, *, shuffle: bool = True, seed: int = 0
             windows = [order[i:i + batch_size] for i in range(0, len(order), batch_size)]
             if drop_last:
                 windows = [w for w in windows if len(w) == batch_size]
+            if rows is not None:
+                windows = [w[rows] for w in windows]
             futs = [[pool.submit(ds.__getitem__, int(i)) for i in w] for w in windows[:prefetch]]
             for wi in range(len(windows)):
                 if wi + prefetch < len(windows):

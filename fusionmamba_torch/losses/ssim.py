@@ -10,6 +10,12 @@ trains with:
     the last level's SSIM to (levels - 1) times its weight: the reference's
     quirk, kept because the training loss depends on it.
 The separable filters are banded matrix products, as in the JAX package.
+
+With `axis` (the mesh's data axis, `parallel.mesh.Axis`) each rank holds its
+rows of a global batch, and every mean and the dynamic range span the global
+batch: partial sums are all-reduced (`parallel.collectives.all_reduce`),
+so the value and, summed over the ranks, the gradient are the
+single-process ones on the global batch.
 """
 from __future__ import annotations
 
@@ -17,6 +23,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..parallel.collectives import all_reduce, reduce_max
 
 MSSSIM_WEIGHTS = (0.0448, 0.2856, 0.3001, 0.2363, 0.1333)
 
@@ -60,18 +68,32 @@ def sep_filter2d(x: torch.Tensor, taps_h: tuple, taps_w: tuple,
     return torch.einsum("bjwc,wk->bjkc", torch.einsum("bhwc,hj->bjwc", x, Bh), Bw)
 
 
+def batch_mean(x: torch.Tensor, splits: int = 1, axis=None) -> torch.Tensor:
+    """Mean of x over everything but its `splits` groups stacked on dim 0
+    (a scalar at splits 1, else a (splits,)-vector), over the global batch
+    when `axis` spans several ranks (module doc)."""
+    if axis is None or axis.size == 1:
+        return x.mean() if splits == 1 else x.reshape(splits, -1).mean(1)
+    per = x.reshape(splits, -1)
+    out = all_reduce(per.sum(1), axis) / (per.shape[1] * axis.size)
+    return out[0] if splits == 1 else out
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-         val_range: float | None = None, full: bool = False, splits: int = 1):
+         val_range: float | None = None, full: bool = False, splits: int = 1, axis=None):
     """Mean SSIM of img1, img2 ((B, H, W, C) or (B, H, W)), and the mean
     contrast-structure term when `full`. With splits > 1 the batch holds
     `splits` equal groups stacked on axis 0, and each value is a
-    (splits,)-vector of per-group means."""
+    (splits,)-vector of per-group means. `axis` as the module doc."""
     if img1.dim() == 4 and img1.shape[-1] == 1:
         img1, img2 = img1[..., 0], img2[..., 0]
     if val_range is None:
         one = torch.ones((), device=img1.device)
-        max_val = torch.where(img1.max() > 128.0, 255.0 * one, one)
-        min_val = torch.where(img1.min() < -0.5, -one, 0.0 * one)
+        hi, lo = img1.max(), img1.min()
+        if axis is not None and axis.size > 1:
+            hi, lo = reduce_max(hi, axis), -reduce_max(-lo, axis)
+        max_val = torch.where(hi > 128.0, 255.0 * one, one)
+        min_val = torch.where(lo < -0.5, -one, 0.0 * one)
         L = max_val - min_val
     else:
         L = float(val_range)
@@ -91,11 +113,7 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     v2 = sigma1_sq + sigma2_sq + C2
     ssim_map = ((2.0 * mu1_mu2 + C1) * v1) / ((mu1_sq + mu2_sq + C1) * v2)
     cs_map = v1 / v2
-    if splits == 1:
-        ret, cs = ssim_map.mean(), cs_map.mean()
-    else:
-        ret = ssim_map.reshape(splits, -1).mean(1)
-        cs = cs_map.reshape(splits, -1).mean(1)
+    ret, cs = batch_mean(ssim_map, splits, axis), batch_mean(cs_map, splits, axis)
     return (ret, cs) if full else ret
 
 
@@ -107,17 +125,18 @@ def avg_pool2(x: torch.Tensor) -> torch.Tensor:
 
 
 def msssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-           val_range: float | None = None, normalize: bool = False, splits: int = 1):
+           val_range: float | None = None, normalize: bool = False, splits: int = 1,
+           axis=None):
     """5-level MS-SSIM, combined as the reference does: the product over
     levels i < 4 of cs_i ** w_i, times ssim_4 ** (4 * w_4). With splits > 1
-    a (splits,)-vector (see `ssim`)."""
+    a (splits,)-vector (see `ssim`); `axis` as the module doc."""
     if img1.dim() == 4 and img1.shape[-1] == 1:
         img1, img2 = img1[..., 0], img2[..., 0]
     levels = len(MSSSIM_WEIGHTS)
     res = torch.ones((splits,) if splits > 1 else (), device=img1.device)
     for i in range(levels):
         last = i == levels - 1
-        sim, cs = ssim(img1, img2, window_size, val_range, full=True, splits=splits)
+        sim, cs = ssim(img1, img2, window_size, val_range, full=True, splits=splits, axis=axis)
         val = sim if last else cs
         if normalize:
             val = (val + 1.0) / 2.0

@@ -25,11 +25,35 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import FusionModelConfig
 from ..nn.blocks import VSSBlock, VSSBlockCross
 from ..nn.layers import SegmentationHead
 from ..nn.patch import FinalPatchExpand, PatchEmbed, PatchExpand, PatchMerging
+
+
+def _blocks(dim: int, drop_paths: Sequence[float], cfg: FusionModelConfig) -> nn.ModuleList:
+    return nn.ModuleList(
+        VSSBlock(dim, cfg.d_state, cfg.ssm_ratio, cfg.mlp_ratio, cfg.norm_eps, dp,
+                 cfg.scan_impl, cfg.remat_light)
+        for dp in drop_paths)
+
+
+def _run_blocks(blocks, x, dp_uni, remat: bool):
+    """The blocks in turn, each reading its (2, width) rows of the stage's
+    DropPath slice. With `remat` (in training) each block is a
+    `torch.utils.checkpoint` region: its activations are recomputed in the
+    backward, every forward kernel of the block launching again. The rows
+    are drawn before the blocks run and passed in, so the recomputation
+    replays no random draw."""
+    for i, blk in enumerate(blocks):
+        rows = None if dp_uni is None else dp_uni[i]
+        if remat and blk.training and torch.is_grad_enabled():
+            x = checkpoint(blk, x, rows, use_reentrant=False)
+        else:
+            x = blk(x, rows)
+    return x
 
 
 class VSSStage(nn.Module):
@@ -38,14 +62,12 @@ class VSSStage(nn.Module):
     def __init__(self, dim: int, drop_paths: Sequence[float], downsample: bool,
                  cfg: FusionModelConfig):
         super().__init__()
-        self.blocks = nn.ModuleList(
-            VSSBlock(dim, cfg.d_state, cfg.ssm_ratio, cfg.mlp_ratio, cfg.norm_eps, dp)
-            for dp in drop_paths)
+        self.remat = cfg.remat
+        self.blocks = _blocks(dim, drop_paths, cfg)
         self.downsample = PatchMerging(dim) if downsample else None
 
     def forward(self, x, dp_uni=None):  # dp_uni (depth, 2, width) or None
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, None if dp_uni is None else dp_uni[i])
+        x = _run_blocks(self.blocks, x, dp_uni, self.remat)
         return x if self.downsample is None else self.downsample(x)
 
 
@@ -56,16 +78,13 @@ class VSSStageUp(nn.Module):
                  cfg: FusionModelConfig):
         super().__init__()
         self.upsample = PatchExpand(dim) if upsample else None
-        self.blocks = nn.ModuleList(
-            VSSBlock(dim, cfg.d_state, cfg.ssm_ratio, cfg.mlp_ratio, cfg.norm_eps, dp)
-            for dp in drop_paths)
+        self.remat = cfg.remat
+        self.blocks = _blocks(dim, drop_paths, cfg)
 
     def forward(self, x, dp_uni=None):  # dp_uni (depth, 2, width) or None
         if self.upsample is not None:
             x = self.upsample(x)
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, None if dp_uni is None else dp_uni[i])
-        return x
+        return _run_blocks(self.blocks, x, dp_uni, self.remat)
 
 
 class FinalConv(nn.Conv2d):
@@ -103,7 +122,7 @@ class VSSMFusion(nn.Module):
         self.layers_up = nn.ModuleList(
             VSSStageUp(dims_dec[i], dpr_dec[i], i != 0, cfg) for i in range(nl))
         self.Cross_block = nn.ModuleList(
-            VSSBlockCross(dims[i], cfg.d_state, cfg.ssm_ratio, cfg.norm_eps)
+            VSSBlockCross(dims[i], cfg.d_state, cfg.ssm_ratio, cfg.norm_eps, cfg.scan_impl)
             for i in range(nl))
         self.final_up = FinalPatchExpand(dims_dec[-1], scale=4)
         self.final_conv = FinalConv(dims_dec[-1] // 4)

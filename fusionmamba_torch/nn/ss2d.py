@@ -47,15 +47,22 @@ class SSMCore(nn.Module):
     A_logs and Ds keep the reference's flattened (K*D, N) and (K*D,) shapes.
     `scan_variant` "efficient" scans the stride-2 decimated sequences of
     length ceil(H/2)*ceil(W/2); "fullres" scans all H*W positions. The
-    parameters are the same for both."""
+    parameters are the same for both. `scan_impl` "sp" splits the scan's
+    sequence axis over the ambient mesh's "model" axis
+    (`parallel/seq_scan.py`); every other name runs the one scan.
+
+    `scan_params`, `sum_channels` and `norm_gated` are where a
+    tensor-parallel subclass (`parallel/tensor_parallel.py`) takes its
+    channel shard of d_inner."""
 
     def __init__(self, d_model: int, d_state: int, ssm_ratio: float,
-                 scan_variant: str = "efficient"):
+                 scan_variant: str = "efficient", scan_impl: str = "adaptive"):
         super().__init__()
         if scan_variant not in SCAN_VARIANTS:
             raise ValueError(f"scan_variant must be one of {SCAN_VARIANTS}, "
                              f"got {scan_variant!r}")
         self.scan_variant = scan_variant
+        self.scan_impl = scan_impl
         self.d_inner = int(ssm_ratio * d_model)
         self.d_state = d_state
         self.dt_rank = math.ceil(d_model / 16)
@@ -67,28 +74,43 @@ class SSMCore(nn.Module):
         self.Ds = nn.Parameter(torch.ones(K_DIRS * D))
         self.out_norm = FusedLayerNorm(D, eps=1e-5)
 
+    def scan_params(self):
+        """(x_proj_weight (K, R+2N, D), dt_projs_weight (K, D, R),
+        dt_projs_bias (K, D), A (K, D, N), Ds (K, D)) over the channels that
+        the scan runs on: here all of d_inner."""
+        return (self.x_proj_weight, self.dt_projs_weight, self.dt_projs_bias.float(),
+                -torch.exp(self.A_logs.float()).view(K_DIRS, -1, self.d_state),
+                self.Ds.float().view(K_DIRS, -1))
+
+    def sum_channels(self, x_dbl):
+        """x_proj's product, summed over every channel of d_inner."""
+        return x_dbl
+
+    def norm_gated(self, y, gate, gate_act: str):
+        """out_norm(y) * act(gate) over the whole of d_inner."""
+        return self.out_norm(y, gate=gate, gate_act=gate_act)
+
     def scan(self, x, gate, gate_act: str):
         """x (B, H, W, d_inner) -> out_norm(scan(x)) * act(gate); gate raw."""
         B, H, W, D = x.shape
         N, R = self.d_state, self.dt_rank
         fullres = self.scan_variant == "fullres"
+        xw, dtw, dtb, As, Ds = self.scan_params()
         xs = cross_scan(x) if fullres else efficient_scan(x)      # (B, 4, L, D)
-        x_dbl = torch.einsum("bkld,kcd->bklc", xs, self.x_proj_weight)
+        x_dbl = self.sum_channels(torch.einsum("bkld,kcd->bklc", xs, xw))
         dts, Bs, Cs = (t.contiguous() for t in x_dbl.split([R, N, N], dim=-1))
-        As = -torch.exp(self.A_logs.float()).view(K_DIRS, D, N)
-        ys = selective_scan(xs, dts, As, Bs, Cs, self.Ds.float().view(K_DIRS, D),
-                            self.dt_projs_bias.float(), delta_softplus=True,
-                            dt_lowrank_weight=self.dt_projs_weight)
+        ys = selective_scan(xs, dts, As, Bs, Cs, Ds, dtb, delta_softplus=True,
+                            dt_lowrank_weight=dtw, impl=self.scan_impl)
         y = cross_merge(ys, H, W) if fullres else efficient_merge(ys, H, W)
-        return self.out_norm(y, gate=gate, gate_act=gate_act)
+        return self.norm_gated(y, gate, gate_act)
 
 
 class SS2D(SSMCore):
     """Single-input SS2D (reference `models/cross.py:417-742`)."""
 
     def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
-                 scan_variant: str = "efficient"):
-        super().__init__(d_model, d_state, ssm_ratio, scan_variant)
+                 scan_variant: str = "efficient", scan_impl: str = "adaptive"):
+        super().__init__(d_model, d_state, ssm_ratio, scan_variant, scan_impl)
         self.in_proj = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.conv2d = DepthwiseConv2d(self.d_inner)
         self.out_proj = nn.Linear(self.d_inner, d_model, bias=False)
@@ -106,8 +128,8 @@ class SS2DCross(SSMCore):
     """Cross-modal SS2D (reference `models/cross.py:890-1230`)."""
 
     def __init__(self, d_model: int, d_state: int = 16, ssm_ratio: float = 2.0,
-                 scan_variant: str = "efficient"):
-        super().__init__(d_model, d_state, ssm_ratio, scan_variant)
+                 scan_variant: str = "efficient", scan_impl: str = "adaptive"):
+        super().__init__(d_model, d_state, ssm_ratio, scan_variant, scan_impl)
         self.in_proj1 = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.in_proj2 = nn.Linear(d_model, 2 * self.d_inner, bias=False)
         self.conv2d = DepthwiseConv2d(self.d_inner)

@@ -16,8 +16,6 @@ See the sources for the designs.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -62,15 +60,6 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def _sms(device) -> int:
-    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
-
-
 def fwd_slice(M, C_out, Hd, sms):
     """Depth of one slice of the two-pass forward's fc2 (over H): about one
     128x128 tile per SM when fc2's output tiles alone are fewer than the
@@ -95,7 +84,7 @@ def mlp_fwd(x2, w1t, b1, w2t, b2, fused: bool):
     y, hidden, partial, slice_h = empty(M, C_out), None, None, 0
     if not fused:
         hidden = empty(M, Hd)
-        slice_h = fwd_slice(M, C_out, Hd, _sms(x2.device))
+        slice_h = fwd_slice(M, C_out, Hd, cuda_lib.sm_count(x2.device))
         if slice_h < Hd:
             partial = empty(-(-Hd // slice_h), M, C_out)
     cuda_lib.launch("fm_fused_mlp_fwd", *map(_ptr, (x2, w1t, b1, w2t, b2, y, hidden, partial)),
@@ -140,7 +129,7 @@ def mlp_bwd(x, w1, b1, w2, b2, dy):
         "fused_mlp backward", C, Hd, C_out, x.reshape(-1, C), dy.reshape(-1, C_out),
         w1.t().contiguous(), b1, w2.t().contiguous())   # nn.Linear (out, in)
     M = x2.shape[0]
-    slice_dx, slice_w = bwd_slices(M, C, Hd, C_out, _sms(x.device))
+    slice_dx, slice_w = bwd_slices(M, C, Hd, C_out, cuda_lib.sm_count(x.device))
     s_dx, s_w, rows_t = -(-Hd // slice_dx), -(-M // slice_w), -(-M // _TILE)
 
     def empty(*shape):

@@ -79,13 +79,23 @@ class _ScanFn(torch.autograd.Function):
 
 
 def selective_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
-                   delta_softplus=False, dt_lowrank_weight=None):
+                   delta_softplus=False, dt_lowrank_weight=None, impl: str = "adaptive"):
     """The scan. With `dt_lowrank_weight` (K, D, R) given, `delta` is the
     low-rank (B, K, L, R) dt, expanded inside the kernel on the card.
 
     CPU tensors take the plain version, differentiated by autograd. CUDA
     tensors take the forward kernel and, when a gradient is needed, the
-    backward kernel; both raise on what they do not take."""
+    backward kernel; both raise on what they do not take.
+
+    `impl` "sp" splits L over the ambient mesh's "model" axis
+    (`parallel.seq_scan.selective_scan_seq_parallel`, whose local scans come
+    back here); every other name of the JAX package's `impl` runs this one
+    scan, which is exact at any dt."""
+    if impl == "sp":
+        # imported here: parallel.seq_scan imports this module
+        from ..parallel.seq_scan import selective_scan_seq_parallel
+        return selective_scan_seq_parallel(u, delta, A, Bmat, Cmat, D, delta_bias,
+                                           delta_softplus, dt_lowrank_weight=dt_lowrank_weight)
     if u.device.type == "cpu":
         return selective_scan_plain(u, delta, A, Bmat, Cmat, D, delta_bias,
                                     delta_softplus, dt_lowrank_weight)

@@ -4,6 +4,9 @@
         [--epochs/-E 2] [--batch_size/-B 6] [--model full|tiny|test]
         [--ckpt_dir model_last/my_cross] [--num_workers/-j 8]
         [--synthetic N] [--image_size 256] [--device cuda|cpu]
+        [--mesh NDATA,NMODEL] [--scan_impl adaptive|...|sp]
+
+    torchrun --nproc_per_node N -m fusionmamba_torch.train --mesh NDATA,NMODEL ...
 
 Per dataset: warm start from `<ckpt_dir>/fusion_model_<dataset>.pth` (the
 reference layout) when it exists, else weights from seed 0; per epoch the
@@ -16,6 +19,16 @@ threads and each batch is copied to the card ahead of its step
 (`data.prefetch`); with `-j 0` they load in the loop. `--dataset all` trains
 acod, mfnet and pst900 in turn. It runs on the card unless `--device cpu` is
 given.
+
+Under torchrun (or in a process group already made) the ranks form the mesh
+`--mesh NDATA,NMODEL` (default: every rank data-parallel), as the JAX
+package's `train.py --mesh` lays its devices out: each data rank takes
+`-B / NDATA` rows of every global batch, the wide projections are sharded
+over NMODEL (`parallel.apply_tensor_parallel`), and with `--scan_impl sp`
+the scan's sequence axis too. Every rank loads the whole warm-start
+checkpoint and takes its shards; rank 0 logs and saves the gathered whole
+state dict, which loads into a single-process model. The backend is NCCL
+when every rank has a card of its own, else gloo (`parallel.init_distributed`).
 """
 from __future__ import annotations
 
@@ -29,12 +42,15 @@ import time
 import torch
 
 from ..checkpoints import load_reference_checkpoint
-from ..config import full_config, test_config, tiny_config
+from ..config import SCAN_IMPLS, full_config, test_config, tiny_config
 from ..data import FusionDataset, SyntheticFusionDataset, batch_iterator
 from ..data.prefetch import device_prefetch, threaded_batches
 from ..device import select_device
 from ..models import VSSMFusion
 from ..nn import init_weights
+from ..parallel import (apply_tensor_parallel, gather_state_dict, init_distributed, make_mesh,
+                        rank_rows, set_mesh)
+from ..utils import rank_log_level
 from .loop import fusion_train_step, make_fusion_optimizer, reference_fusion_lr, set_learning_rate
 
 DATASETS = ("acod", "mfnet", "pst900")
@@ -57,6 +73,12 @@ def parse_args(argv=None):
     ap.add_argument("--image_size", type=int, default=256,
                     help="size of the synthetic pairs")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default="", metavar="NDATA,NMODEL",
+                    help="rank mesh: the batch split over NDATA, the wide projections over "
+                         "NMODEL (default: every rank data-parallel)")
+    ap.add_argument("--scan_impl", default="adaptive", choices=SCAN_IMPLS,
+                    help="sp also splits the scan's sequence over NMODEL; every other name "
+                         "runs the port's one scan")
     return ap, ap.parse_args(argv)
 
 
@@ -66,19 +88,20 @@ def logger(name: str = "fusionmamba_torch.train") -> logging.Logger:
         handler = logging.StreamHandler(sys.stdout)
         handler.setFormatter(logging.Formatter("%(levelname)s %(message)s"))
         log.addHandler(handler)
-        log.setLevel(logging.INFO)
+    log.setLevel(rank_log_level())
     return log
 
 
-def epoch_batches(ds, batch_size: int, num_workers: int, epoch: int, device: torch.device):
-    """One epoch's shuffled batches as tensors on `device`: loaded by
-    `num_workers` threads and copied ahead of the step (`data.prefetch`), or
-    with 0 workers loaded in the loop."""
+def epoch_batches(ds, batch_size: int, num_workers: int, epoch: int, device: torch.device,
+                  rows: slice | None = None):
+    """One epoch's shuffled batches as tensors on `device` (only `rows` of
+    each, where given): loaded by `num_workers` threads and copied ahead of
+    the step (`data.prefetch`), or with 0 workers loaded in the loop."""
     if num_workers > 0:
         return device_prefetch(threaded_batches(ds, batch_size, shuffle=True, seed=epoch,
-                                                num_workers=num_workers), device)
+                                                num_workers=num_workers, rows=rows), device)
     return (tuple(torch.from_numpy(b).to(device, non_blocking=True) for b in batch)
-            for batch in batch_iterator(ds, batch_size, shuffle=True, seed=epoch))
+            for batch in batch_iterator(ds, batch_size, shuffle=True, seed=epoch, rows=rows))
 
 
 class StepClock:
@@ -115,18 +138,22 @@ class StepClock:
                 for run in self.runs for a, b in zip(run, run[1:])]
 
 
-def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logger) -> dict:
-    net = init_weights(VSSMFusion(CONFIGS[args.model]()), seed=0)
+def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logger,
+                 mesh) -> dict:
+    net = init_weights(VSSMFusion(CONFIGS[args.model](scan_impl=args.scan_impl)), seed=0)
     ckpt = os.path.join(args.ckpt_dir, f"fusion_model_{dataset}.pth")
     if os.path.exists(ckpt):
         log.info(f"warm start from {ckpt}")
         load_reference_checkpoint(net, ckpt)
+    sharded = apply_tensor_parallel(net, mesh)
     net.to(device)
     opt = make_fusion_optimizer(net.parameters())
     gen = torch.Generator(device=device).manual_seed(0)
     steps_per_epoch = len(ds) // args.batch_size
     total = steps_per_epoch * args.epochs
-    log.info(f"{dataset}: {len(ds)} pairs, {steps_per_epoch} steps/epoch, on {device}")
+    rows = rank_rows(args.batch_size, mesh) if mesh.data.size > 1 else None
+    log.info(f"{dataset}: {len(ds)} pairs, {steps_per_epoch} steps/epoch, on {device}, mesh "
+             f"{mesh.n_data},{mesh.n_model}, {sharded} parameters sharded")
 
     clock, losses = StepClock(device), []
     waits = []               # host seconds each step waited for its batch
@@ -134,7 +161,7 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
     st = glob_st = time.time()
     for epoch in range(1, args.epochs + 1):
         set_learning_rate(opt, reference_fusion_lr(epoch))
-        batches = iter(epoch_batches(ds, args.batch_size, args.num_workers, epoch, device))
+        batches = iter(epoch_batches(ds, args.batch_size, args.num_workers, epoch, device, rows))
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)
@@ -144,7 +171,7 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
             clock.mark()
             # the on-disk datasets' items also carry a label, which fusion
             # training does not read
-            metrics = fusion_train_step(net, opt, batch[0], batch[1], gen)
+            metrics = fusion_train_step(net, opt, batch[0], batch[1], gen, mesh)
             losses.append(metrics["loss_total"])
             step += 1
             if step % 10 == 0:
@@ -160,9 +187,13 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
                 st = ed
     clock.end()
     step_seconds = clock.seconds()
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    torch.save(net.state_dict(), ckpt)
-    log.info(f"saved {ckpt}")
+    state = gather_state_dict(net, mesh)
+    if mesh.rank == 0:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        torch.save(state, ckpt)
+        log.info(f"saved {ckpt}")
+    if mesh.world > 1:
+        torch.distributed.barrier()
     return {"steps": step, "step_seconds": step_seconds, "loader_wait_seconds": waits,
             "losses": torch.stack(losses).tolist()}
 
@@ -181,12 +212,26 @@ def _dataset(args, ap, dataset: str):
     return ds
 
 
+def _mesh_shape(ap, spec: str, world: int):
+    if not spec:
+        return world, 1
+    try:
+        n_data, n_model = (int(v) for v in spec.split(","))
+    except ValueError:
+        ap.error(f"--mesh takes NDATA,NMODEL, got {spec!r}")
+    return n_data, n_model
+
+
 def main(argv=None) -> dict:
     """Run the CLI; returns {"steps", "step_seconds", "loader_wait_seconds",
-    "losses", "seconds"} over all datasets trained. On the card a step's
-    seconds run from the device reaching its start to reaching the next one
-    (CUDA events), so they include any time the device waited for the host;
-    a step's loader wait is the host's time in fetching its batch."""
+    "losses", "seconds", "world", "mesh", "backend", "peak_memory_bytes"}
+    over all datasets trained (on every rank; the losses are the global
+    batch's, the same on every rank). On the card a step's seconds run from
+    the device reaching its start to reaching the next one (CUDA events), so
+    they include any time the device waited for the host; a step's loader
+    wait is the host's time in fetching its batch. `peak_memory_bytes` holds
+    each rank's `torch.cuda.max_memory_allocated` (None on the CPU), in rank
+    order."""
     ap, args = parse_args(argv)
     if 0 < args.synthetic < args.batch_size:
         ap.error("--synthetic must be at least the batch size")
@@ -194,12 +239,32 @@ def main(argv=None) -> dict:
         device = select_device(args.device)
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
-    log = logger()
-    tic = time.time()
-    stats = {"steps": 0, "step_seconds": [], "loader_wait_seconds": [], "losses": []}
-    for dataset in (DATASETS if args.dataset == "all" else (args.dataset,)):
-        log.info(f"=== training fusion on {dataset} ===")
-        run = train_fusion(args, _dataset(args, ap, dataset), dataset, device, log)
-        stats = {k: stats[k] + run[k] for k in stats}
-    stats["seconds"] = time.time() - tic
-    return stats
+    info = init_distributed(device)
+    device = info.device
+    try:
+        n_data, n_model = _mesh_shape(ap, args.mesh, info.world)
+        mesh = make_mesh(n_data, n_model)
+        log = logger()
+        if info.world > 1:
+            log.info(f"{info.world} ranks, backend {info.backend}"
+                     + (" (CUDA tensors staged through host memory for its collectives)"
+                        if info.backend == "gloo" and device.type == "cuda" else ""))
+        tic = time.time()
+        stats = {"steps": 0, "step_seconds": [], "loader_wait_seconds": [], "losses": []}
+        with set_mesh(mesh):
+            for dataset in (DATASETS if args.dataset == "all" else (args.dataset,)):
+                log.info(f"=== training fusion on {dataset} ===")
+                run = train_fusion(args, _dataset(args, ap, dataset), dataset, device, log, mesh)
+                stats = {k: stats[k] + run[k] for k in stats}
+        stats["seconds"] = time.time() - tic
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        peaks = [peak]
+        if info.world > 1:
+            peaks = [None] * info.world
+            torch.distributed.all_gather_object(peaks, peak)
+        stats.update(world=info.world, mesh=[mesh.n_data, mesh.n_model], backend=info.backend,
+                     peak_memory_bytes=peaks)
+        return stats
+    finally:
+        if info.created:
+            torch.distributed.destroy_process_group()

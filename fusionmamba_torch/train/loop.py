@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..losses import fusion_loss, improved_pst900_loss, segmentation_loss
+from ..parallel import local_dp_table, sync_gradients
 
 
 def reference_fusion_lr(epoch: int) -> float:
@@ -48,17 +49,31 @@ def set_learning_rate(opt: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def fusion_train_step(net, opt, vis_y, ir, generator=None) -> dict:
+def fusion_train_step(net, opt, vis_y, ir, generator=None, mesh=None) -> dict:
     """One step: forward in training mode, clamp to [0, 1], fusion loss,
     backward, Adam. vis_y and ir are (B, H, W, 1) on the model's device;
     DropPath draws its table from `generator` (see `VSSMFusion.forward`).
     Returns the loss terms as device tensors: the step itself never waits
-    for the device."""
+    for the device.
+
+    With a `mesh` whose data axis has several ranks, vis_y and ir are this
+    rank's rows of the global batch (`parallel.rank_rows`), the DropPath
+    table is drawn at the global batch and sliced (`parallel.local_dp_table`,
+    the generator seeded alike on every rank), the loss is the global
+    batch's, and the gradients are summed over the data axis before Adam:
+    the step is the single-process step on the global batch. The model may
+    be tensor-parallel over the model axis (`parallel.apply_tensor_parallel`)."""
     net.train()
-    gen = net(vis_y, ir, generator=generator).float().clamp(0.0, 1.0)
-    out = fusion_loss(vis_y, ir, gen)
+    axis = None if mesh is None or mesh.data.size == 1 else mesh.data
+    dp_uni = None
+    if axis is not None and net.cfg.drop_path_rate > 0.0:
+        dp_uni = local_dp_table(net, generator, vis_y.shape[0] * axis.size, mesh, vis_y.device)
+    gen = net(vis_y, ir, generator=generator, dp_uni=dp_uni).float().clamp(0.0, 1.0)
+    out = fusion_loss(vis_y, ir, gen, axis=axis)
     opt.zero_grad(set_to_none=True)
     out.total.backward()
+    if axis is not None:
+        sync_gradients(net.parameters(), mesh)
     opt.step()
     return {"loss_total": out.total.detach(), "loss_in": out.loss_in.detach(),
             "loss_ssim": out.ssim_value.detach(), "loss_grad": out.loss_grad.detach()}

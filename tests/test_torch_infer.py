@@ -67,7 +67,10 @@ def test_port_imports_no_jax():
         "new = ['fusionmamba_torch.' + m for m in ('train_segmentation', "
         "'train_pst900_improved', 'evaluate_segmentation', 'losses.segmentation', "
         "'eval.metrics_seg', 'eval.metrics_sod', 'models.mamba_lm', 'checkpoints.hf_import', "
-        "'visualize_segmentation', 'tools.color_convert', 'tools.check_dataset')]\n"
+        "'visualize_segmentation', 'tools.color_convert', 'tools.check_dataset', "
+        "'utils.logger', 'utils.profiling', 'utils.flops', 'parallel.mesh', "
+        "'parallel.collectives', 'parallel.sharding', 'parallel.tensor_parallel', "
+        "'parallel.data', 'parallel.seq_scan')]\n"
         "assert set(new) <= set(mods), new\n"
         "assert not bad, bad\n"
         "print(len(mods))\n")

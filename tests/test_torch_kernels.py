@@ -45,7 +45,10 @@ def _rand(gen, *shape, scale=1.0, shift=0.0):
 # the 16-step tile and of the chunk (chunk = 32 steps where it is given), all
 # at K = 4 directions; then the Mamba LM's K = 1 with a full-rank dt (R = 0)
 # at mamba-130m's d_inner 1536, L = 2048, batch 1 and 4, as the wrapper cuts
-# L and as one chunk, and a ragged K = 1 case in chunks of 32
+# L and as one chunk, and a ragged K = 1 case in chunks of 32; then shapes of
+# one rank of two: L halved by the sequence-parallel scan (512 and 8 steps)
+# and d_inner halved by tensor parallelism (96 of the encoder's 192, 768 of
+# the coarsest 1536)
 _SCAN_SHAPES = [
     (2, 1, 8, 4, 3, None, 4), (2, 33, 70, 16, 0, None, 4), (1, 100, 64, 16, 5, None, 4),
     (16, 1024, 192, 16, 6, None, 4), (16, 16, 1536, 16, 48, None, 4),
@@ -60,7 +63,9 @@ _SCAN_SHAPES = [
     (1, 17, 192, 16, 6, None, 4),
     (1, 2048, 1536, 16, 0, None, 1), (4, 2048, 1536, 16, 0, None, 1),
     (1, 2048, 1536, 16, 0, 2048, 1), (4, 2048, 1536, 16, 0, 2048, 1),
-    (3, 100, 40, 16, 0, 32, 1)]
+    (3, 100, 40, 16, 0, 32, 1),
+    (12, 512, 192, 16, 6, None, 4), (12, 8, 1536, 16, 48, None, 4),
+    (12, 1024, 96, 16, 6, None, 4), (6, 16, 768, 16, 48, None, 4)]
 
 
 def _scan_case(seed, batch, L, D, N, R, shift=-2.0, a_spread=2.5, a_scale=1.0, K=4):
@@ -295,7 +300,8 @@ def _check_backward(kernel, plain, inputs, dy, counter):
     (2, 1024, 192, 16, 6, -4.0), (12, 16, 1536, 16, 48, -4.0), (2, 64, 96, 16, 0, 8.0),
     (6, 1024, 192, 16, 6, -4.0), (2, 256, 384, 16, 12, -4.0), (2, 64, 768, 16, 24, -4.0),
     (1, 15, 192, 16, 6, -4.0), (1, 17, 192, 16, 6, -4.0),
-    (4, 1024, 192, 16, 6, -4.0), (12, 4096, 192, 16, 6, -4.0), (2, 4096, 192, 16, 6, -4.0)])
+    (4, 1024, 192, 16, 6, -4.0), (12, 4096, 192, 16, 6, -4.0), (2, 4096, 192, 16, 6, -4.0),
+    (12, 8, 1536, 16, 48, -4.0), (12, 1024, 96, 16, 6, -4.0)])
 def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
     """shift 8: softplus(dt) ~ 8 per step, far past the TPU kernel's rescale
     clip; the backward is exact there too."""
