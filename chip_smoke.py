@@ -32,6 +32,15 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                the fp32 CUDA-core bound beside them, and its forward must
                repeat itself bit for bit. A `kernel_train_step` line per batch
                sums each kernel's times over a step.
+     kernel_bf16 - each of the ten kernels' bf16-I/O variants at the
+               training step's shapes (6 pairs; the encoder runs 12) on the
+               bf16 inputs a bf16 step hands it, against its plain version:
+               the output and every gradient (each in its input's dtype)
+               within 8e-3 |plain| + 8e-3 max|plain|, two launches
+               bit-identical, its time and device time beside the fp32
+               kernel's device time, and the bf16 bound (bytes halved where
+               the I/O is bf16, the MLP's products at the bf16 rate); a
+               `kernel_bf16_step` line sums them a step.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
                each training shape: error against the plain version, time.
      scan_paths - the scan kernels at every training and serving shape, and
@@ -65,6 +74,16 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                (zeroed just before) equal to 12 times the config's calls per
                step, the saved state dict loads strictly; step seconds and
                pairs/s.
+     sync_free - a warm fusion step (6 pairs) and a warm segmentation step
+               (mode both, class weights on the card, 2 pairs) at full width,
+               fp32 and bf16, under torch.cuda.set_sync_debug_mode("error"):
+               neither synchronises with the host; the fusion loss with its
+               cached band matrices bit-identical to the uncached one.
+     train_bf16 - the training CLI as in train with `--precision bf16`, 4
+               steps on 24 pairs: every loss finite, the checkpoint fp32 and
+               loading strictly, each kernel's bf16 launches equal to 4 times
+               the config's calls a step and no fp32 launch; the median step
+               and pairs/s beside train's.
      train_disk - the same CLI on a PST900-layout folder of 24 pairs at
                1280x720 written from a seed (`--dataset pst900 -j 8`, under
                FUSIONMAMBA_DATA_ROOT): 4 steps through the threaded loader and
@@ -119,6 +138,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
   8. train_parity - the same seeded weights and batches at the test config
                (64^2, batch 2), 5 steps on the card and on the CPU: each
                step's loss and every parameter's step-0 gradient.
+     train_bf16_parity - the same in bf16 (kernels' bf16 variants on the
+               card, plain versions on the CPU): each loss within 1e-2
+               relative, the masters fp32.
      seg_parity - VSSMFusionSeg at the test config (64^2, batch 2) on the
                card and on the CPU from the same weights, batches and dropout
                masks: eval-mode logits and fusion output, then 3 steps of
@@ -139,12 +161,15 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
   9. trace   - torch.profiler over three warm forwards of a batch of 8: device
                time by kernel and the card's idle share of the window.
  10. trace_train - the same over three warm training steps of 6 pairs, with
-               forward and backward kernels apart.
+               forward and backward kernels apart; trace_train_bf16 the same
+               at --precision bf16.
 Then the card's name and power limit as nvidia-smi gives them, the kernels
 line (all ten kernels, timed per training step; a kernel's device total sums
 the shapes the profiler timed, `device_shapes_covered` of `shapes`; launches
 of the training run, of the segmentation CLI's PST900 run, of the LM's scoring
-forwards and of visualize_segmentation's run), and the result line.
+forwards and of visualize_segmentation's run; bf16_launches of the bf16
+training run and the bf16 variant's times, error and bound from
+kernel_bf16), and the result line.
 Without a CUDA device it fails before any phase. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -209,6 +234,7 @@ MULTI_RANK_STEPS = 3
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 tensor cores, dense
 # exp, log and the reciprocal run on the special-function units: 16 results a
 # clock an SM, at the card's top SM clock (set in main from nvidia-smi)
 SFU_PER_CLOCK_PER_SM = 16
@@ -252,6 +278,18 @@ LM_PARITY_ATOL = 1e-4
 # gradients in another order, and Adam turns a last-bit change of a
 # near-zero gradient into a full lr step
 REMAT_LOSS_RTOL = 1e-5
+# a bf16 kernel against its plain version on the same bf16 inputs: both
+# compute in fp32 and round to bf16 at the same places, but fp32 sums in
+# another order can move a value across a rounding boundary; each output and
+# each gradient is held to two bf16 ulps of the plain value plus two of the
+# tensor's largest entry, |err| <= 8e-3 |plain| + 8e-3 max|plain|
+BF16_RTOL = BF16_ATOL_OF_MAX = 8e-3
+# bf16 training: 4 steps of the training batch through the CLI; card vs CPU
+# at the test config, each loss within 1e-2 relative (bf16 keeps about 3
+# significant digits, and the card's and the CPU's products and sums round
+# in other orders through the whole network)
+TRAIN_BF16_STEPS = 4
+TRAIN_BF16_LOSS_RTOL = 1e-2
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
 KERNELS = {
@@ -370,10 +408,16 @@ def train_calls(cfg, pairs: int, size: int, n_model: int = 1):
     return {**{k: fwd[k] + rec[k] for k in fwd}, **{k + "_bwd": c for k, c in bwd.items()}}
 
 
-def bytes_and_ops(kernel: str, shape):
-    """Bytes each call must move (inputs read once, outputs written once,
-    fp32), the fp32 operations it does and, for the scans, its calls of the
-    special-function units. A backward reads its forward's inputs and the
+def bytes_and_ops(kernel: str, shape, io: int = 4):
+    """Bytes each call must move (inputs read once, outputs written once),
+    the operations it does and, for the scans, its calls of the
+    special-function units. `io` is the bytes of an element of the kernel's
+    I/O tensors (4 for fp32, 2 for its bf16 variant: the activations, the
+    scan's dt, B, C and low-rank weight, the MLP's weights); what the kernels
+    read as fp32 whatever the I/O (the scan's A, D, bias and saved states,
+    the LN's and the dwconv's parameters, the LN-mean's output and
+    cotangent, every parameter gradient they sum in fp32 but the scan's dW
+    and the MLP's) counts 4. A backward reads its forward's inputs and the
     cotangent and writes a gradient for each input; it recomputes what its
     forward computed."""
     if kernel == "scan":
@@ -382,7 +426,7 @@ def bytes_and_ops(kernel: str, shape):
         elems = B * K * L * D
         # dt: the low-rank (B, K, L, R), or at R = 0 the full (B, K, L, D)
         dt = B * K * L * (R or D)
-        nbytes = 4 * (2 * elems + dt + 2 * B * K * L * N + K * D * (R + N + 2))
+        nbytes = io * (2 * elems + dt + 2 * B * K * L * N + K * D * R) + 4 * K * D * (N + 2)
         # per state: the exponent, the input term, two FMAs; the dt expansion
         # and softplus. Special functions: an exp per state, softplus' exp and log
         return nbytes, elems * (2 * R + 7 + 7 * N), elems * (N + 2)
@@ -392,8 +436,8 @@ def bytes_and_ops(kernel: str, shape):
         elems = B * K * L * D
         dt = B * K * L * (R or D)
         # also reads the states the forward saved every SAVE_EVERY steps
-        nbytes = 4 * (3 * elems + elems * N // scan_cuda.SAVE_EVERY
-                      + 2 * (dt + 2 * B * K * L * N) + 2 * K * D * (R + N + 2))
+        nbytes = (io * (3 * elems + 2 * (dt + 2 * B * K * L * N) + 2 * K * D * R)
+                  + 4 * (elems * N // scan_cuda.SAVE_EVERY + 2 * K * D * (N + 2)))
         # recompute (exp, 2 FMAs per state) and the adjoint (about 16 per
         # state), the dt expansion, its two gradients, softplus and its slope.
         # Special functions the gradients need: an exp per state, softplus'
@@ -404,29 +448,30 @@ def bytes_and_ops(kernel: str, shape):
     if kernel == "layer_norm":
         rows, C, gate = shape
         n = rows * C
-        return 4 * (n * (2 + (gate != "none")) + 2 * C), n * (7 + _GATE_OPS[gate]), 0
+        return io * n * (2 + (gate != "none")) + 4 * 2 * C, n * (7 + _GATE_OPS[gate]), 0
     if kernel == "layer_norm_bwd":
         rows, C, gate = shape
         n = rows * C
-        return 4 * (n * (3 + 2 * (gate != "none")) + 4 * C), n * (16 + 2 * _GATE_OPS[gate]), 0
+        return (io * n * (3 + 2 * (gate != "none")) + 4 * 4 * C,
+                n * (16 + 2 * _GATE_OPS[gate]), 0)
     if kernel == "ln_mean":
         B, rows, C = shape
-        return 4 * (B * rows * C + B * C + 2 * C), 8 * B * rows * C, 0
+        return io * B * rows * C + 4 * (B * C + 2 * C), 8 * B * rows * C, 0
     if kernel == "ln_mean_bwd":
         B, rows, C = shape
-        return 4 * (2 * B * rows * C + B * C + 3 * C), 12 * B * rows * C, 0
+        return io * 2 * B * rows * C + 4 * (B * C + 3 * C), 12 * B * rows * C, 0
     if kernel in ("dwconv", "dwconv_bwd"):
         B, H, W, C = shape
         n = B * H * W * C
         if kernel == "dwconv":
-            return 4 * (2 * n + 10 * C), n * (18 + 1 + 4), 0
+            return io * 2 * n + 4 * 10 * C, n * (18 + 1 + 4), 0
         # pre (18), silu' (8), dx (18), dw (18), dbias (1)
-        return 4 * (3 * n + 20 * C), n * 63, 0
+        return io * 3 * n + 4 * 20 * C, n * 63, 0
     M, C, H = shape
     if kernel == "mlp":
-        return 4 * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H), 0
+        return io * (2 * M * C + 2 * C * H + H + C), M * (4 * C * H + 10 * H), 0
     # five products of 2*M*C*H (h, dy W2, dx, dW1, dW2), GELU and its slope
-    return 4 * (3 * M * C + 4 * C * H + 2 * H + 2 * C), M * (10 * C * H + 30 * H), 0
+    return io * (3 * M * C + 4 * C * H + 2 * H + 2 * C), M * (10 * C * H + 30 * H), 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -442,11 +487,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def make_case(kernel, shape, dev, gen):
+def make_case(kernel, shape, dev, gen, dtype=torch.float32):
     """(inputs, op, plain, library or None, backward) on seeded inputs at
     `shape`, scaled as the model's activations and parameters are: op,
     plain and library take the inputs; backward(inputs, dy) calls the
-    backward kernel's wrapper directly."""
+    backward kernel's wrapper directly. With dtype bf16 the inputs are the
+    bf16 casts that a bf16 training step hands the ops (the parameters
+    included; the scan's A, D and bias stay fp32, as SS2D passes them), and
+    the backward passes what its kernel reads as fp32 as fp32, as the ops do
+    (`.float()` is the identity on an fp32 tensor)."""
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
@@ -460,6 +509,7 @@ def make_case(kernel, shape, dev, gen):
                   rnd(B, K, L, N), rnd(B, K, L, N), rnd(K, D, scale=0.1, shift=1.0),
                   rnd(K, D, scale=1.0, shift=-4.0),
                   rnd(K, D, R, scale=R ** -0.5) if R else None]
+        inputs = [t if t is None or i in (2, 5, 6) else t.to(dtype) for i, t in enumerate(inputs)]
 
         def backward(t, dy):
             _, hsave = scan_cuda.selective_scan_fwd(*t[:7], True, t[7], save_states=True)
@@ -475,10 +525,12 @@ def make_case(kernel, shape, dev, gen):
         inputs = [rnd(rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)]
         if gate_act != "none":
             inputs.append(rnd(rows, C))
+        inputs = [t.to(dtype) for t in inputs]
 
         def backward(t, dy):
-            return lambda: layer_norm.layer_norm_bwd(*t[:3], t[3] if len(t) > 3 else None, dy,
-                                                     1e-6, gate_act)
+            return lambda: layer_norm.layer_norm_bwd(t[0], t[1].float(), t[2].float(),
+                                                     t[3] if len(t) > 3 else None, dy, 1e-6,
+                                                     gate_act)
 
         # F.layer_norm computes the same function only without a gate
         library = (lambda x, s, b: F.layer_norm(x, (C,), s, b, 1e-6)) if gate_act == "none" \
@@ -488,22 +540,25 @@ def make_case(kernel, shape, dev, gen):
                 library, backward)
     if kernel == "ln_mean":
         B, rows, C = shape
-        return ([rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C)],
+        return ([t.to(dtype) for t in (rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C))],
                 lambda *t: layer_norm.ln_spatial_mean(*t, 1e-5),
                 lambda *t: layer_norm.ln_spatial_mean_plain(*t, 1e-5), None,
-                lambda t, dm: lambda: layer_norm.ln_spatial_mean_bwd(t[0], t[1], dm, 1e-5))
+                lambda t, dm: lambda: layer_norm.ln_spatial_mean_bwd(t[0], t[1].float(), dm,
+                                                                     1e-5))
     if kernel == "dwconv":
         B, H, W, C = shape
-        return ([rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C, scale=1 / 3)],
+        return ([t.to(dtype) for t in (rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3),
+                                       rnd(C, scale=1 / 3))],
                 lambda *t: dwconv.depthwise_conv3x3(*t, "silu"),
                 lambda *t: dwconv.depthwise_conv3x3_plain(*t, "silu"),
                 lambda x, w, b: F.silu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1)[:, None],
                                                 b, padding=1, groups=C)).permute(0, 2, 3, 1),
-                lambda t, dy: lambda: dwconv.dwconv_bwd(*t, dy, "silu"))
+                lambda t, dy: lambda: dwconv.dwconv_bwd(t[0], t[1].float(), t[2].float(), dy,
+                                                        "silu"))
     M, C, H = shape
     # nn.Linear's (out, in) weights, passed as `.t()` views as Mlp.forward does
-    return ([rnd(M, C), rnd(H, C, scale=0.02), torch.zeros(H, device=dev),
-             rnd(C, H, scale=0.02), torch.zeros(C, device=dev)],
+    return ([t.to(dtype) for t in (rnd(M, C), rnd(H, C, scale=0.02), torch.zeros(H, device=dev),
+                                   rnd(C, H, scale=0.02), torch.zeros(C, device=dev))],
             lambda x, w1, b1, w2, b2: mlp.fused_mlp(x, w1.t(), b1, w2.t(), b2),
             lambda x, w1, b1, w2, b2: mlp.fused_mlp_plain(x, w1.t(), b1, w2.t(), b2),
             lambda x, w1, b1, w2, b2: F.linear(F.gelu(F.linear(x, w1, b1)), w2, b2),
@@ -531,12 +586,16 @@ def device_ms(fn, reps: int = 3):
     return None
 
 
-def _bound(kernel, shape):
+def _bound(kernel, shape, io: int = 4):
     """(bytes ms, operations ms at the rate the kernel's design uses,
-    special-function ms, bound ms on the fp32 CUDA cores)."""
-    nbytes, nops, nsfu = bytes_and_ops(kernel, shape)
+    special-function ms, bound ms on the fp32 CUDA cores) at I/O elements of
+    `io` bytes. The MLP's products run on the tensor cores: in fp32 at a
+    third of the TF32 rate (3xTF32), in bf16 (io 2) the work is bf16
+    products at the bf16 rate."""
+    nbytes, nops, nsfu = bytes_and_ops(kernel, shape, io)
     bytes_ms, cores_ms = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * nops / FP32_OPS_PER_S
-    ops_ms = 1e3 * nops / (TF32_OPS_PER_S / 3) if kernel in TENSOR_CORE_KERNELS else cores_ms
+    tensor_rate = TF32_OPS_PER_S / 3 if io == 4 else BF16_OPS_PER_S
+    ops_ms = 1e3 * nops / tensor_rate if kernel in TENSOR_CORE_KERNELS else cores_ms
     return bytes_ms, ops_ms, 1e3 * nsfu / SFU_CALLS_PER_S, max(bytes_ms, cores_ms)
 
 
@@ -869,12 +928,17 @@ _COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launc
              "mlp": (mlp, "launches"), "mlp_bwd": (mlp, "bwd_launches")}
 
 
-def read_launches(kernels=KERNELS):
-    return {k: getattr(*_COUNTERS[k]) for k in kernels}
+# where each kernel's bf16-variant counter lives (the counters above count
+# the launches of both variants)
+_BF16_COUNTERS = {k: (module, "bf16_" + name) for k, (module, name) in _COUNTERS.items()}
+
+
+def read_launches(kernels=KERNELS, bf16=False):
+    return {k: getattr(*(_BF16_COUNTERS if bf16 else _COUNTERS)[k]) for k in kernels}
 
 
 def zero_launches():
-    for module, name in _COUNTERS.values():
+    for module, name in (*_COUNTERS.values(), *_BF16_COUNTERS.values()):
         setattr(module, name, 0)
 
 
@@ -948,7 +1012,7 @@ def phase_parity(dev):
 
 def phase_train(calls, smi):
     """12 full-width training steps through the training CLI; returns the
-    ten launch counts."""
+    ten launch counts and the phase's line."""
     steps = TRAIN_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", str(TRAIN_PAIRS * steps), "-B", str(TRAIN_PAIRS), "-E", "1",
@@ -967,15 +1031,16 @@ def phase_train(calls, smi):
     if launches != expected:
         fail(f"training launch counts {launches} differ from the config's {expected}")
     warm = stats["step_seconds"][1:]
-    emit({"phase": "train", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
-          "losses": stats["losses"], "launches": launches, "expected_launches": expected,
-          "calls_per_step": {k: sum(c.values()) for k, c in calls.items()},
-          "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
-          "median_warm_step_s": float(np.median(warm)),
-          "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
-          "warm_run_pairs_per_s": TRAIN_PAIRS * len(warm) / float(np.sum(warm)),
-          "cli_seconds": stats["seconds"], "card": smi})
-    return launches
+    line = {"phase": "train", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
+            "losses": stats["losses"], "launches": launches, "expected_launches": expected,
+            "calls_per_step": {k: sum(c.values()) for k, c in calls.items()},
+            "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
+            "median_warm_step_s": float(np.median(warm)),
+            "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
+            "warm_run_pairs_per_s": TRAIN_PAIRS * len(warm) / float(np.sum(warm)),
+            "cli_seconds": stats["seconds"], "card": smi}
+    emit(line)
+    return launches, line
 
 
 def _write_pst900(root: str, splits, seed: int = 0) -> None:
@@ -1143,6 +1208,229 @@ def phase_evaluate(serving_dir: str):
         fail(f"evaluation of {len(got['rows'])} pairs: a metric is not finite")
     if means["ssim_vs_reference"] != 1.0:
         fail(f"SSIM of the outputs against themselves is {means['ssim_vs_reference']}, not 1")
+
+
+def _bf16_check(got, want):
+    """(max abs error, within BF16_RTOL |want| + BF16_ATOL_OF_MAX max|want|
+    and of want's dtype)."""
+    g, w = got.float(), want.float()
+    e = (g - w).abs()
+    ok = bool(torch.all(e <= BF16_RTOL * w.abs() + BF16_ATOL_OF_MAX * float(w.abs().max())))
+    return float(e.max()), ok and got.dtype == want.dtype
+
+
+def phase_kernel_bf16(tcalls, dev, checked, smi):
+    """Each of the ten kernels' bf16 variants at every shape of a training
+    step (6 pairs; the encoder runs 12), on the bf16 inputs a bf16 step
+    hands it, against its plain version on the same inputs: the output (and
+    through the op's autograd Function every input's gradient, each in its
+    input's dtype) within BF16_RTOL / BF16_ATOL_OF_MAX, two launches
+    bit-identical, the kernel's time and device time beside the fp32
+    kernel's device time at the shape (kernel_train's, from `checked`), and
+    the bf16 bound (bytes halved where I/O is bf16; the MLP's products at the
+    bf16 rate). Returns the per-step sums of each kernel."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    sums = {}
+    for op in OPS:
+        for k in (op, op + "_bwd"):
+            sums[k] = dict(device_ms=0.0, fp32_device_ms=0.0, ms=0.0, bound_ms=0.0,
+                           fp32_bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, sfu_ms=0.0,
+                           max_abs_err=0.0, shapes=0)
+        for shape, n in sorted(tcalls[op].items(), key=str):
+            n_bwd = tcalls[op + "_bwd"][shape]
+            inputs, fn, plain, _, backward = make_case(op, shape, dev, gen, torch.bfloat16)
+            reps = 5 if op == "scan" else 20
+            for k, calls in [(op, n)] + ([(op + "_bwd", n_bwd)] if n_bwd else []):
+                if k == op:
+                    with torch.no_grad():
+                        got, again, want = fn(*inputs), fn(*inputs), plain(*inputs)
+                        torch.cuda.synchronize()
+                        err, ok = _bf16_check(got, want)
+                        same = torch.equal(got, again)
+
+                        def run():
+                            return fn(*inputs)
+
+                        ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                else:
+                    live = [t.detach().requires_grad_(True) for t in inputs]
+                    with torch.no_grad():
+                        out = fn(*live)
+                    dy = torch.randn(out.shape, device=dev, generator=gen).to(out.dtype)
+                    del out
+                    got, want = _grads(fn, live, dy), _grads(plain, live, dy)
+                    torch.cuda.synchronize()
+                    err, ok = 0.0, True
+                    for t, g, w in zip(live, got, want):
+                        e, good = _bf16_check(g, w)
+                        err, ok = max(err, e), ok and good and g.dtype == t.dtype
+                    with torch.no_grad():
+                        run = backward([t.detach() for t in inputs], dy)
+                        first, second = run(), run()
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(a, b) for a, b in zip(first, second)
+                                   if a is not None)
+                        ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                b = _bound(k, shape, io=2)
+                fp32_dev = checked[(k, shape)][4]
+                fp32_bound = max(_bound(k, shape)[:3])
+                emit({"phase": "kernel_bf16", "kernel": k, "shape": list(shape),
+                      "pairs": TRAIN_PAIRS, "calls_per_step": calls, "max_abs_err": err,
+                      "rtol": BF16_RTOL, "atol_of_max": BF16_ATOL_OF_MAX, "ok": ok,
+                      "bit_identical_twice": same, "kernel_ms": ms, "kernel_device_ms": dev_ms,
+                      "fp32_kernel_device_ms": fp32_dev, "fp32_bound_ms": fp32_bound,
+                      **_bound_fields(k, *b, dev_ms), "card": smi})
+                if not ok:
+                    fail(f"{k} bf16 at {shape} disagrees with its plain version "
+                         f"(max abs err {err})")
+                if not same:
+                    fail(f"{k} bf16 at {shape} differs between two launches")
+                agg = sums[k]
+                agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                agg["shapes"] += 1
+                agg["ms"] += calls * ms
+                agg["device_ms"] += calls * (dev_ms or 0.0)
+                agg["fp32_device_ms"] += calls * (fp32_dev or 0.0)
+                agg["bound_ms"] += calls * max(b[:3])
+                agg["fp32_bound_ms"] += calls * fp32_bound
+                for name, v in zip(("bytes_ms", "ops_ms", "sfu_ms"), b[:3]):
+                    agg[name] += calls * v
+            del inputs
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel_bf16_step", "pairs": TRAIN_PAIRS, "per_step": sums, "card": smi})
+    return sums
+
+
+def phase_sync_free(dev, smi):
+    """A warm fusion step (full config, 6 pairs) and a warm segmentation
+    step (mode both, the improved loss with class weights on the card, 2
+    pairs), each at fp32 and at bf16, under
+    torch.cuda.set_sync_debug_mode("error"): no host-device synchronisation
+    inside either step; and the fusion loss with its cached band matrices
+    bit-identical to the loss with fresh ones (the parent's formula)."""
+    from fusionmamba_torch.losses import fusion_loss
+    ssim_mod = sys.modules["fusionmamba_torch.losses.ssim"]
+    rng = np.random.default_rng(9)
+
+    def images(b):
+        return [torch.from_numpy((0.02 + 0.2 * rng.uniform(0, 1, (b, SIZE, SIZE, 1))).astype(
+            np.float32)).to(dev) for _ in range(2)]
+
+    vis, ir = images(TRAIN_PAIRS)
+    svis, sir = images(SEG_PAIRS[0])
+    lbl = torch.from_numpy(rng.integers(0, 5, (SEG_PAIRS[0], SIZE, SIZE))).to(dev)
+    weights = compute_class_weights([9e3, 3e2, 1e3, 2e2, 4e3]).to(dev)
+    line = {"phase": "sync_free", "card": smi}
+    for precision in ("fp32", "bf16"):
+        dtype = train.resolve_compute_dtype(precision)
+        net = init_weights(VSSMFusion(full_config()), seed=0).to(dev)
+        opt = train.make_fusion_optimizer(net.parameters())
+        seg = init_weights(VSSMFusionSeg(full_config(num_seg_classes=5)), seed=0).to(dev)
+        seg_opt = train.make_seg_optimizer(seg.parameters())
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def steps():
+            a = train.fusion_train_step(net, opt, vis, ir, gen, compute_dtype=dtype)
+            b = train.seg_train_step(seg, seg_opt, svis, sir, lbl, num_classes=5, mode="both",
+                                     class_weights=weights, improved=True, generator=gen,
+                                     compute_dtype=dtype)
+            return a, b
+
+        steps()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a, b = steps()
+        except RuntimeError as e:
+            fail(f"a warm {precision} training step synchronised with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        vals = [float(v) for v in (*a.values(), *b.values())]
+        if not all(math.isfinite(v) for v in vals):
+            fail(f"sync_free {precision}: losses {vals}")
+        line[precision + "_losses"] = vals
+        del net, opt, seg, seg_opt
+        torch.cuda.empty_cache()
+    cached = fusion_loss(vis, ir, vis.flip(0))
+    orig = ssim_mod.band_tensor
+    ssim_mod.band_tensor = lambda taps, L, same, device: torch.from_numpy(
+        ssim_mod.band_matrix(taps, L, same)).to(device)
+    try:
+        fresh = fusion_loss(vis, ir, vis.flip(0))
+    finally:
+        ssim_mod.band_tensor = orig
+    line["loss_bit_identical_to_uncached"] = all(torch.equal(x, y) for x, y in zip(cached, fresh))
+    emit(line)
+    if not line["loss_bit_identical_to_uncached"]:
+        fail("the fusion loss with cached band matrices differs from the uncached one")
+
+
+def phase_train_bf16(tcalls, smi, fp32_line):
+    """`python -m fusionmamba_torch.train --model full -B 6 -E 1 --synthetic
+    24 -j 0 --precision bf16`: 4 mixed-precision steps. Every loss finite,
+    the saved state dict fp32 and loading strictly, each kernel's bf16
+    launches equal to 4 x the config's calls a step and no fp32 launch; the
+    median step and pairs/s beside the fp32 train phase's of this call (no
+    claim: bf16 is not tuned for speed yet)."""
+    steps = TRAIN_BF16_STEPS
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--synthetic", str(TRAIN_PAIRS * steps), "-B", str(TRAIN_PAIRS), "-E", "1",
+                "-j", "0", "--model", "full", "--device", "cuda", "--ckpt_dir", tmp,
+                "--precision", "bf16"]
+        zero_launches()
+        stats = train.main(argv)
+        torch.cuda.synchronize()
+        total, bf16 = read_launches(), read_launches(bf16=True)
+        path = os.path.join(tmp, "fusion_model_pst900.pth")
+        saved = torch.load(path, weights_only=True)
+        fp32_saved = all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
+        load_reference_checkpoint(VSSMFusion(full_config()), path)
+    torch.cuda.empty_cache()
+    expected = {k: stats["steps"] * sum(c.values()) for k, c in tcalls.items()}
+    fp32_launches = {k: total[k] - bf16[k] for k in total}
+    warm = stats["step_seconds"][1:]
+    emit({"phase": "train_bf16", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
+          "losses": stats["losses"], "bf16_launches": bf16, "fp32_launches": fp32_launches,
+          "expected_bf16_launches": expected, "checkpoint_fp32": fp32_saved,
+          "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
+          "median_warm_step_s": float(np.median(warm)),
+          "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
+          "fp32_median_warm_step_s": fp32_line["median_warm_step_s"],
+          "fp32_pairs_per_s": fp32_line["pairs_per_s"], "card": smi})
+    if stats["steps"] != steps or not all(math.isfinite(v) for v in stats["losses"]):
+        fail(f"bf16 training ran {stats['steps']} steps with losses {stats['losses']}")
+    if not fp32_saved:
+        fail("bf16 training saved a state dict that is not fp32")
+    if bf16 != expected or any(fp32_launches.values()):
+        fail(f"bf16 training launches: bf16 {bf16} (expected {expected}), fp32 {fp32_launches}")
+    return bf16
+
+
+def phase_train_bf16_parity(dev, smi, steps: int = 5):
+    """The same seeded weights and batches at the test config (64^2, batch 2)
+    in bf16, 5 steps on the card (kernels) and on the CPU (plain versions):
+    each loss within TRAIN_BF16_LOSS_RTOL; the masters stay fp32."""
+    ds = SyntheticFusionDataset(length=2 * steps, size=(64, 64), seed=4)
+    batches = list(batch_iterator(ds, 2, shuffle=True, seed=1))
+    runs = {}
+    for device in (torch.device("cpu"), dev):
+        net = init_weights(VSSMFusion(test_config(drop_path_rate=0.0)), seed=0).to(device)
+        opt = train.make_fusion_optimizer(net.parameters())
+        losses = []
+        for vis_y, ir in batches:
+            m = train.fusion_train_step(net, opt, torch.from_numpy(vis_y).to(device),
+                                        torch.from_numpy(ir).to(device),
+                                        compute_dtype=torch.bfloat16)
+            losses.append(float(m["loss_total"]))
+        if not all(p.dtype == torch.float32 for p in net.parameters()):
+            fail("bf16 training left a master parameter that is not fp32")
+        runs[device.type] = losses
+    rel = [abs(a - b) / abs(a) for a, b in zip(runs["cpu"], runs["cuda"])]
+    emit({"phase": "train_bf16_parity", "steps": steps, "losses_cpu": runs["cpu"],
+          "losses_card": runs["cuda"], "loss_rel_err": rel, "loss_rtol": TRAIN_BF16_LOSS_RTOL,
+          "card": smi})
+    if max(rel) > TRAIN_BF16_LOSS_RTOL:
+        fail(f"card vs CPU bf16 training: loss rel err {max(rel)}")
 
 
 def phase_train_parity(dev, steps: int = 5):
@@ -1869,9 +2157,12 @@ def phase_trace(dev, forwards: int = 3):
           "device_ms_per_forward": {k: v / 1e3 / forwards for k, v in by_kernel.most_common()}})
 
 
-def phase_trace_train(dev, steps: int = 3):
+def phase_trace_train(dev, steps: int = 3, precision: str = "fp32"):
     """The same over `steps` warm training steps of the training path's
-    batch (full config, 6 pairs of 256^2, DropPath on)."""
+    batch (full config, 6 pairs of 256^2, DropPath on), at `precision`
+    (phase `trace_train`, and `trace_train_bf16` for bf16)."""
+    phase = "trace_train" if precision == "fp32" else "trace_train_" + precision
+    dtype = train.resolve_compute_dtype(precision)
     gc.collect()
     torch.cuda.empty_cache()
     net = init_weights(VSSMFusion(full_config()), seed=0).to(dev)
@@ -1880,15 +2171,16 @@ def phase_trace_train(dev, steps: int = 3):
     x1, x2 = (torch.rand(TRAIN_PAIRS, SIZE, SIZE, 1, device=dev, generator=gen)
               for _ in range(2))
     for _ in range(2):
-        train.fusion_train_step(net, opt, x1, x2, gen)
-    got = _trace(lambda: train.fusion_train_step(net, opt, x1, x2, gen), steps)
+        train.fusion_train_step(net, opt, x1, x2, gen, compute_dtype=dtype)
+    got = _trace(lambda: train.fusion_train_step(net, opt, x1, x2, gen, compute_dtype=dtype),
+                 steps)
     del net, opt
     torch.cuda.empty_cache()
     if got is None:
-        emit({"phase": "trace_train", "device_time": "not measured (no device events)"})
+        emit({"phase": phase, "device_time": "not measured (no device events)"})
         return
     window, busy, by_kernel = got
-    emit({"phase": "trace_train", "steps": steps, "pairs_per_step": TRAIN_PAIRS,
+    emit({"phase": phase, "steps": steps, "pairs_per_step": TRAIN_PAIRS,
           "window_ms": window, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window,
           "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()}})
 
@@ -1913,7 +2205,9 @@ def main() -> None:
           "special_function_calls_per_s": SFU_CALLS_PER_S,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "allow_tf32": [torch.backends.cuda.matmul.allow_tf32,
-                         torch.backends.cudnn.allow_tf32]})
+                         torch.backends.cudnn.allow_tf32],
+          "allow_bf16_reduced_precision_reduction":
+              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
 
     t0 = time.perf_counter()
     path, log = cuda_lib.build()
@@ -1934,6 +2228,7 @@ def main() -> None:
             k: _brief(r) for k, r in per_step.items()}})
     emit({"phase": "kernel_train_step", "pairs": TRAIN_PAIRS, "per_step": {
         k: _brief(r) for k, r in results.items()}})
+    bf16 = phase_kernel_bf16(tcalls, dev, checked, smi)
     phase_mlp_paths(tcalls["mlp"], dev)
     phase_scan_paths(tcalls["scan"], calls["scan"],
                      fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)
@@ -1948,7 +2243,9 @@ def main() -> None:
         phase_main_path(calls, smi, serving_dir)
         phase_evaluate(serving_dir)
     phase_parity(dev)
-    launches = phase_train(tcalls, smi)
+    launches, train_line = phase_train(tcalls, smi)
+    phase_sync_free(dev, smi)
+    bf16_launches = phase_train_bf16(tcalls, smi, train_line)
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         _write_pst900(root, {"train": TRAIN_PAIRS * DISK_STEPS, "test": SEG_TEST_PAIRS})
@@ -1971,6 +2268,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_lm_parity(dev)
     phase_train_parity(dev)
+    phase_train_bf16_parity(dev, smi)
     phase_seg_parity(dev)
     with tempfile.TemporaryDirectory() as tmp:
         reference = phase_one_rank_reference(tmp, smi)
@@ -1979,6 +2277,7 @@ def main() -> None:
     phase_remat_train(dev, smi)
     phase_trace(dev)
     phase_trace_train(dev)
+    phase_trace_train(dev, precision="bf16")
 
     kernels = []
     for k, (route, source, replaces) in KERNELS.items():
@@ -1997,14 +2296,20 @@ def main() -> None:
             "ms_at_library_shapes": r["ms_at_library_shapes"],
             "device_ms_at_library_shapes": r["device_ms_at_library_shapes"],
             **({"fp32_cores_bound_ms": r["fp32_cores_bound_ms"]}
-               if k in TENSOR_CORE_KERNELS else {})})
+               if k in TENSOR_CORE_KERNELS else {}),
+            "bf16_launches": bf16_launches[k], "bf16_max_abs_err": bf16[k]["max_abs_err"],
+            "bf16_ms": bf16[k]["ms"], "bf16_device_ms": bf16[k]["device_ms"],
+            "bf16_bound_ms": bf16[k]["bound_ms"],
+            "bf16_bound_by": _bound_by(k, bf16[k]["bytes_ms"], bf16[k]["ops_ms"],
+                                       bf16[k]["sfu_ms"])["bound_by"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "times": "per training step of the main path (full config, 6 pairs of 256^2): "
                    "sum over its shapes of calls x time; launches from the 12-step run, "
                    "launches_train_seg from the segmentation CLI's PST900 run, launches_lm "
                    "from the LM's scoring forwards, launches_visualize from "
                    "visualize_segmentation's run, launches_<run>_rank0 from rank 0 of "
-                   "each two-rank training run"})
+                   "each two-rank training run; bf16_launches from the 4-step bf16 run "
+                   "(train_bf16), the bf16_* times, errors and bounds from kernel_bf16"})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

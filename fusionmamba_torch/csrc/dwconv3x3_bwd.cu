@@ -1,4 +1,6 @@
-// Depthwise 3x3 SAME convolution + bias (+ SiLU) backward for Hopper (sm_90a), fp32, NHWC.
+// Depthwise 3x3 SAME convolution + bias (+ SiLU) backward for Hopper (sm_90a), NHWC,
+// fp32 or bf16 x, dy and dx (the weight, the bias, dw, dbias and every sum
+// fp32 either way).
 //
 // Replaces fusionmamba_tpu/ops/dwconv_pallas.py::_bwd_kernel (built by
 // _bwd_pallas). The forward (dwconv3x3_fwd.cu) is
@@ -34,14 +36,19 @@
 // interleaved slices in order and then the slices in order. No atomics, so
 // two launches give the same bits. The tile, the grid and the shared memory
 // come from the Python wrapper (fusionmamba_torch/ops/dwconv.py::bwd_plan);
-// this file checks them. C not a multiple of 4, or an x, dy or dx not 16-byte
-// aligned, takes the same kernel with scalar, masked loads and stores (VEC =
-// false). All index arithmetic is 32-bit (the entry point rejects tensors of
-// 2^31 elements or more).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// this file checks them. C not a multiple of 4, or an x, dy or dx not aligned
+// to 4 elements, takes the same kernel with scalar, masked loads and stores
+// (VEC = false). All index arithmetic is 32-bit (the entry point rejects
+// tensors of 2^31 elements or more). With bf16 I/O the tiles are staged as
+// fp32, each value converted as it is loaded (plain 8-byte loads: cp.async
+// cannot convert), so dz, the sums and dw stay fp32, and dx is rounded to
+// bf16 as it is stored.
+#include "io_types.cuh"
 
 namespace {
+
+using fm_io::from_f;
+using fm_io::to_f;
 
 constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 227 * 1024;  // the most a block can opt in to on the H100
@@ -78,25 +85,27 @@ __device__ __forceinline__ float dsilu(float g, float pre, float b) {
 // Stage column ww of an image (channels c..c+3), window rows k0..k1-1,
 // into dst (the window's column, one float4 a row, ld float4s apart); row k
 // of the window is image row r0 + k. Zeros outside the image and past C.
-template <bool VEC>
-__device__ __forceinline__ void stage_col(float4* dst, int ld, const float* img, int k0, int k1,
+template <bool VEC, class IO>
+__device__ __forceinline__ void stage_col(float4* dst, int ld, const IO* img, int k0, int k1,
                                           int r0, int ww, int H, int W, int C, int c) {
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool col_ok = ww >= 0 && ww < W && c < C;
-  const float* src = img + ((r0 + k0) * W + ww) * C + c;
+  const IO* src = img + ((r0 + k0) * W + ww) * C + c;
   dst += k0 * ld;
   for (int k = k0; k < k1; ++k, src += W * C, dst += ld) {
     const int hh = r0 + k;
     if (!col_ok || hh < 0 || hh >= H) {
       *dst = zero;
+    } else if (VEC && sizeof(IO) == sizeof(float)) {
+      cp_async_16(dst, reinterpret_cast<const float*>(src));
     } else if (VEC) {
-      cp_async_16(dst, src);
+      *dst = fm_io::load4(src);
     } else {
       float4 v;
-      v.x = src[0];
-      v.y = c + 1 < C ? src[1] : 0.f;
-      v.z = c + 2 < C ? src[2] : 0.f;
-      v.w = c + 3 < C ? src[3] : 0.f;
+      v.x = to_f(src[0]);
+      v.y = c + 1 < C ? to_f(src[1]) : 0.f;
+      v.z = c + 2 < C ? to_f(src[2]) : 0.f;
+      v.w = c + 3 < C ? to_f(src[3]) : 0.f;
       *dst = v;
     }
   }
@@ -105,11 +114,11 @@ __device__ __forceinline__ void stage_col(float4* dst, int ld, const float* img,
 // Four blocks an SM (the plan's grid where shared memory allows): it caps
 // registers at 128, against 135 left to itself (three blocks an SM, which
 // timed slower on the card); ptxas then spills 4 bytes in some variants.
-template <int CQ, bool VEC>
+template <class IO, int CQ, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-dwconv3x3_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, const float* __restrict__ dy,
-                     float* __restrict__ dx, float* __restrict__ part, int B, int H, int W, int C,
+dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, const IO* __restrict__ dy,
+                     IO* __restrict__ dx, float* __restrict__ part, int B, int H, int W, int C,
                      int TW, int TH, int act_silu) {
   extern __shared__ float4 smem[];
   const int q = threadIdx.x % CQ, tw = threadIdx.x / CQ;
@@ -171,7 +180,7 @@ dwconv3x3_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        W, C, c);
       }
     }
-    if (VEC) {
+    if (VEC && sizeof(IO) == sizeof(float)) {
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
@@ -233,7 +242,7 @@ dwconv3x3_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
     // outputs t = rr-1 (i = 0), rr-2 (i = 1), rr-3 (i = 2).
     const float4* zr = zs + tw * CQ + q;
     const float4* xr = xs + (tw + 1) * CQ + q;
-    float* out = dx + img + ((h0 - 2) * W + w0 + tw) * C + c;
+    IO* out = dx + img + ((h0 - 2) * W + w0 + tw) * C + c;
     const bool col_ok = w0 + tw < W && c < C;
     float4 d0 = zero, d1 = zero;  // dx sums of rows rr-2, rr-1
     float4 z1 = zero, z2 = zero;  // dz of outputs rr-2, rr-3
@@ -247,12 +256,12 @@ dwconv3x3_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
         taps(d0, v2, v1, v0, wt);
         if (rr >= 2 && h0 + rr - 2 < H && col_ok) {
           if (VEC) {
-            *reinterpret_cast<float4*>(out) = d0;
+            fm_io::store4(out, d0);
           } else {
-            out[0] = d0.x;
-            if (c + 1 < C) out[1] = d0.y;
-            if (c + 2 < C) out[2] = d0.z;
-            if (c + 3 < C) out[3] = d0.w;
+            out[0] = from_f<IO>(d0.x);
+            if (c + 1 < C) out[1] = from_f<IO>(d0.y);
+            if (c + 2 < C) out[2] = from_f<IO>(d0.z);
+            if (c + 3 < C) out[3] = from_f<IO>(d0.w);
           }
         }
         d0 = d1;
@@ -325,13 +334,13 @@ dwconv3x3_bwd_reduce(const float* __restrict__ part, int P, int n, float* __rest
   }
 }
 
-template <int CQ>
-int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const float* x,
-           const float* w, const float* bias, const float* dy, float* dx, float* part, int B,
-           int H, int W, int C, int tw, int th, int act_silu) {
+template <class IO, int CQ>
+int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const IO* x,
+           const float* w, const float* bias, const IO* dy, IO* dx, float* part, int B, int H,
+           int W, int C, int tw, int th, int act_silu) {
   // above 48 KB a block's dynamic shared memory needs an opt-in, once per kernel
   static bool opted[2] = {false, false};
-  auto kernel = vec ? dwconv3x3_bwd_kernel<CQ, true> : dwconv3x3_bwd_kernel<CQ, false>;
+  auto kernel = vec ? dwconv3x3_bwd_kernel<IO, CQ, true> : dwconv3x3_bwd_kernel<IO, CQ, false>;
   if (smem > 48 * 1024 && !opted[vec]) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
@@ -342,17 +351,10 @@ int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, cons
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// cq, tw, th: the tile (4*cq channels, tw columns, th rows); grid_x: the
-// channel blocks, ceil(C / (4 cq)); grid_y: the blocks that walk a channel
-// block's tiles, each writing one (10, C) partial into part (grid_y, 10, C);
-// out (10, C): rows 0..8 dw's taps i*3+j, row 9 dbias. smem: the plan's
-// dynamic shared memory (dwconv.py::bwd_plan), checked here.
-extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bias,
-                                const float* dy, float* dx, float* part, float* out, int B, int H,
-                                int W, int C, int act_silu, int cq, int tw, int th, int grid_x,
-                                int grid_y, cudaStream_t stream) {
+template <class IO>
+int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, IO* dx,
+                  float* part, float* out, int B, int H, int W, int C, int act_silu, int cq,
+                  int tw, int th, int grid_x, int grid_y, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || (long long)B * H * W * C >= (1ll << 31) || tw < 1 ||
       th < 1 || cq * tw > kMaxThreads) {
     return (int)cudaErrorInvalidValue;
@@ -364,17 +366,19 @@ extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bia
       grid_y > 65535 || smem > kMaxSmem || (long long)grid_y * 10 * C >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
-  const bool vec = C % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)dy & 15) == 0 &&
-                   ((uintptr_t)dx & 15) == 0;
+  // 4 elements a thread: 16 bytes in fp32, 8 in bf16
+  const uintptr_t align = 4 * sizeof(IO) - 1;
+  const bool vec = C % 4 == 0 && ((uintptr_t)x & align) == 0 && ((uintptr_t)dy & align) == 0 &&
+                   ((uintptr_t)dx & align) == 0;
   const dim3 grid(grid_x, grid_y);
   const int threads = cq * tw;
   int err;
   switch (cq) {
-    case 1: err = launch<1>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 2: err = launch<2>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 4: err = launch<4>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 8: err = launch<8>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 16: err = launch<16>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 1: err = launch<IO, 1>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 2: err = launch<IO, 2>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 4: err = launch<IO, 4>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 8: err = launch<IO, 8>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 16: err = launch<IO, 16>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != 0) return err;
@@ -382,4 +386,28 @@ extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bia
                          dim3(kReduceCols, kReduceSlices), 0, stream>>>(part, grid_y, 10 * C,
                                                                         out);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// cq, tw, th: the tile (4*cq channels, tw columns, th rows); grid_x: the
+// channel blocks, ceil(C / (4 cq)); grid_y: the blocks that walk a channel
+// block's tiles, each writing one (10, C) partial into part (grid_y, 10, C);
+// out (10, C): rows 0..8 dw's taps i*3+j, row 9 dbias. smem: the plan's
+// dynamic shared memory (dwconv.py::bwd_plan), checked here. The _bf16
+// entry takes x, dy and dx as bf16.
+extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bias,
+                                const float* dy, float* dx, float* part, float* out, int B, int H,
+                                int W, int C, int act_silu, int cq, int tw, int th, int grid_x,
+                                int grid_y, cudaStream_t stream) {
+  return dwconv3x3_bwd(x, w, bias, dy, dx, part, out, B, H, W, C, act_silu, cq, tw, th, grid_x,
+                       grid_y, stream);
+}
+extern "C" int fm_dwconv3x3_bwd_bf16(const fm_io::bf16* x, const float* w, const float* bias,
+                                     const fm_io::bf16* dy, fm_io::bf16* dx, float* part,
+                                     float* out, int B, int H, int W, int C, int act_silu, int cq,
+                                     int tw, int th, int grid_x, int grid_y,
+                                     cudaStream_t stream) {
+  return dwconv3x3_bwd(x, w, bias, dy, dx, part, out, B, H, W, C, act_silu, cq, tw, th, grid_x,
+                       grid_y, stream);
 }

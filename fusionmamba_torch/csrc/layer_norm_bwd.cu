@@ -1,4 +1,6 @@
-// LayerNorm (+ gate) backward and LN-spatial-mean backward for Hopper (sm_90a), fp32.
+// LayerNorm (+ gate) backward and LN-spatial-mean backward for Hopper (sm_90a),
+// fp32 or bf16 I/O (x, the gate, dy, dx and dgate in the I/O type; scale,
+// bias, dm, the partials, dscale and dbias fp32; the math fp32 either way).
 //
 // 1. The LN backward: dx, dgate, dscale, dbias. Replaces
 // fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel (built by _bwd_pallas).
@@ -43,9 +45,13 @@
 // elementwise ops around them).
 #include <cuda_runtime.h>
 
+#include "io_types.cuh"
 #include "ln_common.cuh"
 
 namespace {
+
+using fm_io::from_f;
+using fm_io::to_f;
 
 using fm_ln::group_sum;
 using fm_ln::kBlock;
@@ -57,11 +63,11 @@ __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-
 // At least two blocks of 256 threads an SM (the plan's grid for 12 values a
 // lane): it caps registers at 128, under which ptxas keeps every template
 // free of spills (left to itself it spilled one of them at 80).
-template <int V, int G, int GATE, bool MASK>
+template <class IO, int V, int G, int GATE, bool MASK>
 __global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
-ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
+ln_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ gate,
               const float* __restrict__ scale, const float* __restrict__ bias,
-              const float* __restrict__ dy, float* __restrict__ dx, float* __restrict__ dg,
+              const IO* __restrict__ dy, IO* __restrict__ dx, IO* __restrict__ dg,
               float* __restrict__ part, int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   constexpr int GPB = T / G;  // groups (rows at a time) of a block
@@ -92,9 +98,9 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const bool ok = live && (!MASK || lane + v * G < C);
-      xv[v] = ok ? x[off + v * G] : 0.f;
-      d[v] = ok ? dy[off + v * G] : 0.f;
-      gv[v] = GATE && ok ? gate[off + v * G] : 0.f;
+      xv[v] = ok ? to_f(x[off + v * G]) : 0.f;
+      d[v] = ok ? to_f(dy[off + v * G]) : 0.f;
+      gv[v] = GATE && ok ? to_f(gate[off + v * G]) : 0.f;
       s.x += xv[v];
       s.y = fmaf(xv[v], xv[v], s.y);
     }
@@ -108,7 +114,7 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
       const float xh = ok ? (xv[v] - mu) * rs : 0.f;
       float u = d[v];
       if (GATE == 3) {
-        if (ok) dg[off + v * G] = u * (xh * sc[v] + bi[v]);
+        if (ok) dg[off + v * G] = from_f<IO>(u * (xh * sc[v] + bi[v]));
         u *= gv[v];
       } else if (GATE) {
         const float g = gv[v], sg = sigmoid(g), s1 = g * sg;
@@ -119,7 +125,7 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
           act = s1 + s1 * ss;
           dgate = (1.f + ss * (1.f + s1 * (1.f - ss))) * dgate;
         }
-        if (ok) dg[off + v * G] = u * (xh * sc[v] + bi[v]) * dgate;
+        if (ok) dg[off + v * G] = from_f<IO>(u * (xh * sc[v] + bi[v]) * dgate);
         u *= act;
       }
       ds[v] = fmaf(u, xh, ds[v]);
@@ -134,7 +140,8 @@ ln_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gate,
     const float m1 = m.x / fc, m2 = m.y / fc;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      if (live && (!MASK || lane + v * G < C)) dx[off + v * G] = rs * (d[v] - m1 - xv[v] * m2);
+      if (live && (!MASK || lane + v * G < C))
+        dx[off + v * G] = from_f<IO>(rs * (d[v] - m1 - xv[v] * m2));
     }
   }
 
@@ -193,10 +200,10 @@ ln_bwd_reduce(const float* __restrict__ part, int P, int C, float* __restrict__ 
 // The LN-mean backward's rows: grid (P, B), block b = blockIdx.y walks the
 // rows of batch row b; each block writes one (C,) partial, dm[b] times the
 // sum of xhat over its rows, into part (B, P, C).
-template <int V, int G, bool MASK>
+template <class IO, int V, int G, bool MASK>
 __global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
-lnm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-               const float* __restrict__ dm, float* __restrict__ dx, float* __restrict__ part,
+lnm_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ scale,
+               const float* __restrict__ dm, IO* __restrict__ dx, float* __restrict__ part,
                int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   constexpr int GPB = T / G;
@@ -229,7 +236,7 @@ lnm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const bool ok = live && (!MASK || lane + v * G < C);
-      xv[v] = ok ? x[off + v * G] : 0.f;
+      xv[v] = ok ? to_f(x[off + v * G]) : 0.f;
       s.x += xv[v];
       s.y = fmaf(xv[v], xv[v], s.y);
     }
@@ -249,7 +256,8 @@ lnm_bwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
     const float m2 = n.y / fc;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      if (live && (!MASK || lane + v * G < C)) dx[off + v * G] = rs * (wv[v] - m1 - xv[v] * m2);
+      if (live && (!MASK || lane + v * G < C))
+        dx[off + v * G] = from_f<IO>(rs * (wv[v] - m1 - xv[v] * m2));
     }
   }
 
@@ -299,61 +307,55 @@ lnm_bwd_reduce(const float* __restrict__ part, const float* __restrict__ dm, int
   }
 }
 
-template <int V, int G, bool MASK>
-int launch_lnm(int B, int blocks, cudaStream_t stream, const float* x, const float* scale,
-               const float* dm, float* dx, float* part, int rows, int C, float eps) {
+template <class IO, int V, int G, bool MASK>
+int launch_lnm(int B, int blocks, cudaStream_t stream, const IO* x, const float* scale,
+               const float* dm, IO* dx, float* part, int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
-  lnm_bwd_kernel<V, G, MASK><<<dim3(blocks, B), T, 0, stream>>>(x, scale, dm, dx, part, rows, C,
-                                                                eps);
+  lnm_bwd_kernel<IO, V, G, MASK><<<dim3(blocks, B), T, 0, stream>>>(x, scale, dm, dx, part, rows,
+                                                                    C, eps);
   return (int)cudaGetLastError();
 }
 
-template <int V, int G, bool MASK>
-int launch(int gate_kind, int blocks, cudaStream_t stream, const float* x, const float* gate,
-           const float* scale, const float* bias, const float* dy, float* dx, float* dg,
-           float* part, int rows, int C, float eps) {
+template <class IO, int V, int G, bool MASK>
+int launch(int gate_kind, int blocks, cudaStream_t stream, const IO* x, const IO* gate,
+           const float* scale, const float* bias, const IO* dy, IO* dx, IO* dg, float* part,
+           int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   switch (gate_kind) {
     case 0:
-      ln_bwd_kernel<V, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                             part, rows, C, eps);
+      ln_bwd_kernel<IO, V, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                                 part, rows, C, eps);
       break;
     case 1:
-      ln_bwd_kernel<V, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                             part, rows, C, eps);
+      ln_bwd_kernel<IO, V, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                                 part, rows, C, eps);
       break;
     case 3:
-      ln_bwd_kernel<V, G, 3, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                             part, rows, C, eps);
+      ln_bwd_kernel<IO, V, G, 3, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                                 part, rows, C, eps);
       break;
     default:
-      ln_bwd_kernel<V, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                             part, rows, C, eps);
+      ln_bwd_kernel<IO, V, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
+                                                                 part, rows, C, eps);
   }
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x, dy, dx (and gate, dg when gate_kind is 1 (silu), 2 (silu_sum) or 3 (raw)):
-// (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,
-// lanes, masked: the template (bwd_plan); blocks: the grid of the first
-// kernel.
-extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float* scale,
-                                 const float* bias, const float* dy, float* dx, float* dg,
-                                 float* part, float* dscale, float* dbias, int rows, int C,
-                                 int gate_kind, int values, int lanes, int masked, int blocks,
-                                 float eps, cudaStream_t stream) {
+template <class IO>
+int layer_norm_bwd(const IO* x, const IO* gate, const float* scale, const float* bias,
+                   const IO* dy, IO* dx, IO* dg, float* part, float* dscale, float* dbias,
+                   int rows, int C, int gate_kind, int values, int lanes, int masked, int blocks,
+                   float eps, cudaStream_t stream) {
   if (rows < 1 || C < 1 || (long long)rows * C >= (1ll << 31) || blocks < 1 ||
       (long long)blocks * 2 * C >= (1ll << 31) || gate_kind < 0 || gate_kind > 3 ||
       (gate_kind && (!gate || !dg)) || (masked ? values * lanes < C : values * lanes != C)) {
     return (int)cudaErrorInvalidValue;
   }
   int err = (int)cudaErrorInvalidValue;
-#define FM_LN_BWD(V, G, MASK)                                                                \
-  if (values == V && lanes == G && (masked != 0) == MASK)                                    \
-    err = launch<V, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, part, \
-                             rows, C, eps);
+#define FM_LN_BWD(V, G, MASK)                                                                 \
+  if (values == V && lanes == G && (masked != 0) == MASK)                                     \
+    err = launch<IO, V, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, \
+                                 part, rows, C, eps);
   FM_LN_TEMPLATES(FM_LN_BWD)
 #undef FM_LN_BWD
   if (err != 0) return err;
@@ -362,13 +364,10 @@ extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float*
   return (int)cudaGetLastError();
 }
 
-// x, dx: (B, rows, C); dm: (B, C); part: (B, blocks, C) scratch; dscale,
-// dbias: (C,). values, lanes, masked: the template (lnm_bwd_plan); blocks:
-// the blocks of each batch row in the first kernel's grid (blocks, B).
-extern "C" int fm_ln_mean_bwd(const float* x, const float* scale, const float* dm, float* dx,
-                              float* part, float* dscale, float* dbias, int B, int rows, int C,
-                              int values, int lanes, int masked, int blocks, float eps,
-                              cudaStream_t stream) {
+template <class IO>
+int ln_mean_bwd(const IO* x, const float* scale, const float* dm, IO* dx, float* part,
+                float* dscale, float* dbias, int B, int rows, int C, int values, int lanes,
+                int masked, int blocks, float eps, cudaStream_t stream) {
   if (B < 1 || B > 65535 || rows < 1 || C < 1 || (long long)B * rows * C >= (1ll << 31) ||
       blocks < 1 || blocks > rows || (long long)B * blocks * C >= (1ll << 31) ||
       (masked ? values * lanes < C : values * lanes != C)) {
@@ -377,11 +376,54 @@ extern "C" int fm_ln_mean_bwd(const float* x, const float* scale, const float* d
   int err = (int)cudaErrorInvalidValue;
 #define FM_LNM_BWD(V, G, MASK)                                                                \
   if (values == V && lanes == G && (masked != 0) == MASK)                                     \
-    err = launch_lnm<V, G, MASK>(B, blocks, stream, x, scale, dm, dx, part, rows, C, eps);
+    err = launch_lnm<IO, V, G, MASK>(B, blocks, stream, x, scale, dm, dx, part, rows, C, eps);
   FM_LN_TEMPLATES(FM_LNM_BWD)
 #undef FM_LNM_BWD
   if (err != 0) return err;
   lnm_bwd_reduce<<<(C + kReduceCols - 1) / kReduceCols, dim3(kReduceCols, kReduceSlices), 0,
                    stream>>>(part, dm, B, B * blocks, C, rows, dscale, dbias);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x, dy, dx (and gate, dg when gate_kind is 1 (silu), 2 (silu_sum) or 3 (raw)):
+// (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,
+// lanes, masked: the template (bwd_plan); blocks: the grid of the first
+// kernel. The _bf16 entry takes x, gate, dy, dx and dg as bf16.
+extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float* scale,
+                                 const float* bias, const float* dy, float* dx, float* dg,
+                                 float* part, float* dscale, float* dbias, int rows, int C,
+                                 int gate_kind, int values, int lanes, int masked, int blocks,
+                                 float eps, cudaStream_t stream) {
+  return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
+                        gate_kind, values, lanes, masked, blocks, eps, stream);
+}
+extern "C" int fm_layer_norm_bwd_bf16(const fm_io::bf16* x, const fm_io::bf16* gate,
+                                      const float* scale, const float* bias,
+                                      const fm_io::bf16* dy, fm_io::bf16* dx, fm_io::bf16* dg,
+                                      float* part, float* dscale, float* dbias, int rows, int C,
+                                      int gate_kind, int values, int lanes, int masked,
+                                      int blocks, float eps, cudaStream_t stream) {
+  return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
+                        gate_kind, values, lanes, masked, blocks, eps, stream);
+}
+
+// x, dx: (B, rows, C); dm: (B, C); part: (B, blocks, C) scratch; dscale,
+// dbias: (C,). values, lanes, masked: the template (lnm_bwd_plan); blocks:
+// the blocks of each batch row in the first kernel's grid (blocks, B). The
+// _bf16 entry takes x and dx as bf16.
+extern "C" int fm_ln_mean_bwd(const float* x, const float* scale, const float* dm, float* dx,
+                              float* part, float* dscale, float* dbias, int B, int rows, int C,
+                              int values, int lanes, int masked, int blocks, float eps,
+                              cudaStream_t stream) {
+  return ln_mean_bwd(x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
+                     blocks, eps, stream);
+}
+extern "C" int fm_ln_mean_bwd_bf16(const fm_io::bf16* x, const float* scale, const float* dm,
+                                   fm_io::bf16* dx, float* part, float* dscale, float* dbias,
+                                   int B, int rows, int C, int values, int lanes, int masked,
+                                   int blocks, float eps, cudaStream_t stream) {
+  return ln_mean_bwd(x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
+                     blocks, eps, stream);
 }

@@ -1,4 +1,5 @@
-// LN-spatial-mean forward for Hopper (sm_90a), fp32: m[b, c] = mean over the
+// LN-spatial-mean forward for Hopper (sm_90a), fp32 or bf16 x (the statistics,
+// the sums and the (B, C) output fp32 either way): m[b, c] = mean over the
 // rows of LN(x[b])[:, c], x (B, rows, C), LN with the fast variance
 // E[x^2] - E[x]^2 and rsqrt(var + eps), then scale and bias.
 // Replaces fusionmamba_tpu/ops/ln_pallas.py::_lnm_fwd_kernel (built by
@@ -37,6 +38,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "io_types.cuh"
 #include "ln_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -54,9 +56,9 @@ struct Shape {
   static constexpr int U = V >= kRowValues ? 1 : kRowValues / V;  // rows a group takes at a time
 };
 
-template <int V, int G, bool MASK>
+template <class IO, int V, int G, bool MASK>
 __global__ void __launch_bounds__(Shape<V, G>::T, MASK ? 1 : 2)
-lnm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+lnm_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ scale,
                const float* __restrict__ bias, float* __restrict__ out, int rows, int C,
                float eps) {
   constexpr int T = Shape<V, G>::T, GPB = Shape<V, G>::GPB, U = Shape<V, G>::U;
@@ -71,7 +73,7 @@ lnm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), blocks = (int)cluster.num_blocks();
   const int grp = threadIdx.x / G, lane = threadIdx.x % G;
-  const float* xb = x + (size_t)blockIdx.y * rows * C + lane;
+  const IO* xb = x + (size_t)blockIdx.y * rows * C + lane;
   const float inv_c = 1.f / (float)C;
   // scale and bias of the columns this thread writes, loaded now so that
   // their latency is not on the path after the last barrier
@@ -97,7 +99,7 @@ lnm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
       for (int v = 0; v < V; ++v) {
         const bool ok = r < rows && (!MASK || lane + v * G < C);
-        xv[u][v] = ok ? xb[r * C + v * G] : 0.f;
+        xv[u][v] = ok ? fm_io::to_f(xb[r * C + v * G]) : 0.f;
       }
     }
 #pragma unroll
@@ -167,10 +169,10 @@ lnm_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   if (blocks > 1) cluster.sync();
 }
 
-template <int V, int G, bool MASK>
-int launch(int B, int cluster, cudaStream_t stream, const float* x, const float* scale,
+template <class IO, int V, int G, bool MASK>
+int launch(int B, int cluster, cudaStream_t stream, const IO* x, const float* scale,
            const float* bias, float* out, int rows, int C, float eps) {
-  auto* kernel = lnm_fwd_kernel<V, G, MASK>;
+  auto* kernel = lnm_fwd_kernel<IO, V, G, MASK>;
   // set once for each variant: clusters above the portable 8 blocks
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -201,13 +203,10 @@ int launch(int B, int cluster, cudaStream_t stream, const float* x, const float*
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x: (B, rows, C); scale, bias: (C,); out: (B, C). values, lanes, masked:
-// the template and cluster: the blocks of each batch row (lnm_fwd_plan).
-extern "C" int fm_ln_mean_fwd(const float* x, const float* scale, const float* bias, float* out,
-                              int B, int rows, int C, int values, int lanes, int masked,
-                              int cluster, float eps, cudaStream_t stream) {
+template <class IO>
+int ln_mean_fwd(const IO* x, const float* scale, const float* bias, float* out, int B, int rows,
+                int C, int values, int lanes, int masked, int cluster, float eps,
+                cudaStream_t stream) {
   if (B < 1 || B > 65535 || rows < 1 || C < 1 || (long long)B * rows * C >= (1ll << 31) ||
       cluster < 1 || cluster > kMaxCluster ||
       (masked ? values * lanes < C : values * lanes != C)) {
@@ -216,8 +215,24 @@ extern "C" int fm_ln_mean_fwd(const float* x, const float* scale, const float* b
   int err = (int)cudaErrorInvalidValue;
 #define FM_LNM_FWD(V, G, MASK)                             \
   if (values == V && lanes == G && (masked != 0) == MASK) \
-    err = launch<V, G, MASK>(B, cluster, stream, x, scale, bias, out, rows, C, eps);
+    err = launch<IO, V, G, MASK>(B, cluster, stream, x, scale, bias, out, rows, C, eps);
   FM_LN_TEMPLATES(FM_LNM_FWD)
 #undef FM_LNM_FWD
   return err;
+}
+
+}  // namespace
+
+// x: (B, rows, C), fp32 or (the _bf16 entry) bf16; scale, bias: (C,); out:
+// (B, C) fp32. values, lanes, masked: the template and cluster: the blocks
+// of each batch row (lnm_fwd_plan).
+extern "C" int fm_ln_mean_fwd(const float* x, const float* scale, const float* bias, float* out,
+                              int B, int rows, int C, int values, int lanes, int masked,
+                              int cluster, float eps, cudaStream_t stream) {
+  return ln_mean_fwd(x, scale, bias, out, B, rows, C, values, lanes, masked, cluster, eps, stream);
+}
+extern "C" int fm_ln_mean_fwd_bf16(const fm_io::bf16* x, const float* scale, const float* bias,
+                                   float* out, int B, int rows, int C, int values, int lanes,
+                                   int masked, int cluster, float eps, cudaStream_t stream) {
+  return ln_mean_fwd(x, scale, bias, out, B, rows, C, values, lanes, masked, cluster, eps, stream);
 }

@@ -22,14 +22,33 @@
 //    shared-memory planes that wgmma reads. It serves the forward's long
 //    128x128 products.
 // Ragged edges read as zero, so rows, columns and K need no multiple of the
-// tile; leading dimensions must be multiples of 4 floats and base pointers
-// 16-byte aligned (the wrappers check both). No atomics anywhere.
+// tile; leading dimensions must be multiples of 16 bytes (4 floats, 8 bf16)
+// and base pointers 16-byte aligned (the wrappers check both). No atomics
+// anywhere.
+//
+// bf16 operands (IO = bf16). A bf16 value is exact in TF32 (8 mantissa bits
+// against 10), so the product of two is exact in one TF32 product: the
+// engines take one product each, not three, with fp32 accumulation, which
+// is what the TPU kernels' bf16 dots with fp32 accumulation compute. The
+// Gemm engine stages bf16 slices as they are (half the bytes, by the same
+// 16-byte cp.async, eight values a copy, in their own swizzle) and takes a
+// value to fp32 as a fragment loads it (a shift: exact); the warpgroup
+// engine converts as it loads a slice into registers and stores only the
+// big planes.
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "io_types.cuh"
 
 namespace fm {
+
+using fm_io::bf16;
+using fm_io::from_f;
+using fm_io::to_f;
+
+// whether products of IO operands need the 3xTF32 split (fp32) or are exact
+// in one TF32 product (bf16)
+template <class IO>
+constexpr bool kSplitOf = sizeof(IO) == sizeof(float);
 
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kBK = 32;        // depth of one staged K slice
@@ -56,7 +75,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // copy `bytes` (0..16) of gmem to smem and zero the rest of the 16
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int bytes) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int bytes) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(bytes));
@@ -72,7 +91,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // otherwise; it is staged as [r][kBK] or [k][kRows] with the 16-byte chunks
 // of each row permuted (XOR swizzle) so that the fragment loads of
 // mma_slice, pairs (r, k), (r, k + 1) with k even, hit 32 different banks.
-template <int kRows, bool kKMajor>
+template <int kRows, bool kKMajor, class IO = float>
 struct Staged {
   static constexpr int kFloats = kRows * kBK;
   static_assert(kRows % 32 == 0, "whole swizzle groups");
@@ -92,6 +111,7 @@ struct Staged {
   // `rows` rows and depth `k_end`; what lies outside reads as 0
   __device__ __forceinline__ static void load(float* s, const float* g, int ld, int r0,
                                               int rows, int k0, int k_end) {
+    static_assert(sizeof(IO) == sizeof(float), "the fp32 staging");
     constexpr int kChunks = kRows * kBK / 4;
     static_assert(kChunks % kThreads == 0, "whole copy rounds");
 #pragma unroll
@@ -116,14 +136,64 @@ struct Staged {
   }
 };
 
+// The bf16 slice: [r][kBK] or [k][kRows] bf16, in 16-byte chunks of 8 values
+// along the contiguous axis, swizzled so that the fragment loads (pairs
+// (r, k), (r, k + 1), k even, over the 8 rows and 4 pair columns of a warp)
+// fall in different banks. `s` is the stage's float pointer; kFloats counts
+// the floats the slice takes (half its values).
+template <int kRows, bool kKMajor>
+struct Staged<kRows, kKMajor, bf16> {
+  static constexpr int kFloats = kRows * kBK / 2;
+  static_assert(kRows % 32 == 0, "whole swizzle groups");
+
+  __device__ __forceinline__ static int index(int r, int k) {
+    return kKMajor ? r * kBK + ((((k >> 3) ^ ((r >> 1) & 3)) << 3) | (k & 7))
+                   : k * kRows + ((((r >> 3) ^ ((k >> 1) & 3)) << 3) | (r & 7));
+  }
+
+  __device__ __forceinline__ static float2 pair(const float* s, int r, int k) {
+    const uint16_t* h = reinterpret_cast<const uint16_t*>(s);
+    if (kKMajor) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(h + index(r, k));
+      return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+    }
+    return make_float2(__uint_as_float((uint32_t)h[index(r, k)] << 16),
+                       __uint_as_float((uint32_t)h[index(r, k + 1)] << 16));
+  }
+
+  __device__ __forceinline__ static void load(float* s, const bf16* g, int ld, int r0, int rows,
+                                              int k0, int k_end) {
+    constexpr int kChunks = kRows * kBK / 8;
+    bf16* sh = reinterpret_cast<bf16*>(s);
+    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
+      int r, k, n;
+      if (kKMajor) {
+        r = c / (kBK / 8);
+        k = (c % (kBK / 8)) * 8;
+        n = r0 + r < rows ? min(8, k_end - k0 - k) : 0;
+      } else {
+        k = c / (kRows / 8);
+        r = (c % (kRows / 8)) * 8;
+        n = k0 + k < k_end ? min(8, rows - r0 - r) : 0;
+      }
+      n = max(n, 0);
+      const bf16* src =
+          n > 0 ? (kKMajor ? g + (size_t)(r0 + r) * ld + k0 + k : g + (size_t)(k0 + k) * ld + r0 + r)
+                : g;
+      cp_async16(sh + index(r, k), src, 2 * n);
+    }
+  }
+};
+
 // acc[i][j] += A(wm0 + 16i + .., k) B(k, wn0 + 8j + ..) over the kBK of the
 // staged slices `as` (rows of A) and `bs` (columns of B), in the mma
 // accumulator layout: lane (g = lane / 4, t = lane % 4) holds rows g, g + 8
 // and columns 2t, 2t + 1 of each 16x8 block. AT and BT provide pair(s, r, k).
 // The mma's k slots t and t + 4 take the operands' k = 2t and 2t + 1 (the
 // same permutation of the sum for A and B), so each lane loads adjacent
-// pairs.
-template <int kMT, int kNT, class AT, class BT>
+// pairs. Without kSplit (operands exact in TF32: bf16 values) each product
+// is the one TF32 product big*big.
+template <int kMT, int kNT, class AT, class BT, bool kSplit = true>
 __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], const float* as,
                                           const float* bs, int wm0, int wn0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -146,10 +216,12 @@ __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], const float
       split_tf32(lo.y, ab[2], al[2]);
       split_tf32(hi.y, ab[3], al[3]);
       // the small terms first, then big*big
+      if (kSplit) {
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], al, bb[j]);
+        for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], al, bb[j]);
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bl[j]);
+        for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bl[j]);
+      }
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bb[j]);
     }
@@ -196,16 +268,16 @@ struct Warps {
 // for A with M rows and B with N columns, A(m, k) = A[m * lda + k] when
 // kAK (else A[k * lda + m]) and B(k, n) = B[n * ldb + k] when kBKMajor
 // (else B[k * ldb + n]). `smem` holds kSmemFloats; it is free again on return.
-template <class W, bool kAK, bool kBKMajor>
+template <class W, bool kAK, bool kBKMajor, class IO = float>
 struct Gemm {
-  using AT = Staged<W::BM, kAK>;
-  using BT = Staged<W::BN, kBKMajor>;
+  using AT = Staged<W::BM, kAK, IO>;
+  using BT = Staged<W::BN, kBKMajor, IO>;
   static constexpr int kStageFloats = AT::kFloats + BT::kFloats;
   static constexpr int kSmemFloats = kStages * kStageFloats;
 
-  __device__ __forceinline__ static void run(typename W::Acc& acc, const float* A, int lda,
-                                             int M, const float* B, int ldb, int N, int m0,
-                                             int n0, int k_begin, int k_end, float* smem) {
+  __device__ __forceinline__ static void run(typename W::Acc& acc, const IO* A, int lda, int M,
+                                             const IO* B, int ldb, int N, int m0, int n0,
+                                             int k_begin, int k_end, float* smem) {
     const int nk = (k_end - k_begin + kBK - 1) / kBK;
     const int wm0 = W::wm0(), wn0 = W::wn0();
     auto issue = [&](int kt) {
@@ -223,7 +295,7 @@ struct Gemm {
       __syncthreads();  // slice kt has landed for all; slot (kt - 1) % kStages is consumed
       issue(kt + kStages - 1);
       const float* s = smem + (kt % kStages) * kStageFloats;
-      mma_slice<W::MT, W::NT, AT, BT>(acc, s, s + AT::kFloats, wm0, wn0);
+      mma_slice<W::MT, W::NT, AT, BT, kSplitOf<IO>>(acc, s, s + AT::kFloats, wm0, wn0);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -310,23 +382,28 @@ __device__ __forceinline__ void split4_store(float4 v, float* big, float* small,
 }
 
 // This thread's share of a kRows x kBK slice of an operand whose element
-// (r, k) is g[r * ld + k], held in registers between its load and its store
-// into the planes: 16-byte pieces (r, 4 k), eight to a row. Widths are
-// multiples of 4, so each piece lies wholly inside or outside.
-template <int kRows>
+// (r, k) is g[r * ld + k], held in registers (as fp32) between its load and
+// its store into the planes: pieces (r, 4 k) of 4 values, eight to a row.
+// Widths are multiples of 4, so each piece lies wholly inside or outside. A
+// bf16 slice stores its big planes only (its small parts are zero).
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) { return fm_io::load4(p); }
+
+template <int kRows, class IO = float>
 struct Slice {
   static constexpr int kPer = kRows * kBK / 4 / kThreads;
   static_assert(kPer * kThreads * 4 == kRows * kBK, "whole rounds");
   float4 v[kPer];
 
-  __device__ __forceinline__ void load(const float* g, int ld, int r0, int rows, int k0,
+  __device__ __forceinline__ void load(const IO* g, int ld, int r0, int rows, int k0,
                                        int k_end) {
 #pragma unroll
     for (int it = 0; it < kPer; ++it) {
       const int u = threadIdx.x + it * kThreads, r = u / (kBK / 4), k = 4 * (u % (kBK / 4));
-      v[it] = r0 + r < rows && k0 + k < k_end
-                  ? __ldg(reinterpret_cast<const float4*>(g + (size_t)(r0 + r) * ld + k0 + k))
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[it] = r0 + r < rows && k0 + k < k_end ? ldg4(g + (size_t)(r0 + r) * ld + k0 + k)
+                                              : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
 
@@ -334,7 +411,11 @@ struct Slice {
 #pragma unroll
     for (int it = 0; it < kPer; ++it) {
       const int u = threadIdx.x + it * kThreads, r = u / (kBK / 4), k = 4 * (u % (kBK / 4));
-      split4_store(v[it], big, small, Plane<kRows>::index(r, k));
+      if (kSplitOf<IO>) {
+        split4_store(v[it], big, small, Plane<kRows>::index(r, k));
+      } else {
+        *reinterpret_cast<float4*>(big + Plane<kRows>::index(r, k)) = v[it];
+      }
     }
   }
 };
@@ -343,7 +424,9 @@ struct Slice {
 // through wgmma, with A(m, k) = A[m * lda + k] and B(k, n) = B[n * ldb + k];
 // rows m >= M, columns n >= N and k >= k_end read as 0. acc is this thread's
 // share of its warpgroup's 64 x 128 accumulator. `smem` holds
-// kSmemFloats, 1024-byte aligned; it is free again on return.
+// kSmemFloats, 1024-byte aligned; it is free again on return. bf16 operands
+// (IO) take one wgmma a product (the header's note).
+template <class IO = float>
 struct WgGemm {
   static constexpr int BM = 128, BN = 128;
   static constexpr int kAcc = BN / 2;
@@ -351,32 +434,32 @@ struct WgGemm {
   static constexpr int kBufs = 2;  // plane buffers, alternating
   static constexpr int kSmemFloats = kBufs * kBufFloats;
 
-  __device__ __forceinline__ static void run(float (&acc)[kAcc], const float* A, int lda, int M,
-                                             const float* B, int ldb, int N, int m0, int n0,
+  __device__ __forceinline__ static void run(float (&acc)[kAcc], const IO* A, int lda, int M,
+                                             const IO* B, int ldb, int N, int m0, int n0,
                                              int k_begin, int k_end, float* smem) {
     const int nk = (k_end - k_begin + kBK - 1) / kBK;
     const int wg = threadIdx.x / 128;
     // two register stages: slice kt + 3 is loaded while slice kt's products
     // run, and stored two slices later
-    Slice<BM> sa0, sa1;
-    Slice<BN> sb0, sb1;
+    Slice<BM, IO> sa0, sa1;
+    Slice<BN, IO> sb0, sb1;
     auto a_big = [&](int buf) { return smem + buf * kBufFloats; };
     auto a_small = [&](int buf) { return a_big(buf) + Plane<BM>::kFloats; };
     auto b_big = [&](int buf) { return a_big(buf) + 2 * Plane<BM>::kFloats; };
     auto b_small = [&](int buf) { return b_big(buf) + Plane<BN>::kFloats; };
-    auto load = [&](int kt, Slice<BM>& sa, Slice<BN>& sb) {
+    auto load = [&](int kt, Slice<BM, IO>& sa, Slice<BN, IO>& sb) {
       if (kt < nk) {
         sa.load(A, lda, m0, M, k_begin + kt * kBK, k_end);
         sb.load(B, ldb, n0, N, k_begin + kt * kBK, k_end);
       }
     };
-    auto store = [&](int buf, const Slice<BM>& sa, const Slice<BN>& sb) {
+    auto store = [&](int buf, const Slice<BM, IO>& sa, const Slice<BN, IO>& sb) {
       sa.store(a_big(buf), a_small(buf));
       sb.store(b_big(buf), b_small(buf));
     };
     // the products of slice kt, then slice kt + 1 (held in sa, sb) into the
     // other buffer and slice kt + 3 into sa, sb
-    auto step = [&](int kt, Slice<BM>& sa, Slice<BN>& sb) {
+    auto step = [&](int kt, Slice<BM, IO>& sa, Slice<BN, IO>& sb) {
       const int buf = kt % kBufs;
       const uint64_t ab = plane_desc(a_big(buf) + wg * 64 * kBK);
       const uint64_t al = plane_desc(a_small(buf) + wg * 64 * kBK);
@@ -386,8 +469,10 @@ struct WgGemm {
 #pragma unroll
       for (int kk = 0; kk < kBK / 8; ++kk) {
         // 8 tf32 of K are 32 bytes: 2 in the descriptor's 16-byte units
-        wgmma_m64n128k8(acc, al + 2 * kk, bb + 2 * kk);
-        wgmma_m64n128k8(acc, ab + 2 * kk, bl + 2 * kk);
+        if (kSplitOf<IO>) {
+          wgmma_m64n128k8(acc, al + 2 * kk, bb + 2 * kk);
+          wgmma_m64n128k8(acc, ab + 2 * kk, bl + 2 * kk);
+        }
         wgmma_m64n128k8(acc, ab + 2 * kk, bb + 2 * kk);
       }
       wgmma_commit();

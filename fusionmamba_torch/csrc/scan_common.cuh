@@ -3,6 +3,13 @@
 // dt expansion with its softplus, and the short pass that joins the chunks
 // of L by their carries.
 //
+// I/O types. Each kernel is compiled for fp32 and for bf16 I/O (IO): u, dt,
+// its low-rank weight, B, C, dy and the gradients of those are IO, while A,
+// D, the dt bias, the saved states, the carries and all the math are fp32.
+// The cp.async ring stages the IO tiles as they are (a bf16 tile is half the
+// bytes) and every read of a staged value takes it to fp32; results are
+// rounded to IO only where they are stored.
+//
 // Thread layout. A block owns DB neighbouring channels d of one (b, k) and
 // one chunk of steps. Each channel is spread over kGroups = 4 neighbouring
 // lanes, and each lane holds 4 of the (at most) 16 states: thread `tid` owns
@@ -19,10 +26,12 @@
 // state. The adjoint recurrence g_l = C_l dy_l + e_{l+1} g_{l+1} is linear in
 // the same factors, and the same kernel walks it in reverse.
 #pragma once
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "io_types.cuh"
 
 namespace fm_scan {
+
+using fm_io::from_f;
+using fm_io::to_f;
 
 constexpr int kMaxN = 16;    // largest state size
 constexpr int kGroups = 4;   // lanes per channel
@@ -34,75 +43,94 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async_4(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
 }
-__device__ __forceinline__ void cp_async_16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+// elements of IO in 16 bytes, and n rounded up to a multiple of them (so that
+// every staged tile starts 16-byte aligned)
+template <class IO>
+constexpr int kVec = 16 / (int)sizeof(IO);
+template <class IO>
+__host__ __device__ inline int round_vec(int n) {
+  return (n + kVec<IO> - 1) / kVec<IO> * kVec<IO>;
+}
+
+// one element into shared memory, asynchronously where it is 4 bytes
+__device__ __forceinline__ void stage_one(float* dst, const float* src) { cp_async_4(dst, src); }
+__device__ __forceinline__ void stage_one(fm_io::bf16* dst, const fm_io::bf16* src) {
+  *dst = *src;  // no 2-byte cp.async: a plain copy, read after the tile's barrier
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Asynchronous copy of n contiguous floats into shared memory (dst 16-byte
+// Asynchronous copy of n contiguous elements into shared memory (dst 16-byte
 // aligned): 16 bytes a request where the source is aligned too.
-__device__ __forceinline__ void stage_span(float* dst, const float* src, int n, int tid,
-                                           int nthreads) {
+template <class IO>
+__device__ __forceinline__ void stage_span(IO* dst, const IO* src, int n, int tid, int nthreads) {
+  constexpr int V = kVec<IO>;
   if ((((uintptr_t)src) & 15) == 0) {
-    const int n4 = n >> 2;
-    for (int i = tid; i < n4; i += nthreads) cp_async_16(dst + 4 * i, src + 4 * i);
-    for (int i = (n4 << 2) + tid; i < n; i += nthreads) cp_async_4(dst + i, src + i);
+    const int nv = n / V;
+    for (int i = tid; i < nv; i += nthreads) cp_async_16(dst + V * i, src + V * i);
+    for (int i = nv * V + tid; i < n; i += nthreads) stage_one(dst + i, src + i);
   } else {
-    for (int i = tid; i < n; i += nthreads) cp_async_4(dst + i, src + i);
+    for (int i = tid; i < n; i += nthreads) stage_one(dst + i, src + i);
   }
 }
 
-// Asynchronous copy of a rows x cols tile (source row stride src_ld floats)
-// into shared memory, row stride DB; cols == DB but for a block at the edge
-// of D.
-template <int DB>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, size_t src_ld, int rows,
+// Asynchronous copy of a rows x cols tile (source row stride src_ld
+// elements) into shared memory, row stride DB; cols == DB but for a block at
+// the edge of D.
+template <int DB, class IO>
+__device__ __forceinline__ void stage_rows(IO* dst, const IO* src, size_t src_ld, int rows,
                                            int cols, int tid, int nthreads) {
-  if ((((uintptr_t)src) & 15) == 0 && (src_ld & 3) == 0 && cols == DB) {
-    for (int i = tid; i < rows * (DB / 4); i += nthreads) {
-      const int r = i / (DB / 4), c = (i % (DB / 4)) * 4;
+  constexpr int V = kVec<IO>;
+  if ((((uintptr_t)src) & 15) == 0 && src_ld % V == 0 && cols == DB) {
+    for (int i = tid; i < rows * (DB / V); i += nthreads) {
+      const int r = i / (DB / V), c = (i % (DB / V)) * V;
       cp_async_16(dst + r * DB + c, src + r * src_ld + c);
     }
   } else {
     for (int i = tid; i < rows * cols; i += nthreads) {
       const int r = i / cols, c = i - r * cols;
-      cp_async_4(dst + r * DB + c, src + r * src_ld + c);
+      stage_one(dst + r * DB + c, src + r * src_ld + c);
     }
   }
 }
 
 // A rows x cols tile from shared memory (row stride DB) to device memory, 16
-// bytes a thread where the destination allows it.
-template <int DB>
-__device__ __forceinline__ void store_rows(float* dst, size_t dst_ld, const float* src, int rows,
+// bytes a thread where the types agree and the destination allows it, else
+// a value at a time, rounded to the destination's type.
+template <int DB, class D, class S>
+__device__ __forceinline__ void store_rows(D* dst, size_t dst_ld, const S* src, int rows,
                                            int cols, int tid, int nthreads) {
-  if ((((uintptr_t)dst) & 15) == 0 && (dst_ld & 3) == 0 && cols == DB) {
-    for (int i = tid; i < rows * (DB / 4); i += nthreads) {
-      const int r = i / (DB / 4), c = (i % (DB / 4)) * 4;
-      *reinterpret_cast<float4*>(dst + r * dst_ld + c) =
-          *reinterpret_cast<const float4*>(src + r * DB + c);
+  constexpr int V = kVec<D>;
+  if (sizeof(D) == sizeof(S) && (((uintptr_t)dst) & 15) == 0 && dst_ld % V == 0 && cols == DB) {
+    for (int i = tid; i < rows * (DB / V); i += nthreads) {
+      const int r = i / (DB / V), c = (i % (DB / V)) * V;
+      *reinterpret_cast<uint4*>(dst + r * dst_ld + c) =
+          *reinterpret_cast<const uint4*>(src + r * DB + c);
     }
   } else {
     for (int i = tid; i < rows * cols; i += nthreads) {
       const int r = i / cols, c = i - r * cols;
-      dst[r * dst_ld + c] = src[r * DB + c];
+      dst[r * dst_ld + c] = from_f<D>(to_f(src[r * DB + c]));
     }
   }
 }
 
 // The 4 values of this lane's state group from a staged [t][N] row of B or
-// C; zeros for n >= N.
-template <bool FULL>
-__device__ __forceinline__ void load_group(const float* row, int N, int g, float (&v)[kPer]) {
+// C (or of the saved states); zeros for n >= N.
+template <bool FULL, class IO>
+__device__ __forceinline__ void load_group(const IO* row, int N, int g, float (&v)[kPer]) {
   if (FULL) {
-    const float4 q = *reinterpret_cast<const float4*>(row + g * kPer);
+    const float4 q = fm_io::load4(row + g * kPer);
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   } else {
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) v[j] = g * kPer + j < N ? row[g * kPer + j] : 0.f;
+    for (int j = 0; j < kPer; ++j) v[j] = g * kPer + j < N ? to_f(row[g * kPer + j]) : 0.f;
   }
 }
 
@@ -160,8 +188,8 @@ __device__ __forceinline__ float group_sum(float v) {
 //   x = sum_r dt[t][r] W[d][r] + bias[d]      (x = dt[t][d] + bias[d] when R == 0)
 //   delta = max(x, 0) + log1p(exp(-|x|)),  slope = sigmoid(x).
 // dt_s is [t][R] (or [t][DB] when R == 0), w_s [r][DB + 1], bias_s [DB].
-template <int DB>
-__device__ __forceinline__ void delta_phase(const float* dt_s, const float* w_s,
+template <int DB, class IO>
+__device__ __forceinline__ void delta_phase(const IO* dt_s, const float* w_s,
                                             const float* bias_s, float* del_s, float* dsp_s,
                                             int Tc, int R, int softplus, int tid, int nthreads) {
   for (int i = tid; i < Tc * DB; i += nthreads) {
@@ -169,9 +197,9 @@ __device__ __forceinline__ void delta_phase(const float* dt_s, const float* w_s,
     float x;
     if (R > 0) {
       x = 0.f;
-      for (int r = 0; r < R; ++r) x = fmaf(dt_s[t * R + r], w_s[r * (DB + 1) + dl], x);
+      for (int r = 0; r < R; ++r) x = fmaf(to_f(dt_s[t * R + r]), w_s[r * (DB + 1) + dl], x);
     } else {
-      x = dt_s[i];
+      x = to_f(dt_s[i]);
     }
     x += bias_s[dl];
     float delta = x, dsp = 1.f;
@@ -188,14 +216,14 @@ __device__ __forceinline__ void delta_phase(const float* dt_s, const float* w_s,
   }
 }
 
-// This block's W columns ([r][DB + 1], zeros past `dim`) and biases.
-template <int DB>
-__device__ __forceinline__ void load_w_bias(const float* W, const float* bias, float* w_s,
+// This block's W columns ([r][DB + 1] in fp32, zeros past `dim`) and biases.
+template <int DB, class IO>
+__device__ __forceinline__ void load_w_bias(const IO* W, const float* bias, float* w_s,
                                             float* bias_s, int k, int d0, int dim, int R,
                                             int tid, int nthreads) {
   for (int i = tid; i < DB * R; i += nthreads) {
     const int dl = i / R, r = i - dl * R;   // consecutive threads read consecutive floats
-    w_s[r * (DB + 1) + dl] = d0 + dl < dim ? W[((size_t)k * dim + d0 + dl) * R + r] : 0.f;
+    w_s[r * (DB + 1) + dl] = d0 + dl < dim ? to_f(W[((size_t)k * dim + d0 + dl) * R + r]) : 0.f;
   }
   for (int i = tid; i < DB; i += nthreads) {
     bias_s[i] = (bias && d0 + i < dim) ? bias[(size_t)k * dim + d0 + i] : 0.f;

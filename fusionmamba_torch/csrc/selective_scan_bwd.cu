@@ -1,4 +1,7 @@
-// Selective-scan backward for Hopper (sm_90a), fp32.
+// Selective-scan backward for Hopper (sm_90a), fp32 or bf16 I/O (u, dt, W, B,
+// C, dy and du, d(dt), dW, dB, dC; A, D, the bias, the saved states, dA, dD,
+// dbias and every partial fp32; the math fp32 either way: the sums are
+// taken in fp32 and a bf16 gradient is rounded once, where it is stored).
 //
 // Replaces fusionmamba_tpu/ops/scan_pallas.py::_bwd_kernel (built by
 // _bwd_pallas, summed by _core_bwd). The forward (selective_scan_fwd.cu) is,
@@ -68,29 +71,44 @@ constexpr int kTileL = 16;                 // steps per tile of the local pass
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 __host__ __device__ inline int w_floats(int R) { return round4(R * (kDB + 1)); }
-__host__ __device__ inline int dt_floats(int R, int T) { return R > 0 ? round4(T * R) : T * kDB; }
-__host__ __device__ inline int stage_floats(int N, int R, int T) {
-  return 2 * T * kDB + dt_floats(R, T) + 2 * round4(T * N) + kDB * kMaxN;
+// The ring's stages hold IO tiles (each a multiple of 16 bytes) and, in the
+// main pass, the fp32 saved states after them.
+template <class IO>
+__host__ __device__ inline int dt_elems(int R, int T) {
+  return R > 0 ? round_vec<IO>(T * R) : T * kDB;
 }
-__host__ __device__ inline size_t smem_floats(int N, int R, int T) {
-  return 2 * (size_t)w_floats(R) + kDB + 2 * (size_t)T * kDB + (size_t)(T + 1) * kHS +
-         2 * (size_t)stage_floats(N, R, T);
+template <class IO>
+__host__ __device__ inline int stage_elems(int N, int R, int T) {  // IO elements before h0
+  return 2 * T * kDB + dt_elems<IO>(R, T) + 2 * round_vec<IO>(T * N);
 }
-__host__ __device__ inline int local_stage_floats(int N, int R) {
-  return kTileL * kDB + dt_floats(R, kTileL) + kTileL * N;
+template <class IO>
+__host__ __device__ inline int stage_bytes(int N, int R, int T) {
+  return (int)sizeof(IO) * stage_elems<IO>(N, R, T) + (int)sizeof(float) * kDB * kMaxN;
 }
-__host__ __device__ inline size_t local_smem_floats(int N, int R) {
-  return (size_t)w_floats(R) + kDB + kTileL * kDB + 2 * (size_t)local_stage_floats(N, R);
+template <class IO>
+__host__ __device__ inline size_t smem_bytes(int N, int R, int T) {
+  return sizeof(float) * (2 * (size_t)w_floats(R) + kDB + 2 * (size_t)T * kDB +
+                          (size_t)(T + 1) * kHS) +
+         2 * (size_t)stage_bytes<IO>(N, R, T);
+}
+template <class IO>
+__host__ __device__ inline int local_stage_elems(int N, int R) {
+  return kTileL * kDB + dt_elems<IO>(R, kTileL) + round_vec<IO>(kTileL * N);
+}
+template <class IO>
+__host__ __device__ inline size_t local_smem_bytes(int N, int R) {
+  return sizeof(float) * ((size_t)w_floats(R) + kDB + kTileL * kDB) +
+         sizeof(IO) * 2 * (size_t)local_stage_elems<IO>(N, R);
 }
 
 // The adjoint of chunks 1 .. n_chunk-1 from a zero start: what each hands to
 // the chunk before it (e g at its first step) goes to `carry`, its sum of
 // delta to `sdel`.
-template <bool FULL>
+template <class IO, bool FULL>
 __global__ void __launch_bounds__(kThreads)
-selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __restrict__ W,
-                                const float* __restrict__ A, const float* __restrict__ Cm,
-                                const float* __restrict__ bias, const float* __restrict__ dy,
+selective_scan_bwd_local_kernel(const IO* __restrict__ dt, const IO* __restrict__ W,
+                                const float* __restrict__ A, const IO* __restrict__ Cm,
+                                const float* __restrict__ bias, const IO* __restrict__ dy,
                                 float* __restrict__ carry, float* __restrict__ sdel, int K, int L,
                                 int dim, int N, int R, int softplus, int chunk_len,
                                 int n_chunk) {
@@ -98,8 +116,9 @@ selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __res
   float* w_s = smem;
   float* bias_s = w_s + w_floats(R);
   float* del_s = bias_s + kDB;
-  float* ring = del_s + kTileL * kDB;
-  const int stage_sz = local_stage_floats(N, R);
+  IO* ring = reinterpret_cast<IO*>(del_s + kTileL * kDB);
+  const int stage_sz = local_stage_elems<IO>(N, R);
+  const int dt_sz = dt_elems<IO>(R, kTileL);
 
   const int tid = threadIdx.x, dl = tid / kGroups, g = tid % kGroups;
   const int bk = blockIdx.z, k = bk % K, c = blockIdx.y + 1;
@@ -112,7 +131,7 @@ selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __res
   const size_t row0 = (size_t)bk * L;
 
   if (cols < kDB) {
-    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = 0.f;
+    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = from_f<IO>(0.f);
   }
   load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
   float a2[kPer], gc[kPer];
@@ -125,9 +144,9 @@ selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __res
   float sum_delta = 0.f;
 
   auto prefetch = [&](int i) {  // the i-th tile from the chunk's end
-    float* dy_s = ring + (i & 1) * stage_sz;
-    float* dt_s = dy_s + kTileL * kDB;
-    float* c_s = dt_s + dt_floats(R, kTileL);
+    IO* dy_s = ring + (i & 1) * stage_sz;
+    IO* dt_s = dy_s + kTileL * kDB;
+    IO* c_s = dt_s + dt_sz;
     const int l0 = l_begin + (n_tiles - 1 - i) * kTileL, Tc = min(kTileL, l_end - l0);
     stage_rows<kDB>(dy_s, dy + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
     if (R > 0) {
@@ -145,16 +164,16 @@ selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __res
     cp_async_wait_all();
     __syncthreads();
     if (i + 1 < n_tiles) prefetch(i + 1);
-    const float* dy_s = ring + (i & 1) * stage_sz;
-    const float* dt_s = dy_s + kTileL * kDB;
-    const float* c_s = dt_s + dt_floats(R, kTileL);
+    const IO* dy_s = ring + (i & 1) * stage_sz;
+    const IO* dt_s = dy_s + kTileL * kDB;
+    const IO* c_s = dt_s + dt_sz;
     const int l0 = l_begin + (n_tiles - 1 - i) * kTileL, Tc = min(kTileL, l_end - l0);
     delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
     __syncthreads();
 #pragma unroll 4
     for (int t = Tc - 1; t >= 0; --t) {
       const float delta = del_s[t * kDB + dl];
-      const float dyv = dy_s[t * kDB + dl];
+      const float dyv = to_f(dy_s[t * kDB + dl]);
       float cv[kPer];
       load_group<FULL>(c_s + t * N, N, g, cv);
       sum_delta += delta;
@@ -169,15 +188,16 @@ selective_scan_bwd_local_kernel(const float* __restrict__ dt, const float* __res
   }
 }
 
-template <bool FULL>
+template <class IO, bool FULL>
 __global__ void __launch_bounds__(kThreads, 3)
-selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
-                          const float* __restrict__ W, const float* __restrict__ A,
-                          const float* __restrict__ Bm, const float* __restrict__ Cm,
+selective_scan_bwd_kernel(const IO* __restrict__ u, const IO* __restrict__ dt,
+                          const IO* __restrict__ W, const float* __restrict__ A,
+                          const IO* __restrict__ Bm, const IO* __restrict__ Cm,
                           const float* __restrict__ Dp, const float* __restrict__ bias,
                           const float* __restrict__ hsave, const float* __restrict__ carry,
-                          const float* __restrict__ dy, float* __restrict__ du,
-                          float* __restrict__ ddt, float* __restrict__ dW_p,
+                          const IO* __restrict__ dy, IO* __restrict__ du,
+                          float* __restrict__ ddt_p, IO* __restrict__ ddt_full,
+                          float* __restrict__ dW_p,
                           float* __restrict__ dA_p, float* __restrict__ dB_p,
                           float* __restrict__ dC_p, float* __restrict__ dD_p,
                           float* __restrict__ dbias_p, int K, int L, int dim, int N, int R, int T,
@@ -189,9 +209,10 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
   float* del_s = bias_s + kDB;              // [T][kDB] delta
   float* dx_s = del_s + T * kDB;            // [T][kDB] sigmoid(x), then the gradient of x
   float* h_s = dx_s + T * kDB;              // [T + 1][kHS]: states, then the terms of dB
-  float* ring = h_s + (T + 1) * kHS;        // 2 stages of u, dy, dt, B, C, saved states
-  const int stage_sz = stage_floats(N, R, T);
-  const int dt_sz = dt_floats(R, T), bc_sz = round4(T * N);
+  char* ring = reinterpret_cast<char*>(h_s + (T + 1) * kHS);  // 2 stages of u, dy, dt, B, C,
+                                                               // then the saved states
+  const int stage_sz = stage_bytes<IO>(N, R, T);
+  const int dt_sz = dt_elems<IO>(R, T), bc_sz = round_vec<IO>(T * N);
 
   const int tid = threadIdx.x, dl = tid / kGroups, g = tid % kGroups;
   const int bk = blockIdx.z, k = bk % K, c = blockIdx.y;
@@ -206,7 +227,7 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
   const size_t row0 = (size_t)bk * L;
 
   if (cols < kDB) {  // the columns past `dim` are never copied: they read as 0
-    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = 0.f;
+    for (int i = tid; i < 2 * stage_sz / 4; i += kThreads) reinterpret_cast<float*>(ring)[i] = 0.f;
   }
   load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
   for (int i = tid; i < w_floats(R); i += kThreads) dw_s[i] = 0.f;
@@ -230,12 +251,12 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
   float dD = 0.f, dbias_acc = 0.f;
 
   auto prefetch = [&](int i) {  // the i-th tile from the chunk's end
-    float* u_s = ring + (i & 1) * stage_sz;
-    float* dy_s = u_s + T * kDB;
-    float* dt_s = dy_s + T * kDB;
-    float* b_s = dt_s + dt_sz;
-    float* c_s = b_s + bc_sz;
-    float* h0_s = c_s + bc_sz;
+    IO* u_s = reinterpret_cast<IO*>(ring + (i & 1) * stage_sz);
+    IO* dy_s = u_s + T * kDB;
+    IO* dt_s = dy_s + T * kDB;
+    IO* b_s = dt_s + dt_sz;
+    IO* c_s = b_s + bc_sz;
+    float* h0_s = reinterpret_cast<float*>(c_s + bc_sz);
     const int l0 = l_begin + (n_tiles - 1 - i) * T, Tc = min(T, l_end - l0);
     stage_rows<kDB>(u_s, u + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
     stage_rows<kDB>(dy_s, dy + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
@@ -257,12 +278,12 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
     cp_async_wait_all();
     __syncthreads();  // tile i has arrived; tile i - 1 is consumed
     if (i + 1 < n_tiles) prefetch(i + 1);
-    float* u_s = ring + (i & 1) * stage_sz;  // u, then du
-    const float* dy_s = u_s + T * kDB;
-    const float* dt_s = dy_s + T * kDB;
-    const float* b_s = dt_s + dt_sz;
-    const float* c_s = b_s + bc_sz;
-    const float* h0_s = c_s + bc_sz;
+    IO* u_s = reinterpret_cast<IO*>(ring + (i & 1) * stage_sz);  // u, then du
+    const IO* dy_s = u_s + T * kDB;
+    const IO* dt_s = dy_s + T * kDB;
+    const IO* b_s = dt_s + dt_sz;
+    const IO* c_s = b_s + bc_sz;
+    const float* h0_s = reinterpret_cast<const float*>(c_s + bc_sz);
     const int l0 = l_begin + (n_tiles - 1 - i) * T, Tc = min(T, l_end - l0);
     delta_phase<kDB>(dt_s, w_s, bias_s, del_s, dx_s, Tc, R, softplus, tid, kThreads);
     __syncthreads();
@@ -276,7 +297,7 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
 #pragma unroll 4
       for (int t = 0; t < Tc; ++t) {
         const float delta = del_s[t * kDB + dl];
-        const float dbu = delta * u_s[t * kDB + dl];
+        const float dbu = delta * to_f(u_s[t * kDB + dl]);
         float bv[kPer];
         load_group<FULL>(b_s + t * N, N, g, bv);
 #pragma unroll
@@ -291,10 +312,10 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
     for (int j = tid; j < Tc * 2 * kMaxN; j += kThreads) {
       const int t = j / (2 * kMaxN), half = (j / kMaxN) % 2, n = j % kMaxN;
       const float* hv = h_s + (t + 1) * kHS + half * (kDB / 2) * kMaxN + n;
-      const float* dv = dy_s + t * kDB + half * (kDB / 2);
+      const IO* dv = dy_s + t * kDB + half * (kDB / 2);
       float s = 0.f;
 #pragma unroll 8
-      for (int dd = 0; dd < kDB / 2; ++dd) s = fmaf(dv[dd], hv[dd * kMaxN], s);
+      for (int dd = 0; dd < kDB / 2; ++dd) s = fmaf(to_f(dv[dd]), hv[dd * kMaxN], s);
       s += __shfl_xor_sync(0xffffffffu, s, kMaxN);
       if (half == 0 && n < N) dC_p[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * N + n] = s;
     }
@@ -304,8 +325,8 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
 #pragma unroll 2
     for (int t = Tc - 1; t >= 0; --t) {
       const float delta = del_s[t * kDB + dl];
-      const float uv = u_s[t * kDB + dl];
-      const float dyv = dy_s[t * kDB + dl];
+      const float uv = to_f(u_s[t * kDB + dl]);
+      const float dyv = to_f(dy_s[t * kDB + dl]);
       float bv[kPer], cv[kPer], term[kPer];
       load_group<FULL>(b_s + t * N, N, g, bv);
       load_group<FULL>(c_s + t * N, N, g, cv);
@@ -331,7 +352,7 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
       if (g == 0) {  // the shuffles above order the other lanes' reads of u before this
         const float dx = ddelta * dx_s[t * kDB + dl];
         dx_s[t * kDB + dl] = dx;
-        u_s[t * kDB + dl] = fmaf(dskip, dyv, du_acc);
+        u_s[t * kDB + dl] = from_f<IO>(fmaf(dskip, dyv, du_acc));
         dbias_acc += dx;
         dD = fmaf(dyv, uv, dD);
       }
@@ -354,16 +375,16 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
         const int t = j / R, r = j - t * R;
         float s = 0.f;
         for (int dd = 0; dd < kDB; ++dd) s = fmaf(dx_s[t * kDB + dd], w_s[r * (kDB + 1) + dd], s);
-        ddt[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * R + r] = s;
+        ddt_p[(((size_t)bk * n_dblk + dblk) * L + l0 + t) * R + r] = s;
       }
       for (int j = tid; j < kDB * R; j += kThreads) {
         const int dd = j % kDB, r = j / kDB;
         float s = dw_s[r * (kDB + 1) + dd];
-        for (int t = 0; t < Tc; ++t) s = fmaf(dx_s[t * kDB + dd], dt_s[t * R + r], s);
+        for (int t = 0; t < Tc; ++t) s = fmaf(dx_s[t * kDB + dd], to_f(dt_s[t * R + r]), s);
         dw_s[r * (kDB + 1) + dd] = s;
       }
     } else {
-      store_rows<kDB>(ddt + (row0 + l0) * dim + d0, dim, dx_s, Tc, cols, tid, kThreads);
+      store_rows<kDB>(ddt_full + (row0 + l0) * dim + d0, dim, dx_s, Tc, cols, tid, kThreads);
     }
   }
 
@@ -392,8 +413,8 @@ selective_scan_bwd_kernel(const float* __restrict__ u, const float* __restrict__
 // gradient (Q = B, O = K, P = n_chunk).
 struct ReduceSeg {
   const float* src;
-  float* dst;
-  int Q, O, P, inner, begin;
+  void* dst;      // bf16 when `bf16`, else fp32
+  int Q, O, P, inner, begin, bf16;
 };
 constexpr int kMaxSeg = 7;
 struct ReduceArgs {
@@ -413,29 +434,21 @@ __global__ void __launch_bounds__(256) scan_bwd_reduce_kernel(const ReduceArgs a
     const float* p = seg.src + (((size_t)q * seg.O + o) * seg.P) * seg.inner + r;
     for (int pp = 0; pp < seg.P; ++pp) acc += p[(size_t)pp * seg.inner];
   }
-  seg.dst[j] = acc;
+  if (seg.bf16) {
+    static_cast<fm_io::bf16*>(seg.dst)[j] = from_f<fm_io::bf16>(acc);
+  } else {
+    static_cast<float*>(seg.dst)[j] = acc;
+  }
 }
 
 inline size_t round4s(size_t x) { return (x + 3) & ~(size_t)3; }
 
-}  // namespace
-
-// hsave (B*K, ceil(L/T), D, N) from the forward. The gradients come out in
-// their inputs' shapes: du (B,K,L,D); ddt (B,K,L,R), or (B,K,L,D) when R == 0;
-// dW (K,D,R); dA (K,D,N); dB, dC (B,K,L,N); dD, dbias (K,D) or null. `scratch`
-// holds the partials and the carries, each segment rounded up to 4 floats,
-// with n_chunk = ceil(L/chunk_len), n_dblk = ceil(D/64), BK = B*K: ddt's
-// BK*n_dblk*L*R, dB's and dC's BK*n_dblk*L*N each, dA's BK*n_chunk*D*N, dD's
-// and dbias' BK*n_chunk*D each, dW's BK*n_chunk*D*R, the carries BK*n_chunk*D*N
-// and the chunks' sums of delta BK*n_chunk*D. chunk_len is a multiple of 16
-// and T divides 16.
-extern "C" int fm_selective_scan_bwd(const float* u, const float* dt, const float* W,
-                                     const float* A, const float* Bm, const float* Cm,
-                                     const float* Dp, const float* bias, const float* hsave,
-                                     const float* dy, float* du, float* ddt, float* dW, float* dA,
-                                     float* dB, float* dC, float* dD, float* dbias, float* scratch,
-                                     int batch, int K, int L, int dim, int N, int R, int T,
-                                     int softplus, int chunk_len, cudaStream_t stream) {
+template <class IO>
+int scan_bwd(const IO* u, const IO* dt, const IO* W, const float* A, const IO* Bm, const IO* Cm,
+             const float* Dp, const float* bias, const float* hsave, const IO* dy, IO* du,
+             IO* ddt, IO* dW, float* dA, IO* dB, IO* dC, float* dD, float* dbias, float* scratch,
+             int batch, int K, int L, int dim, int N, int R, int T, int softplus, int chunk_len,
+             cudaStream_t stream) {
   if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || T < 1 || batch * K < 1 ||
       kTileL % T != 0 || chunk_len < kTileL || chunk_len % kTileL != 0 || !scratch) {
     return (int)cudaErrorInvalidValue;
@@ -462,9 +475,9 @@ extern "C" int fm_selective_scan_bwd(const float* u, const float* dt, const floa
   const bool full = N == kMaxN;
   cudaError_t err;
   if (n_chunk > 1) {
-    const size_t smem = sizeof(float) * local_smem_floats(N, R);
-    auto kernel = full ? selective_scan_bwd_local_kernel<true>
-                       : selective_scan_bwd_local_kernel<false>;
+    const size_t smem = local_smem_bytes<IO>(N, R);
+    auto kernel = full ? selective_scan_bwd_local_kernel<IO, true>
+                       : selective_scan_bwd_local_kernel<IO, false>;
     if (smem > 48 * 1024) {
       err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return (int)err;
@@ -476,35 +489,70 @@ extern "C" int fm_selective_scan_bwd(const float* u, const float* dt, const floa
     err = launch_carry(carry, sdel, A, batch, K, dim, N, n_chunk, 1, stream);
     if (err != cudaSuccess) return (int)err;
   }
-  const size_t smem = sizeof(float) * smem_floats(N, R, T);
-  auto kernel = full ? selective_scan_bwd_kernel<true> : selective_scan_bwd_kernel<false>;
+  const size_t smem = smem_bytes<IO>(N, R, T);
+  auto kernel = full ? selective_scan_bwd_kernel<IO, true> : selective_scan_bwd_kernel<IO, false>;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(n_dblk, n_chunk, batch * K);
   kernel<<<grid, kThreads, smem, stream>>>(
-      u, dt, W, A, Bm, Cm, Dp, bias, hsave, n_chunk > 1 ? carry : nullptr, dy, du,
-      R > 0 ? ddt_p : ddt, dW_p, dA_p, dB_p, dC_p, dD ? dD_p : nullptr,
+      u, dt, W, A, Bm, Cm, Dp, bias, hsave, n_chunk > 1 ? carry : nullptr, dy, du, ddt_p,
+      R > 0 ? nullptr : ddt, dW_p, dA_p, dB_p, dC_p, dD ? dD_p : nullptr,
       dbias ? dbias_p : nullptr, K, L, dim, N, R, T, softplus, chunk_len, n_chunk);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   ReduceArgs args;
   int n_seg = 0, total = 0;
-  auto add = [&](const float* src, float* dst, int Q, int O, int P, size_t inner) {
+  // the IO gradients (d(dt), dB, dC, dW) are rounded to IO as they are stored
+  constexpr int io_bf16 = sizeof(IO) == sizeof(fm_io::bf16);
+  auto add = [&](const float* src, void* dst, int Q, int O, int P, size_t inner, int bf16) {
     if (!dst || inner == 0) return;
-    args.seg[n_seg++] = ReduceSeg{src, dst, Q, O, P, (int)inner, total};
+    args.seg[n_seg++] = ReduceSeg{src, dst, Q, O, P, (int)inner, total, bf16};
     total += O * (int)inner;
   };
-  add(ddt_p, R > 0 ? ddt : nullptr, 1, (int)BK, n_dblk, (size_t)L * R);
-  add(dB_p, dB, 1, (int)BK, n_dblk, (size_t)L * N);
-  add(dC_p, dC, 1, (int)BK, n_dblk, (size_t)L * N);
-  add(dA_p, dA, batch, K, n_chunk, (size_t)dim * N);
-  add(dD_p, dD, batch, K, n_chunk, dim);
-  add(dbias_p, dbias, batch, K, n_chunk, dim);
-  add(dW_p, R > 0 ? dW : nullptr, batch, K, n_chunk, (size_t)dim * R);
+  add(ddt_p, R > 0 ? ddt : nullptr, 1, (int)BK, n_dblk, (size_t)L * R, io_bf16);
+  add(dB_p, dB, 1, (int)BK, n_dblk, (size_t)L * N, io_bf16);
+  add(dC_p, dC, 1, (int)BK, n_dblk, (size_t)L * N, io_bf16);
+  add(dA_p, dA, batch, K, n_chunk, (size_t)dim * N, 0);
+  add(dD_p, dD, batch, K, n_chunk, dim, 0);
+  add(dbias_p, dbias, batch, K, n_chunk, dim, 0);
+  add(dW_p, R > 0 ? dW : nullptr, batch, K, n_chunk, (size_t)dim * R, io_bf16);
   args.n_seg = n_seg;
   args.total = total;
   scan_bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(args);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// hsave (B*K, ceil(L/T), D, N) from the forward. The gradients come out in
+// their inputs' shapes: du (B,K,L,D); ddt (B,K,L,R), or (B,K,L,D) when R == 0;
+// dW (K,D,R); dA (K,D,N); dB, dC (B,K,L,N); dD, dbias (K,D) or null. `scratch`
+// holds the partials and the carries, each segment rounded up to 4 floats,
+// with n_chunk = ceil(L/chunk_len), n_dblk = ceil(D/64), BK = B*K: ddt's
+// BK*n_dblk*L*R, dB's and dC's BK*n_dblk*L*N each, dA's BK*n_chunk*D*N, dD's
+// and dbias' BK*n_chunk*D each, dW's BK*n_chunk*D*R, the carries BK*n_chunk*D*N
+// and the chunks' sums of delta BK*n_chunk*D. chunk_len is a multiple of 16
+// and T divides 16. The _bf16 entry takes u,
+// dt, W, B, C, dy, du, ddt, dW, dB and dC as bf16.
+extern "C" int fm_selective_scan_bwd(const float* u, const float* dt, const float* W,
+                                     const float* A, const float* Bm, const float* Cm,
+                                     const float* Dp, const float* bias, const float* hsave,
+                                     const float* dy, float* du, float* ddt, float* dW, float* dA,
+                                     float* dB, float* dC, float* dD, float* dbias, float* scratch,
+                                     int batch, int K, int L, int dim, int N, int R, int T,
+                                     int softplus, int chunk_len, cudaStream_t stream) {
+  return scan_bwd(u, dt, W, A, Bm, Cm, Dp, bias, hsave, dy, du, ddt, dW, dA, dB, dC, dD, dbias,
+                  scratch, batch, K, L, dim, N, R, T, softplus, chunk_len, stream);
+}
+extern "C" int fm_selective_scan_bwd_bf16(
+    const fm_io::bf16* u, const fm_io::bf16* dt, const fm_io::bf16* W, const float* A,
+    const fm_io::bf16* Bm, const fm_io::bf16* Cm, const float* Dp, const float* bias,
+    const float* hsave, const fm_io::bf16* dy, fm_io::bf16* du, fm_io::bf16* ddt,
+    fm_io::bf16* dW, float* dA, fm_io::bf16* dB, fm_io::bf16* dC, float* dD, float* dbias,
+    float* scratch, int batch, int K, int L, int dim, int N, int R, int T, int softplus,
+    int chunk_len, cudaStream_t stream) {
+  return scan_bwd(u, dt, W, A, Bm, Cm, Dp, bias, hsave, dy, du, ddt, dW, dA, dB, dC, dD, dbias,
+                  scratch, batch, K, L, dim, N, R, T, softplus, chunk_len, stream);
 }

@@ -1,4 +1,7 @@
-// Selective-scan forward for Hopper (sm_90a), fp32.
+// Selective-scan forward for Hopper (sm_90a), fp32 or bf16 I/O (u, dt, W, B,
+// C and y; A, D, the bias and the saved states fp32; the math fp32 either
+// way, so the low-rank dt is expanded with fp32 sums and delta is never
+// rounded to bf16).
 //
 // Replaces fusionmamba_tpu/ops/scan_pallas.py::_fwd_kernel (built by
 // _fwd_pallas, with _delta_raw_from_refs and _fwd_readout). For every
@@ -51,13 +54,16 @@ constexpr int kDB = 32;                  // channels per block
 constexpr int kThreads = kDB * kGroups;  // 128
 constexpr int kTile = 16;                // steps per staged tile
 
-__host__ __device__ inline int stage_floats(int N, int R) {
+// elements of a ring stage (u, dt, B and C tiles of IO, each a multiple of
+// 16 elements, so 16-byte aligned in either type)
+__host__ __device__ inline int stage_elems(int N, int R) {
   return kTile * kDB + (R > 0 ? kTile * R : kTile * kDB) + 2 * kTile * N;
 }
 __host__ __device__ inline int w_floats(int R) { return (R * (kDB + 1) + 3) & ~3; }
-__host__ __device__ inline size_t smem_floats(int N, int R) {
-  return (size_t)w_floats(R) + kDB + kTile * kDB + kTile * kThreads +
-         2 * (size_t)stage_floats(N, R);
+template <class IO>
+__host__ __device__ inline size_t smem_bytes(int N, int R) {
+  return sizeof(float) * ((size_t)w_floats(R) + kDB + kTile * kDB + kTile * kThreads) +
+         sizeof(IO) * 2 * (size_t)stage_elems(N, R);
 }
 
 // y of a tile: the sum of each channel's 4 lane parts, to device memory as
@@ -66,21 +72,22 @@ __device__ __forceinline__ float lane_parts_sum(const float* p) {
   const float4 q = *reinterpret_cast<const float4*>(p);
   return (q.x + q.y) + (q.z + q.w);
 }
-__device__ __forceinline__ void store_y(float* dst, size_t ld, const float* y_s, int rows,
-                                        int cols, int tid) {
-  if ((((uintptr_t)dst) & 15) == 0 && (ld & 3) == 0 && (cols & 3) == 0) {
+template <class IO>
+__device__ __forceinline__ void store_y(IO* dst, size_t ld, const float* y_s, int rows, int cols,
+                                        int tid) {
+  if ((((uintptr_t)dst) & (4 * sizeof(IO) - 1)) == 0 && (ld & 3) == 0 && (cols & 3) == 0) {
     const int cpr = cols >> 2;
     for (int i = tid; i < rows * cpr; i += kThreads) {
       const int r = i / cpr, c = (i - r * cpr) << 2;
       const float* p = y_s + r * kThreads + c * kGroups;
-      *reinterpret_cast<float4*>(dst + r * ld + c) =
-          make_float4(lane_parts_sum(p), lane_parts_sum(p + 4), lane_parts_sum(p + 8),
-                      lane_parts_sum(p + 12));
+      fm_io::store4(dst + r * ld + c,
+                    make_float4(lane_parts_sum(p), lane_parts_sum(p + 4), lane_parts_sum(p + 8),
+                                lane_parts_sum(p + 12)));
     }
   } else {
     for (int i = tid; i < rows * cols; i += kThreads) {
       const int r = i / cols, c = i - r * cols;
-      dst[r * ld + c] = lane_parts_sum(y_s + r * kThreads + c * kGroups);
+      dst[r * ld + c] = from_f<IO>(lane_parts_sum(y_s + r * kThreads + c * kGroups));
     }
   }
 }
@@ -88,13 +95,13 @@ __device__ __forceinline__ void store_y(float* dst, size_t ld, const float* y_s,
 // LOCAL: the chunk's end state from a zero start and its sum of delta go to
 // `carry` and `sdel`; nothing else is written. Otherwise the chunk starts
 // from `carry` (zero where it is null), and y and hsave are written.
-template <bool LOCAL, bool FULL>
+template <class IO, bool LOCAL, bool FULL>
 __global__ void __launch_bounds__(kThreads)
-selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__ dt,
-                          const float* __restrict__ W, const float* __restrict__ A,
-                          const float* __restrict__ Bm, const float* __restrict__ Cm,
+selective_scan_fwd_kernel(const IO* __restrict__ u, const IO* __restrict__ dt,
+                          const IO* __restrict__ W, const float* __restrict__ A,
+                          const IO* __restrict__ Bm, const IO* __restrict__ Cm,
                           const float* __restrict__ Dp, const float* __restrict__ bias,
-                          float* __restrict__ out, float* __restrict__ hsave,
+                          IO* __restrict__ out, float* __restrict__ hsave,
                           float* __restrict__ carry, float* __restrict__ sdel, int K, int L,
                           int dim, int N, int R, int softplus, int save_every, int chunk_len,
                           int n_chunk) {
@@ -103,8 +110,8 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
   float* bias_s = w_s + w_floats(R);       // [kDB]
   float* del_s = bias_s + kDB;             // [kTile][kDB]
   float* y_s = del_s + kTile * kDB;        // [kTile][kThreads]: each lane's part of y
-  float* ring = y_s + kTile * kThreads;    // 2 stages of u, dt, B, C tiles
-  const int stage_sz = stage_floats(N, R);
+  IO* ring = reinterpret_cast<IO*>(y_s + kTile * kThreads);  // 2 stages of u, dt, B, C tiles
+  const int stage_sz = stage_elems(N, R);
   const int dt_sz = R > 0 ? kTile * R : kTile * kDB;
 
   const int tid = threadIdx.x, dl = tid / kGroups, g = tid % kGroups;
@@ -118,7 +125,7 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
   const size_t row0 = (size_t)bk * L;
 
   if (cols < kDB) {  // the columns past `dim` are never copied: they read as 0
-    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = 0.f;
+    for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = from_f<IO>(0.f);
   }
   load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
 
@@ -139,9 +146,9 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
   const int run = (!LOCAL && hsave) ? save_every : kTile;    // steps between two saves
 
   auto prefetch = [&](int i) {
-    float* u_s = ring + (i & 1) * stage_sz;
-    float* dt_s = u_s + kTile * kDB;
-    float* b_s = dt_s + dt_sz;
+    IO* u_s = ring + (i & 1) * stage_sz;
+    IO* dt_s = u_s + kTile * kDB;
+    IO* b_s = dt_s + dt_sz;
     const int l0 = l_begin + i * kTile, Tc = min(kTile, l_end - l0);
     stage_rows<kDB>(u_s, u + (row0 + l0) * dim + d0, dim, Tc, cols, tid, kThreads);
     if (R > 0) {
@@ -160,10 +167,10 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
     cp_async_wait_all();
     __syncthreads();  // tile i has arrived; tile i - 1 and its y are consumed
     if (i + 1 < n_tiles) prefetch(i + 1);
-    const float* u_s = ring + (i & 1) * stage_sz;
-    const float* dt_s = u_s + kTile * kDB;
-    const float* b_s = dt_s + dt_sz;
-    const float* c_s = b_s + kTile * N;
+    const IO* u_s = ring + (i & 1) * stage_sz;
+    const IO* dt_s = u_s + kTile * kDB;
+    const IO* b_s = dt_s + dt_sz;
+    const IO* c_s = b_s + kTile * N;
     const int l0 = l_begin + i * kTile, Tc = min(kTile, l_end - l0);
     delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
     __syncthreads();
@@ -180,7 +187,7 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
 #pragma unroll 4
       for (int t = t0; t < t1; ++t) {
         const float delta = del_s[t * kDB + dl];
-        const float uv = u_s[t * kDB + dl];
+        const float uv = to_f(u_s[t * kDB + dl]);
         const float dbu = delta * uv;
         float bv[kPer];
         load_group<FULL>(b_s + t * N, N, g, bv);
@@ -214,13 +221,13 @@ selective_scan_fwd_kernel(const float* __restrict__ u, const float* __restrict__
   }
 }
 
-template <bool LOCAL, bool FULL>
-cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* u, const float* dt,
-                   const float* W, const float* A, const float* Bm, const float* Cm,
-                   const float* Dp, const float* bias, float* out, float* hsave, float* carry,
-                   float* sdel, int K, int L, int dim, int N, int R, int softplus,
-                   int save_every, int chunk_len, int n_chunk) {
-  auto kernel = selective_scan_fwd_kernel<LOCAL, FULL>;
+template <class IO, bool LOCAL, bool FULL>
+cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const IO* u, const IO* dt,
+                   const IO* W, const float* A, const IO* Bm, const IO* Cm, const float* Dp,
+                   const float* bias, IO* out, float* hsave, float* carry, float* sdel, int K,
+                   int L, int dim, int N, int R, int softplus, int save_every, int chunk_len,
+                   int n_chunk) {
+  auto kernel = selective_scan_fwd_kernel<IO, LOCAL, FULL>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -232,17 +239,11 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, const float* u, 
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// hsave (B*K, ceil(L/save_every), D, N) or null. With ceil(L/chunk_len) > 1
-// chunks, carry (B*K, n_chunk, D, N) and sdel (B*K, n_chunk, D) are scratch;
-// chunk_len is a multiple of 16 and save_every divides 16.
-extern "C" int fm_selective_scan_fwd(const float* u, const float* dt, const float* W,
-                                     const float* A, const float* Bm, const float* Cm,
-                                     const float* Dp, const float* bias, float* out, float* hsave,
-                                     float* carry, float* sdel, int batch, int K, int L, int dim,
-                                     int N, int R, int softplus, int save_every, int chunk_len,
-                                     cudaStream_t stream) {
+template <class IO>
+int scan_fwd(const IO* u, const IO* dt, const IO* W, const float* A, const IO* Bm, const IO* Cm,
+             const float* Dp, const float* bias, IO* out, float* hsave, float* carry, float* sdel,
+             int batch, int K, int L, int dim, int N, int R, int softplus, int save_every,
+             int chunk_len, cudaStream_t stream) {
   if (N < 1 || N > kMaxN || R < 0 || dim < 1 || L < 1 || batch * K < 1 || save_every < 1 ||
       kTile % save_every != 0 || (save_every & (save_every - 1)) != 0 || chunk_len < kTile ||
       chunk_len % kTile != 0) {
@@ -250,13 +251,13 @@ extern "C" int fm_selective_scan_fwd(const float* u, const float* dt, const floa
   }
   const int n_chunk = (L + chunk_len - 1) / chunk_len;
   if (n_chunk > 1 && (!carry || !sdel)) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(N, R);
+  const size_t smem = smem_bytes<IO>(N, R);
   const int n_dblk = (dim + kDB - 1) / kDB;
   const bool full = N == kMaxN;
   cudaError_t err = cudaSuccess;
 #define FM_FWD(LOCAL, FULL, GRID, CARRY)                                                       \
-  launch<LOCAL, FULL>(GRID, smem, stream, u, dt, W, A, Bm, Cm, Dp, bias, out, hsave, CARRY, sdel, \
-                      K, L, dim, N, R, softplus, save_every, chunk_len, n_chunk)
+  launch<IO, LOCAL, FULL>(GRID, smem, stream, u, dt, W, A, Bm, Cm, Dp, bias, out, hsave, CARRY, \
+                          sdel, K, L, dim, N, R, softplus, save_every, chunk_len, n_chunk)
   if (n_chunk > 1) {
     const dim3 grid(n_dblk, n_chunk - 1, batch * K);  // the last chunk's end state is not needed
     err = full ? FM_FWD(true, true, grid, carry) : FM_FWD(true, false, grid, carry);
@@ -269,4 +270,30 @@ extern "C" int fm_selective_scan_fwd(const float* u, const float* dt, const floa
   err = full ? FM_FWD(false, true, grid, start) : FM_FWD(false, false, grid, start);
 #undef FM_FWD
   return (int)err;
+}
+
+}  // namespace
+
+// hsave (B*K, ceil(L/save_every), D, N) or null. With ceil(L/chunk_len) > 1
+// chunks, carry (B*K, n_chunk, D, N) and sdel (B*K, n_chunk, D) are scratch;
+// chunk_len is a multiple of 16 and save_every divides 16. The _bf16 entry
+// takes u, dt, W, B, C and out as bf16.
+extern "C" int fm_selective_scan_fwd(const float* u, const float* dt, const float* W,
+                                     const float* A, const float* Bm, const float* Cm,
+                                     const float* Dp, const float* bias, float* out, float* hsave,
+                                     float* carry, float* sdel, int batch, int K, int L, int dim,
+                                     int N, int R, int softplus, int save_every, int chunk_len,
+                                     cudaStream_t stream) {
+  return scan_fwd(u, dt, W, A, Bm, Cm, Dp, bias, out, hsave, carry, sdel, batch, K, L, dim, N, R,
+                  softplus, save_every, chunk_len, stream);
+}
+extern "C" int fm_selective_scan_fwd_bf16(const fm_io::bf16* u, const fm_io::bf16* dt,
+                                          const fm_io::bf16* W, const float* A,
+                                          const fm_io::bf16* Bm, const fm_io::bf16* Cm,
+                                          const float* Dp, const float* bias, fm_io::bf16* out,
+                                          float* hsave, float* carry, float* sdel, int batch,
+                                          int K, int L, int dim, int N, int R, int softplus,
+                                          int save_every, int chunk_len, cudaStream_t stream) {
+  return scan_fwd(u, dt, W, A, Bm, Cm, Dp, bias, out, hsave, carry, sdel, batch, K, L, dim, N, R,
+                  softplus, save_every, chunk_len, stream);
 }

@@ -16,6 +16,7 @@ valid targets; `ignore_index` (-100) marks pixels that count nowhere.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -24,6 +25,13 @@ import torch.nn.functional as F
 from .fusion_loss import fusion_loss
 
 PST900_CLASS_WEIGHTS = (1.0, 970.0, 121.25, 970.0, 53.89)
+
+
+@functools.cache
+def pst900_class_weights(device: torch.device) -> torch.Tensor:
+    """PST900_CLASS_WEIGHTS as a float32 tensor on `device`, made once per
+    device (a step copies nothing to the card)."""
+    return torch.tensor(PST900_CLASS_WEIGHTS, dtype=torch.float32, device=device)
 
 
 def _clipped(target: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -83,7 +91,7 @@ def segmentation_loss(logits: torch.Tensor, target: torch.Tensor, num_classes: i
                       weight: torch.Tensor | None = None, alpha: float = 1.0,
                       gamma: float = 2.0, ignore_index: int = -100) -> SegLossOutput:
     if weight is None and num_classes == 5:
-        weight = torch.tensor(PST900_CLASS_WEIGHTS, dtype=torch.float32, device=logits.device)
+        weight = pst900_class_weights(logits.device)
     ce = cross_entropy(logits, target, weight, ignore_index)
     fl = focal_loss(logits, target, alpha, gamma, ignore_index)
     return SegLossOutput(ce + 0.5 * fl, ce, fl)

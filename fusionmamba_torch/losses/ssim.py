@@ -57,12 +57,19 @@ def band_matrix(taps: tuple, L: int, same: bool) -> np.ndarray:
     return B
 
 
+@functools.cache
+def band_tensor(taps: tuple, L: int, same: bool, device: torch.device) -> torch.Tensor:
+    """`band_matrix` as a tensor on `device`, made once per (taps, L, same,
+    device): a step copies no matrix to the card and so never waits on one."""
+    return torch.from_numpy(band_matrix(taps, L, same)).to(device)
+
+
 def sep_filter2d(x: torch.Tensor, taps_h: tuple, taps_w: tuple,
                  same: bool = False) -> torch.Tensor:
     """Separable 2-D filter of x (B, H, W) or (B, H, W, C): `taps_h` along H,
     `taps_w` along W."""
-    Bh = torch.from_numpy(band_matrix(taps_h, x.shape[1], same)).to(x.device)
-    Bw = torch.from_numpy(band_matrix(taps_w, x.shape[2], same)).to(x.device)
+    Bh = band_tensor(taps_h, x.shape[1], same, x.device)
+    Bw = band_tensor(taps_w, x.shape[2], same, x.device)
     if x.dim() == 3:
         return torch.einsum("bjw,wk->bjk", torch.einsum("bhw,hj->bjw", x, Bh), Bw)
     return torch.einsum("bjwc,wk->bjkc", torch.einsum("bhwc,hj->bjwc", x, Bh), Bw)

@@ -88,13 +88,16 @@ class VSSStageUp(nn.Module):
 
 
 class FinalConv(nn.Conv2d):
-    """1x1 conv C -> 1 on NHWC input, with nn.Conv2d's parameters."""
+    """1x1 conv C -> 1 on NHWC input, with nn.Conv2d's parameters. The
+    product runs in fp32 and returns in x's dtype, as the JAX package's
+    `_FinalConv` takes its block product in fp32."""
 
     def __init__(self, in_channels: int):
         super().__init__(in_channels, 1, 1)
 
     def forward(self, x):  # (B, H, W, C) -> (B, H, W, 1)
-        return F.linear(x, self.weight.view(1, -1), self.bias)
+        return F.linear(x.float(), self.weight.float().view(1, -1),
+                        self.bias.float()).to(x.dtype)
 
 
 def _split(values, depths):

@@ -54,7 +54,8 @@ class LDC(nn.Module):
     """Learnable central-difference 3x3 conv, no bias (reference
     `models/cross.py:790-814`). Effective weight
     W * (base_mask - theta * M * center * sum_hw W), with M the learnable
-    (out, in) mask and theta a learnable scalar."""
+    (out, in) mask and theta a learnable scalar. The masks (buffers) take
+    the weight's dtype, as the JAX package builds its center mask in it."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3):
         super().__init__()
@@ -70,8 +71,8 @@ class LDC(nn.Module):
     def forward(self, x):  # NHWC
         w = self.conv.weight
         wsum = w.sum(dim=(2, 3), keepdim=True)
-        eff = w * (self.base_mask - self.learnable_theta
-                   * self.learnable_mask[:, :, None, None] * self.center_mask * wsum)
+        eff = w * (self.base_mask.to(w.dtype) - self.learnable_theta
+                   * self.learnable_mask[:, :, None, None] * self.center_mask.to(w.dtype) * wsum)
         y = F.conv2d(x.permute(0, 3, 1, 2), eff, padding=self.conv.padding)
         return y.permute(0, 2, 3, 1).contiguous()
 
@@ -160,7 +161,11 @@ class SegmentationHead(nn.Module):
     The BatchNorms follow the JAX package's flax `nn.BatchNorm` (momentum
     0.99 there, so 0.01 here; eps 1e-5). torch updates `running_var` with
     the unbiased batch variance, flax with the biased one: the running
-    variances differ by n / (n - 1), n = B*H*W.
+    variances differ by n / (n - 1), n = B*H*W. On a bf16 input the
+    normalization runs in fp32 on fp32 casts of the input and of the
+    affine parameters, and its output is cast back, as flax's BatchNorm
+    reduces its statistics and normalizes in fp32; the running statistics
+    stay fp32.
 
     In training, dropout keeps each activation where `drop_mask` (a bool
     (B, H, W, 2C) keep-mask, as flax draws it) is true, scaled by
@@ -178,10 +183,19 @@ class SegmentationHead(nn.Module):
         self.attention = nn.Sequential(nn.Conv2d(c2, c2, 1), nn.Sigmoid())
         self.final_conv = nn.Conv2d(c2, num_classes, 1)
 
+    @staticmethod
+    def _bn(bn: nn.BatchNorm2d, x):
+        """bn(x), its statistics and normalization in fp32 whatever x's
+        dtype (the casts are the identity at fp32)."""
+        if bn.training:
+            bn.num_batches_tracked.add_(1)
+        return F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight.float(),
+                            bn.bias.float(), bn.training, bn.momentum, bn.eps).to(x.dtype)
+
     def forward(self, x, generator=None, drop_mask=None):  # (B, H, W, C)
         x = x.permute(0, 3, 1, 2)                         # channels-last NCHW view
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = F.relu(self._bn(self.bn1, self.conv1(x)))
+        x = F.relu(self._bn(self.bn2, self.conv2(x)))
         x = x * self.attention(x)
         if self.training and self.dropout_rate > 0.0:
             keep = 1.0 - self.dropout_rate

@@ -9,9 +9,12 @@ conv shared by both inputs, the pre-scan fusion x1*x2 + x1 + x2, and a gate
 read only from z1 as silu(z1) + silu(silu(z1)).
 
 The scan pipeline: efficient_scan (cross_scan) -> per-direction x_proj ->
-low-rank dt, B, C -> fp32 selective scan (A = -exp(A_logs), softplus dt,
-low-rank dt expanded inside the kernel) -> efficient_merge (cross_merge) ->
-LayerNorm x gate.
+low-rank dt, B, C -> selective scan with fp32 math (A = -exp(A_logs), softplus
+dt, low-rank dt expanded inside the kernel) -> efficient_merge (cross_merge)
+-> LayerNorm x gate. Under mixed precision the activations, B, C, the
+low-rank dt and its weight are bf16 while A, D and the dt bias enter the
+scan as fp32, as in the JAX package's `nn/ss2d.py`, and the output keeps
+the input's dtype.
 """
 from __future__ import annotations
 

@@ -65,6 +65,11 @@ SIGNATURES = {
     # stream
     "fm_ln_mean_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),
 }
+# every kernel also has a bf16-I/O variant, `<name>_bf16`, with the same
+# arguments: the tensors that its wrapper's check names bf16 are bf16 there,
+# and the math inside stays fp32
+SIGNATURES.update({name + "_bf16": args for name, args in list(SIGNATURES.items())})
+IO_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: ctypes.CDLL | None = None
 
@@ -160,14 +165,29 @@ def needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
-def check_cuda_float32(name: str, *tensors: torch.Tensor) -> None:
-    """Reject what the fp32 kernels do not take: CPU or non-fp32 or
-    non-contiguous tensors, or tensors on different cards."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
-            raise ValueError(f"{name}: all tensors must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous tensors")
+def entry(name: str, io: torch.dtype) -> str:
+    """The C entry point of kernel `name` for I/O dtype `io`."""
+    return name + "_bf16" if io == torch.bfloat16 else name
+
+
+def io_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The I/O dtype a kernel takes from `t`: float32 or bfloat16."""
+    if t.dtype not in IO_DTYPES:
+        raise TypeError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+    return t.dtype
+
+
+def check_cuda(name: str, io: torch.dtype, *tensors: torch.Tensor, fp32=()) -> None:
+    """Reject what the kernels do not take: tensors on the CPU, on different
+    cards or not contiguous, `tensors` whose dtype is not `io` (the I/O
+    dtype, float32 or bfloat16) and `fp32` ones (what the kernels read as
+    fp32 whatever the I/O dtype) whose dtype is not float32."""
+    dev = (tensors or fp32)[0].device
+    for want, group in ((io, tensors), (torch.float32, fp32)):
+        for t in group:
+            if t.device != dev or t.device.type != "cuda":
+                raise ValueError(f"{name}: all tensors must be on one CUDA device")
+            if t.dtype != want:
+                raise TypeError(f"{name}: expected {want}, got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: expected contiguous tensors")

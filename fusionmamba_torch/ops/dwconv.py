@@ -11,6 +11,11 @@ tiles and the grids. The backward computes dz once a position of its haloed
 tile, keeps dw and dbias in registers over a grid-stride walk of tiles and
 sums the per-block partials in a second kernel of the same call. See the
 sources for the designs.
+
+Both take fp32 or bf16 I/O (`cuda_lib.entry`): x, dy, the output and dx in
+the I/O dtype; the weight, the bias, their gradients and all the sums fp32,
+as the JAX package's kernels take them (its wrapper casts w and bias to
+fp32, as `depthwise_conv3x3` does here).
 """
 from __future__ import annotations
 
@@ -36,21 +41,25 @@ BWD_MAX_COLS = 16          # columns of a tile
 BWD_MAX_ROWS = 8           # rows of a tile
 BWD_BLOCKS_PER_SM = 4      # at most, fewer where the shared memory does not fit
 
-launches = 0
+launches = 0            # every launch, of either I/O dtype
 bwd_launches = 0
+bf16_launches = 0       # the launches of the bf16-I/O variants
+bf16_bwd_launches = 0
 
 
 def depthwise_conv3x3_plain(x, w, bias=None, act="none"):
-    """The nine shifted multiply-adds: x (B, H, W, C), w (3, 3, C)."""
+    """The nine shifted multiply-adds: x (B, H, W, C), w (3, 3, C). In fp32
+    whatever the dtypes, the output in x's dtype, as the kernels compute."""
     H, W = x.shape[1], x.shape[2]
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
-    acc = torch.zeros_like(x)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    w = w.float()
+    acc = torch.zeros_like(x, dtype=torch.float32)
     for i in range(3):
         for j in range(3):
             acc = acc + xp[:, i:i + H, j:j + W] * w[i, j]
     if bias is not None:
-        acc = acc + bias
-    return F.silu(acc) if act == "silu" else acc
+        acc = acc + bias.float()
+    return (F.silu(acc) if act == "silu" else acc).to(x.dtype)
 
 
 def _pow2_at_least(n: int) -> int:
@@ -121,28 +130,31 @@ def bwd_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> BwdPlan:
 
 
 def _checked(x, w, bias):
-    """x and w in torch's (C, 3, 3) layout, checked for the kernels."""
+    """w in torch's (C, 3, 3) layout and the I/O dtype, checked for the
+    kernels."""
     C = x.shape[-1]
     if x.dim() != 4 or w.shape != (3, 3, C) or (bias is not None and bias.shape != (C,)):
         raise ValueError("depthwise_conv3x3: x must be (B, H, W, C), w (3, 3, C) and bias (C,)")
     # torch's (C, 3, 3) layout; a view, not a copy, when w came from a
     # Conv2d weight as `weight[:, 0].permute(1, 2, 0)`
     w_c = w.permute(2, 0, 1).contiguous()
-    cuda_lib.check_cuda_float32("depthwise_conv3x3", x, w_c,
-                                *([] if bias is None else [bias]))
-    return w_c
+    io = cuda_lib.io_dtype("depthwise_conv3x3", x)
+    cuda_lib.check_cuda("depthwise_conv3x3", io, x,
+                        fp32=[w_c] + ([] if bias is None else [bias]))
+    return w_c, io
 
 
 def _dwconv_cuda(x, w, bias, act):
-    global launches
-    w_c = _checked(x, w, bias)
+    global launches, bf16_launches
+    w_c, io = _checked(x, w, bias)
     out = torch.empty_like(x)
     plan = fwd_plan(*x.shape, sms=cuda_lib.sm_count(x.device))
-    cuda_lib.launch("fm_dwconv3x3_fwd", x.data_ptr(), w_c.data_ptr(),
+    cuda_lib.launch(cuda_lib.entry("fm_dwconv3x3_fwd", io), x.data_ptr(), w_c.data_ptr(),
                     None if bias is None else bias.data_ptr(), out.data_ptr(),
                     *x.shape, int(act == "silu"), plan.cq, plan.tw, plan.th, *plan.grid,
                     device=x.device)
     launches += 1
+    bf16_launches += io == torch.bfloat16
     return out
 
 
@@ -150,21 +162,22 @@ def dwconv_bwd(x, w, bias, dy, act, plan=None):
     """Gradients of the conv for the cotangent dy: (dx, dw in w's (3, 3, C)
     shape, dbias or None). `plan` overrides `bwd_plan`'s layout (to time
     others)."""
-    global bwd_launches
-    w_c = _checked(x, w, bias)
+    global bwd_launches, bf16_bwd_launches
+    w_c, io = _checked(x, w, bias)
     B, H, W, C = x.shape
     if dy.shape != x.shape:
         raise ValueError("depthwise_conv3x3 backward: dy must have x's shape")
-    cuda_lib.check_cuda_float32("depthwise_conv3x3 backward", dy)
+    cuda_lib.check_cuda("depthwise_conv3x3 backward", io, dy)
     plan = plan or bwd_plan(B, H, W, C, sms=cuda_lib.sm_count(x.device))
     dx = torch.empty_like(x)
     part = torch.empty((plan.grid[1], 10, C), device=x.device, dtype=torch.float32)
     sums = torch.empty((10, C), device=x.device, dtype=torch.float32)
-    cuda_lib.launch("fm_dwconv3x3_bwd", x.data_ptr(), w_c.data_ptr(),
+    cuda_lib.launch(cuda_lib.entry("fm_dwconv3x3_bwd", io), x.data_ptr(), w_c.data_ptr(),
                     None if bias is None else bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     part.data_ptr(), sums.data_ptr(), B, H, W, C, int(act == "silu"), plan.cq,
                     plan.tw, plan.th, *plan.grid, device=x.device)
     bwd_launches += 1
+    bf16_bwd_launches += io == torch.bfloat16
     # rows 0..8 the taps i*3+j, row 9 dbias
     return dx, sums[:9].view(3, 3, C), None if bias is None else sums[9]
 
@@ -186,13 +199,16 @@ def depthwise_conv3x3(x, w, bias=None, act="none"):
     """x (B, H, W, C); w (3, 3, C); bias (C,) or None; SAME padding; act
     "silu" fuses the SiLU epilogue. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the kernel and, when a gradient
-    is needed, the backward kernel."""
+    is needed, the backward kernel. The output has x's dtype; w and bias
+    enter as fp32 (their gradients return in their own dtype)."""
     if act not in ACTS:
         raise ValueError(f"unknown act {act!r}")
     if x.device.type == "cpu":
         return depthwise_conv3x3_plain(x, w, bias, act)
     if x.device.type != "cuda":
         raise ValueError(f"depthwise_conv3x3: no implementation for {x.device}")
+    w = w.float()
+    bias = None if bias is None else bias.float()
     if cuda_lib.needs_grad(x, w, bias):
         return _DwconvFn.apply(x, w, bias, act)
     return _dwconv_cuda(x, w, bias, act)

@@ -9,6 +9,11 @@ PyTorch versions, the dispatch to the LN forward's Triton kernel
 Numerics follow `fusionmamba_tpu/ops/ln_pallas.py`: fp32 statistics with the
 fast variance E[x^2] - E[x]^2 (not F.layer_norm's two-pass form), then
 rsqrt(var + eps).
+
+Every kernel takes fp32 or bf16 I/O (`cuda_lib.entry`): x, the gate, dy, y,
+dx and dgate in the I/O dtype; scale, bias, their gradients, the LN-mean's
+(B, C) output and its cotangent fp32, as the JAX package's kernels take
+them (the ops cast scale and bias to fp32, as its wrappers do).
 """
 from __future__ import annotations
 
@@ -44,9 +49,12 @@ FWD_ROW_VALUES = 24
 FWD_MAX_CLUSTER = 16
 FWD_BLOCKS_PER_SM = 1.5
 
-layer_norm_bwd_launches = 0
+layer_norm_bwd_launches = 0     # every launch, of either I/O dtype
 ln_mean_launches = 0
 ln_mean_bwd_launches = 0
+bf16_layer_norm_bwd_launches = 0   # the launches of the bf16-I/O variants
+bf16_ln_mean_launches = 0
+bf16_ln_mean_bwd_launches = 0
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -145,29 +153,33 @@ def lnm_fwd_plan(B: int, rows: int, C: int, sms: int = 132) -> FwdPlan:
 def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None):
     """mean over positions of LN(x): (B, ..., C) -> (B, C) fp32, on the card,
     one launch. `plan` overrides `lnm_fwd_plan`'s layout (to time others)."""
-    global ln_mean_launches
+    global ln_mean_launches, bf16_ln_mean_launches
     B, C = x.shape[0], x.shape[-1]
-    cuda_lib.check_cuda_float32("ln_spatial_mean", x, scale, bias)
+    io = cuda_lib.io_dtype("ln_spatial_mean", x)
+    cuda_lib.check_cuda("ln_spatial_mean", io, x, fp32=[scale, bias])
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
     rows = x.numel() // (B * C)
     plan = plan or lnm_fwd_plan(B, rows, C, cuda_lib.sm_count(x.device))
     out = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    cuda_lib.launch("fm_ln_mean_fwd", x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_fwd", io), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                     out.data_ptr(), B, rows, C, plan.values, plan.lanes, int(plan.masked),
                     plan.cluster, eps, device=x.device)
     ln_mean_launches += 1
+    bf16_ln_mean_launches += io == torch.bfloat16
     return out
 
 
 def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
     """Gradients of the fused LN for the cotangent dy, on the card: (dx,
-    dgate or None, dscale, dbias), fp32. Two launches: the rows, then the
-    sum of the per-block partials of dscale and dbias."""
-    global layer_norm_bwd_launches
+    dgate or None, dscale, dbias), dx and dgate in x's dtype, dscale and
+    dbias fp32. Two launches: the rows, then the sum of the per-block
+    partials of dscale and dbias."""
+    global layer_norm_bwd_launches, bf16_layer_norm_bwd_launches
     C = x.shape[-1]
-    tensors = [x, scale, bias, dy] + ([] if gate is None else [gate])
-    cuda_lib.check_cuda_float32("layer_norm_fused backward", *tensors)
+    io = cuda_lib.io_dtype("layer_norm_fused backward", x)
+    cuda_lib.check_cuda("layer_norm_fused backward", io, x, dy,
+                        *([] if gate is None else [gate]), fp32=[scale, bias])
     if dy.shape != x.shape or (gate is not None and gate.shape != x.shape):
         raise ValueError("layer_norm_fused backward: dy and the gate must have x's shape")
     if scale.shape != (C,) or bias.shape != (C,):
@@ -179,24 +191,26 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
     part = torch.empty((plan.blocks, 2, C), device=x.device, dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
-    cuda_lib.launch("fm_layer_norm_bwd", x.data_ptr(), None if gate is None else gate.data_ptr(),
+    cuda_lib.launch(cuda_lib.entry("fm_layer_norm_bwd", io), x.data_ptr(), None if gate is None else gate.data_ptr(),
                     scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
                     db.data_ptr(), rows, C, 0 if gate is None else ln_triton.GATE_CODES[gate_act],
                     plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
                     device=x.device)
     layer_norm_bwd_launches += 1
+    bf16_layer_norm_bwd_launches += io == torch.bfloat16
     return dx, dg, ds, db
 
 
 def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None):
-    """Gradients of the LN-mean for the cotangent dm (B, C), on the card:
-    (dx, dscale, dbias), fp32. Two launches: the rows, then the sums of the
-    per-block partials into dscale and dbias. `plan` overrides
-    `lnm_bwd_plan`'s layout (to time others)."""
-    global ln_mean_bwd_launches
+    """Gradients of the LN-mean for the cotangent dm (B, C) fp32, on the
+    card: (dx in x's dtype, dscale, dbias fp32). Two launches: the rows, then
+    the sums of the per-block partials into dscale and dbias. `plan`
+    overrides `lnm_bwd_plan`'s layout (to time others)."""
+    global ln_mean_bwd_launches, bf16_ln_mean_bwd_launches
     B, C = x.shape[0], x.shape[-1]
-    cuda_lib.check_cuda_float32("ln_spatial_mean backward", x, scale, dm)
+    io = cuda_lib.io_dtype("ln_spatial_mean backward", x)
+    cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[scale, dm])
     if dm.shape != (B, C) or scale.shape != (C,):
         raise ValueError("ln_spatial_mean backward: dm must be (B, C) and scale (C,)")
     rows = x.numel() // (B * C)
@@ -205,11 +219,12 @@ def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None):
     part = torch.empty((B, plan.blocks, C), device=x.device, dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
-    cuda_lib.launch("fm_ln_mean_bwd", x.data_ptr(), scale.data_ptr(), dm.data_ptr(),
+    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_bwd", io), x.data_ptr(), scale.data_ptr(), dm.data_ptr(),
                     dx.data_ptr(), part.data_ptr(), ds.data_ptr(), db.data_ptr(), B, rows, C,
                     plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
                     device=x.device)
     ln_mean_bwd_launches += 1
+    bf16_ln_mean_bwd_launches += io == torch.bfloat16
     return dx, ds, db
 
 
@@ -229,9 +244,11 @@ def layer_norm_plain(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
 
 
 def ln_spatial_mean_plain(x, scale, bias, eps=1e-5):
+    """The mean in fp32 of LN(x) in fp32: LN(x) is never rounded to x's
+    dtype, as the kernels compute it."""
     B, C = x.shape[0], x.shape[-1]
-    y = layer_norm_plain(x.reshape(B, -1, C), scale, bias, None, eps)
-    return y.float().mean(dim=1)
+    y = layer_norm_plain(x.reshape(B, -1, C).float(), scale, bias, None, eps)
+    return y.mean(dim=1)
 
 
 class _LayerNormFn(torch.autograd.Function):
@@ -268,13 +285,16 @@ def layer_norm_fused(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
     (same shape as x) when one is given. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the Triton kernel and, when a
     gradient is needed, the CUDA backward kernel. gate_act "none" with a gate
-    multiplies by the raw gate."""
+    multiplies by the raw gate. The output has x's dtype (the gate must have
+    it too); scale and bias enter as fp32 (their gradients return in their
+    own dtype)."""
     if gate_act not in GATE_ACTS:
         raise ValueError(f"unknown gate_act {gate_act!r}")
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, gate, eps, gate_act)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_fused: no implementation for {x.device}")
+    scale, bias = scale.float(), bias.float()
     if needs_grad(x, scale, bias, gate):
         return _LayerNormFn.apply(x, scale, bias, gate, eps, gate_act)
     return ln_triton.layer_norm_fwd(x, scale, bias, gate, eps, gate_act)
@@ -284,11 +304,13 @@ def ln_spatial_mean(x, scale, bias, eps=1e-5):
     """Mean over all positions of LayerNorm(x): x (B, ..., C) -> (B, C) fp32,
     without LN(x) ever being written. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the CUDA forward kernel and,
-    when a gradient is needed, the CUDA backward kernel."""
+    when a gradient is needed, the CUDA backward kernel. x may be bf16;
+    scale and bias enter as fp32."""
     if x.device.type == "cpu":
         return ln_spatial_mean_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_spatial_mean: no implementation for {x.device}")
+    scale, bias = scale.float(), bias.float()
     if needs_grad(x, scale, bias):
         return _LnMeanFn.apply(x, scale, bias, eps)
     return ln_spatial_mean_fwd(x, scale, bias, eps)

@@ -7,7 +7,9 @@ Replaces `fusionmamba_tpu/ops/ln_pallas.py::_ln_fwd_kernel` (built by
 byte, so it is bound by the bytes it moves: it reads x (and the gate) once
 and writes y once. One program owns whole rows, `BLOCK_C` being C rounded up
 to a power of two and masked, and the statistics are the fast variance
-E[x^2] - E[x]^2 in fp32, as on the TPU.
+E[x^2] - E[x]^2 in fp32, as on the TPU. x, the gate and y are fp32 or bf16
+(the pointers' element type picks the compiled variant), every value is
+taken to fp32 on load, and scale and bias are fp32.
 
 `triton` is imported inside the launching functions: the module imports (and
 the CPU path runs) where Triton is absent.
@@ -18,14 +20,15 @@ import functools
 
 import torch
 
-from .cuda_lib import check_cuda_float32
+from . import cuda_lib
 
 # the gate kinds of the LN forward and backward kernels when a gate is given
 # (0: no gate): "none" multiplies by the raw gate
 GATE_CODES = {"silu": 1, "silu_sum": 2, "none": 3}
 _ROW_BLOCK_ELEMS = 4096
 
-layer_norm_launches = 0
+layer_norm_launches = 0        # every launch, of either I/O dtype
+bf16_layer_norm_launches = 0   # the launches of the bf16-I/O variant
 
 
 # triton.language, bound by `_kernels()`. Triton resolves the names a kernel
@@ -46,20 +49,20 @@ def _kernels():
         c = tl.arange(0, BLOCK_C)[None, :]
         mask = (r < rows) & (c < C)
         offs = r.to(tl.int64) * C + c
-        x = tl.load(X + offs, mask=mask, other=0.0)
+        x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
         s = tl.load(S + c, mask=c < C, other=0.0)
         b = tl.load(Bi + c, mask=c < C, other=0.0)
         mu = tl.sum(x, axis=1) / C
         rs = tl.rsqrt(tl.sum(x * x, axis=1) / C - mu * mu + eps)
         y = (x - mu[:, None]) * rs[:, None] * s + b
         if GATE != 0:
-            g = tl.load(G + offs, mask=mask, other=0.0)
+            g = tl.load(G + offs, mask=mask, other=0.0).to(tl.float32)
             if GATE != 3:
                 g = g * tl.sigmoid(g)
                 if GATE == 2:
                     g = g + g * tl.sigmoid(g)
             y = y * g
-        tl.store(Y + offs, y, mask=mask)
+        tl.store(Y + offs, y.to(Y.dtype.element_ty), mask=mask)
 
     return triton, ln_fwd
 
@@ -71,11 +74,12 @@ def _blocks(C: int):
 
 
 def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
-    """LN(x) * act(gate) over the last axis, fp32, on the card."""
-    global layer_norm_launches
+    """LN(x) * act(gate) over the last axis, in x's dtype, on the card."""
+    global layer_norm_launches, bf16_layer_norm_launches
     C = x.shape[-1]
-    tensors = [x, scale, bias] + ([] if gate is None else [gate])
-    check_cuda_float32("layer_norm_fused", *tensors)
+    io = cuda_lib.io_dtype("layer_norm_fused", x)
+    cuda_lib.check_cuda("layer_norm_fused", io, x, *([] if gate is None else [gate]),
+                        fp32=[scale, bias])
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("layer_norm_fused: scale and bias must be (C,)")
     if gate is not None and gate.shape != x.shape:
@@ -90,4 +94,5 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
             x, x if gate is None else gate, scale, bias, y, rows, C, eps,
             GATE=code, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
     layer_norm_launches += 1
+    bf16_layer_norm_launches += io == torch.bfloat16
     return y

@@ -11,6 +11,11 @@ alone cannot fill the card (`chunk_len` picks the cut;
 the sequential scan). For training the forward saves the
 states at the start of every `SAVE_EVERY` steps, from which the backward
 recomputes each tile of states. See the sources for the designs.
+
+Both take fp32 or bf16 I/O (`cuda_lib.entry`): u, dt, its low-rank weight,
+B, C, y and their gradients in the I/O dtype, A, D, the dt bias, the saved
+states and their gradients fp32, as the JAX package's kernels take them;
+the math inside is fp32 either way.
 """
 from __future__ import annotations
 
@@ -35,8 +40,10 @@ _LANES = 4          # lanes per channel
 FWD_WARPS_PER_SM = (8, 40)
 BWD_WARPS_PER_SM = (16, 72)
 
-launches = 0
+launches = 0            # every launch, of either I/O dtype
 bwd_launches = 0
+bf16_launches = 0       # the launches of the bf16-I/O variants
+bf16_bwd_launches = 0
 
 
 def chunk_len(L: int, threads: int, enough_threads: int, target_threads: int) -> int:
@@ -55,7 +62,8 @@ def chunk_len(L: int, threads: int, enough_threads: int, target_threads: int) ->
 
 
 def _check(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight):
-    """Raise on what the kernels do not take; returns (batch, K, L, dim, N, R)."""
+    """Raise on what the kernels do not take; returns (batch, K, L, dim, N,
+    R, the I/O dtype)."""
     batch, K, L, dim = u.shape
     N = A.shape[-1]
     R = 0 if dt_lowrank_weight is None else dt_lowrank_weight.shape[-1]
@@ -67,15 +75,15 @@ def _check(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight):
     if (tuple(delta.shape) != want_dt or tuple(A.shape) != (K, dim, N)
             or tuple(Bmat.shape) != (batch, K, L, N) or Cmat.shape != Bmat.shape):
         raise ValueError("selective_scan: inconsistent shapes")
-    tensors = [u, delta, A, Bmat, Cmat]
     for opt, shape in ((dt_lowrank_weight, (K, dim, R)), (D, (K, dim)),
                        (delta_bias, (K, dim))):
-        if opt is not None:
-            if tuple(opt.shape) != shape:
-                raise ValueError("selective_scan: inconsistent shapes")
-            tensors.append(opt)
-    cuda_lib.check_cuda_float32("selective_scan", *tensors)
-    return batch, K, L, dim, N, R
+        if opt is not None and tuple(opt.shape) != shape:
+            raise ValueError("selective_scan: inconsistent shapes")
+    io = cuda_lib.io_dtype("selective_scan", u)
+    cuda_lib.check_cuda("selective_scan", io,
+                        *(t for t in (u, delta, Bmat, Cmat, dt_lowrank_weight) if t is not None),
+                        fp32=[t for t in (A, D, delta_bias) if t is not None])
+    return batch, K, L, dim, N, R, io
 
 
 def _round4(x):
@@ -115,14 +123,15 @@ def _ptr(t):
 
 def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
                        dt_lowrank_weight, save_states=False, chunk=None):
-    """fp32 scan on the card. Shapes as `selective_scan`; `delta` is the
+    """The scan on the card, in u's I/O dtype (module doc). Shapes as
+    `selective_scan`; `delta` is the
     low-rank (B, K, L, R) dt when `dt_lowrank_weight` (K, D, R) is given.
     Returns y, or (y, hsave) with `save_states`, hsave being the states at
     the start of every SAVE_EVERY steps, (B*K, ceil(L/SAVE_EVERY), D, N).
     `chunk` overrides the chunk length (a multiple of 16 steps)."""
-    global launches
-    batch, K, L, dim, N, R = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
-                                    dt_lowrank_weight)
+    global launches, bf16_launches
+    batch, K, L, dim, N, R, io = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
+                                        dt_lowrank_weight)
     if fwd_smem_bytes(N, R) > _SMEM_LIMIT:
         raise ValueError(f"selective_scan: dt rank {R} too large for the kernel")
     dev = u.device
@@ -138,11 +147,12 @@ def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
         carry = torch.empty((batch * K, n_chunk, dim, N), device=dev, dtype=torch.float32)
         sdel = torch.empty((batch * K, n_chunk, dim), device=dev, dtype=torch.float32)
     cuda_lib.launch(
-        "fm_selective_scan_fwd", u.data_ptr(), delta.data_ptr(),
+        cuda_lib.entry("fm_selective_scan_fwd", io), u.data_ptr(), delta.data_ptr(),
         _ptr(dt_lowrank_weight), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
         _ptr(D), _ptr(delta_bias), out.data_ptr(), _ptr(hsave), _ptr(carry), _ptr(sdel),
         batch, K, L, dim, N, R, int(delta_softplus), SAVE_EVERY, chunk, device=dev)
     launches += 1
+    bf16_launches += io == torch.bfloat16
     return (out, hsave) if save_states else out
 
 
@@ -163,11 +173,11 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
     in the shape of its input (None for an input that was None). `chunk`
     overrides the chunk length (a multiple of 16 steps; it need not be the
     forward's)."""
-    global bwd_launches
-    batch, K, L, dim, N, R = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
-                                    dt_lowrank_weight)
+    global bwd_launches, bf16_bwd_launches
+    batch, K, L, dim, N, R, io = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
+                                        dt_lowrank_weight)
     dev = u.device
-    cuda_lib.check_cuda_float32("selective_scan backward", u, hsave, dy)
+    cuda_lib.check_cuda("selective_scan backward", io, dy, fp32=[hsave])
     if (tuple(hsave.shape) != (batch * K, -(-L // SAVE_EVERY), dim, N)
             or dy.shape != u.shape):
         raise ValueError("selective_scan backward: inconsistent shapes")
@@ -184,10 +194,11 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
     scratch = torch.empty(bwd_scratch_floats(batch, K, L, dim, N, R, n_chunk), device=dev,
                           dtype=torch.float32)
     cuda_lib.launch(
-        "fm_selective_scan_bwd", u.data_ptr(), delta.data_ptr(), _ptr(dt_lowrank_weight),
+        cuda_lib.entry("fm_selective_scan_bwd", io), u.data_ptr(), delta.data_ptr(), _ptr(dt_lowrank_weight),
         A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(), _ptr(D), _ptr(delta_bias),
         hsave.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), _ptr(dW),
         dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias), scratch.data_ptr(),
         batch, K, L, dim, N, R, SAVE_EVERY, int(delta_softplus), chunk, device=dev)
     bwd_launches += 1
+    bf16_bwd_launches += io == torch.bfloat16
     return du, ddt, dA, dB, dC, dD, dbias, dW

@@ -32,7 +32,8 @@ needs depends on who reads its output:
 
 On an axis of one rank every helper is the identity. Under gloo (see
 `mesh.Axis.stage_on_host`) a CUDA tensor is copied to host memory for the
-collective and the result copied back.
+collective and the result copied back. bf16 sums and maxima are taken in
+fp32.
 """
 from __future__ import annotations
 
@@ -47,11 +48,15 @@ def _host(t: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 
 def _reduce(t: torch.Tensor, axis: Axis, op) -> torch.Tensor:
+    """A bf16 t is reduced in fp32 and rounded back once (gloo has no bf16
+    sum; for two ranks this rounds as a bf16 sum does)."""
     if axis.size == 1:
         return t.detach().clone()
     buf = _host(t.detach(), axis).contiguous().clone()
+    if buf.dtype == torch.bfloat16:
+        buf = buf.float()
     dist.all_reduce(buf, op=op, group=axis.group)
-    return buf.to(t.device)
+    return buf.to(t.device, t.dtype)
 
 
 def reduce_sum(t: torch.Tensor, axis: Axis) -> torch.Tensor:

@@ -3,8 +3,10 @@
 fusionmamba_torch.train`; the segmentation CLI is
 `fusionmamba_torch.train_segmentation`)."""
 from .cli import main
-from .loop import (fusion_train_step, make_fusion_optimizer, make_seg_optimizer, poly_lr,
-                   reference_fusion_lr, seg_train_step, set_learning_rate)
+from .loop import (PRECISIONS, cast_compute, fusion_train_step, make_fusion_optimizer,
+                   make_seg_optimizer, poly_lr, reference_fusion_lr, resolve_compute_dtype,
+                   seg_train_step, set_learning_rate)
 
-__all__ = ["fusion_train_step", "main", "make_fusion_optimizer", "make_seg_optimizer",
-           "poly_lr", "reference_fusion_lr", "seg_train_step", "set_learning_rate"]
+__all__ = ["PRECISIONS", "cast_compute", "fusion_train_step", "main", "make_fusion_optimizer",
+           "make_seg_optimizer", "poly_lr", "reference_fusion_lr", "resolve_compute_dtype",
+           "seg_train_step", "set_learning_rate"]

@@ -5,6 +5,7 @@
         [--ckpt_dir model_last/my_cross] [--num_workers/-j 8]
         [--synthetic N] [--image_size 256] [--device cuda|cpu]
         [--mesh NDATA,NMODEL] [--scan_impl adaptive|...|sp]
+        [--precision auto|bf16|fp32]
 
     torchrun --nproc_per_node N -m fusionmamba_torch.train --mesh NDATA,NMODEL ...
 
@@ -18,7 +19,10 @@ saved to the same path at the end. With `-j N > 0` the items load in N
 threads and each batch is copied to the card ahead of its step
 (`data.prefetch`); with `-j 0` they load in the loop. `--dataset all` trains
 acod, mfnet and pst900 in turn. It runs on the card unless `--device cpu` is
-given.
+given. `--precision bf16` trains in mixed precision (`loop.cast_compute`:
+fp32 master weights and Adam state, bf16 compute through the kernels' bf16
+variants); `auto`, the default, is fp32 (the JAX package's auto picks bf16
+on a TPU only). The saved state dict is fp32 either way.
 
 Under torchrun (or in a process group already made) the ranks form the mesh
 `--mesh NDATA,NMODEL` (default: every rank data-parallel), as the JAX
@@ -51,7 +55,8 @@ from ..nn import init_weights
 from ..parallel import (apply_tensor_parallel, gather_state_dict, init_distributed, make_mesh,
                         rank_rows, set_mesh)
 from ..utils import rank_log_level
-from .loop import fusion_train_step, make_fusion_optimizer, reference_fusion_lr, set_learning_rate
+from .loop import (PRECISIONS, fusion_train_step, make_fusion_optimizer, reference_fusion_lr,
+                   resolve_compute_dtype, set_learning_rate)
 
 DATASETS = ("acod", "mfnet", "pst900")
 CONFIGS = {"full": full_config, "tiny": tiny_config, "test": test_config}
@@ -79,6 +84,9 @@ def parse_args(argv=None):
     ap.add_argument("--scan_impl", default="adaptive", choices=SCAN_IMPLS,
                     help="sp also splits the scan's sequence over NMODEL; every other name "
                          "runs the port's one scan")
+    ap.add_argument("--precision", default="auto", choices=PRECISIONS,
+                    help="compute dtype: bf16 = mixed precision (fp32 master weights); "
+                         "auto = fp32")
     return ap, ap.parse_args(argv)
 
 
@@ -171,7 +179,8 @@ def train_fusion(args, ds, dataset: str, device: torch.device, log: logging.Logg
             clock.mark()
             # the on-disk datasets' items also carry a label, which fusion
             # training does not read
-            metrics = fusion_train_step(net, opt, batch[0], batch[1], gen, mesh)
+            metrics = fusion_train_step(net, opt, batch[0], batch[1], gen, mesh,
+                                        compute_dtype=resolve_compute_dtype(args.precision))
             losses.append(metrics["loss_total"])
             step += 1
             if step % 10 == 0:

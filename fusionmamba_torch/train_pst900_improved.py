@@ -1,7 +1,8 @@
 """PST900 improved-training entry point of the port (the counterpart of
 `train_pst900_improved.py`):
 
-    python -m fusionmamba_torch.train_pst900_improved [train_segmentation's flags]
+    python -m fusionmamba_torch.train_pst900_improved [train_segmentation's flags,
+        --precision auto|bf16|fp32 among them]
 
 The improvements (class weights from the label counts, AdamW at 5e-5 with
 the poly lr, the improved loss with Dice, the gradient clip) are

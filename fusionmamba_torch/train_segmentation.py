@@ -6,7 +6,7 @@
         [--lr 1e-4] [--fusion_weight 1] [--seg_weight 1] [--eval_interval 1]
         [--ckpt_dir model_last/segmentation] [--model full|tiny|test]
         [--num_workers/-j 8] [--synthetic N] [--image_size 256]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--precision auto|bf16|fp32]
 
 Trains `VSSMFusionSeg` (weights from seed 0) with `seg_train_step`: the
 class count of the dataset (acod 2, mfnet 9, pst900 5), AdamW with the
@@ -23,9 +23,11 @@ every epoch the state dict is saved to
 pst900 on disk; a second synthetic set with `--synthetic`), and a new best
 mIoU is also saved to `..._best.pth`. `--image_size` is the size the pairs
 are resized to or made at. It runs on the card unless `--device cpu` is
-given. Not ported: `--precision` (the port is fp32) and
-`--scan_impl`/`--scan_guard`/`--auto_exact` (the port's scan is exact at any
-dt).
+given. `--precision bf16` trains in mixed precision as the fusion CLI does
+(fp32 master weights, AdamW state and BatchNorm running statistics; `auto`,
+the default, is fp32); the saved state dicts are fp32 either way. Not
+ported: `--scan_impl`/`--scan_guard`/`--auto_exact` (the port's scan is
+exact at any dt).
 """
 from __future__ import annotations
 
@@ -43,8 +45,8 @@ from .losses import compute_class_weights
 from .models import VSSMFusionSeg
 from .nn import init_weights
 from .train.cli import CONFIGS, StepClock, epoch_batches, logger
-from .train.loop import (SEG_MODES, make_seg_optimizer, poly_lr, seg_train_step,
-                         set_learning_rate)
+from .train.loop import (PRECISIONS, SEG_MODES, make_seg_optimizer, poly_lr,
+                         resolve_compute_dtype, seg_train_step, set_learning_rate)
 
 NUM_CLASSES = {"acod": 2, "mfnet": 9, "pst900": 5}
 
@@ -70,6 +72,9 @@ def parse_args(argv=None):
                          "(N for training, N // 4, at least 2, for evaluation)")
     ap.add_argument("--image_size", type=int, default=256)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--precision", default="auto", choices=PRECISIONS,
+                    help="compute dtype: bf16 = mixed precision (fp32 master weights); "
+                         "auto = fp32")
     return ap, ap.parse_args(argv)
 
 
@@ -134,6 +139,7 @@ def main(argv=None) -> dict:
     except (RuntimeError, ValueError) as e:
         ap.error(str(e))
     log = logger("fusionmamba_torch.train_segmentation")
+    compute_dtype = resolve_compute_dtype(args.precision)
     tic = time.time()
     num_classes = NUM_CLASSES[args.dataset]
     is_pst900 = args.dataset == "pst900"
@@ -179,7 +185,8 @@ def main(argv=None) -> dict:
             metrics = seg_train_step(
                 net, opt, vis_y, ir, lbl, num_classes=num_classes, mode=args.mode,
                 fusion_weight=args.fusion_weight, seg_weight=args.seg_weight,
-                class_weights=class_weights, improved=is_pst900, generator=gen)
+                class_weights=class_weights, improved=is_pst900, generator=gen,
+                compute_dtype=compute_dtype)
             losses.append(metrics["total"])
             step += 1
             if step % 10 == 0:

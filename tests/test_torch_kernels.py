@@ -538,3 +538,218 @@ def test_lm_generate_graph_matches_loop_on_card(dev):
         assert runs[0].shape == (2, 17)
         assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2]), kw
     assert scan_cuda.launches == before
+
+
+# ---------------------------------------------------------------------------
+# bf16 I/O: each kernel's bf16 variant against its plain version on the same
+# bf16 inputs (fp32 for what the kernels read as fp32). Both compute in fp32
+# and round to bf16 at the same places; sums in another order can move a
+# value across a rounding boundary, so each output and each gradient is held
+# to two bf16 ulps of the plain value plus two of the tensor's largest entry:
+# |err| <= 8e-3 |plain| + 8e-3 max|plain|.
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    g, w = got.float(), want.float()
+    bound = 8e-3 * w.abs() + 8e-3 * float(w.abs().max()) + 1e-30
+    assert bool(((g - w).abs() <= bound).all()), float(((g - w).abs() - bound).max())
+
+
+def _check_bf16(kernel, plain, inputs, dy, counters):
+    """The bf16 kernels (forward and, with dy, backward) against the plain
+    version: outputs and every gradient in their inputs' dtypes; two
+    launches bit-identical; each bf16 counter in `counters` advanced."""
+    befores = [getattr(m, n) for m, n in counters]
+    if dy is None:
+        with torch.no_grad():
+            y, again = kernel(*inputs), kernel(*inputs)
+            want = plain(*inputs)
+        torch.cuda.synchronize()
+        _bf16_close(y, want)
+        assert torch.equal(y, again)
+    else:
+        y, got = _grads(kernel, inputs, dy)
+        _, again = _grads(kernel, inputs, dy)
+        torch.cuda.synchronize()
+        yw, want = _grads(plain, inputs, dy)
+        _bf16_close(y, yw)
+        for t, g, w, a in zip([t for t in inputs if t is not None], got, want, again):
+            assert g.dtype == t.dtype
+            _bf16_close(g, w)
+            assert torch.equal(g, a)
+    for (m, n), b in zip(counters, befores):
+        assert getattr(m, n) >= b + 2, n
+
+
+@pytest.mark.parametrize("batch,L,D,N,R,chunk", [
+    (2, 64, 96, 16, 6, None), (2, 65, 40, 16, 6, 32), (2, 33, 70, 16, 0, None),
+    (12, 1024, 192, 16, 6, None), (12, 16, 1536, 16, 48, None), (1, 97, 33, 3, 5, 32)])
+def test_scan_kernels_bf16(dev, batch, L, D, N, R, chunk):
+    """u, dt, W, B, C, y and their gradients bf16; A, D, the bias and theirs
+    fp32; with an explicit chunk length the forward's and the backward's
+    chunked passes."""
+    case = _scan_case(L + D, batch, L, D, N, R, shift=-1.0)
+    io = {0, 1, 3, 4, 7}
+    args = [None if t is None else (t.to(BF16) if i in io else t).to(dev)
+            for i, t in enumerate(case)]
+    dy = torch.randn(batch, 4, L, D, generator=torch.Generator().manual_seed(1)).to(dev, BF16)
+
+    def kernel(u, dt, A, Bm, Cm, Dp, bias, W):
+        if chunk is None:
+            return selective_scan(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True,
+                                  dt_lowrank_weight=W)
+        return scan_cuda.selective_scan_fwd(u, dt, A, Bm, Cm, Dp, bias, True, W, chunk=chunk)
+
+    def plain(*a):
+        return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
+
+    _check_bf16(kernel, plain, args, None, [(scan_cuda, "bf16_launches")])
+    if chunk is None:
+        _check_bf16(kernel, plain, args, dy, [(scan_cuda, "bf16_bwd_launches")])
+    else:
+        with torch.no_grad():
+            _, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True)
+        got = scan_cuda.selective_scan_bwd(*args, hsave, dy, True, chunk=chunk)
+        whole = scan_cuda.selective_scan_bwd(*args, hsave, dy, True, chunk=16 * (L // 16 + 1))
+        for a, b in zip(got, whole):
+            if a is not None:
+                assert a.dtype == b.dtype
+                _bf16_close(a, b)
+
+
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
+@pytest.mark.parametrize("rows,C", [(37, 96), (4096, 192), (64, 1536), (37, 100)])
+def test_layer_norm_kernels_bf16(dev, gate_act, rows, C):
+    """x, the gate, y, dx and dgate bf16; scale and bias bf16 parameters that
+    enter the kernels as fp32 (their gradients return in bf16)."""
+    g = torch.Generator().manual_seed(rows + C)
+    x = _rand(g, rows, C, scale=2.0, shift=0.5)
+    s, b = _rand(g, C, scale=0.2, shift=1.0), _rand(g, C, scale=0.2)
+    gate = None if gate_act == "none" else _rand(g, rows, C)
+    act = "none" if gate_act == "raw" else gate_act
+    inputs = [t if t is None else t.to(dev, BF16) for t in (x, s, b, gate)]
+    dy = _rand(g, rows, C).to(dev, BF16)
+
+    def kernel(x, s, b, gate):
+        return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, act)
+
+    def plain(x, s, b, gate):
+        return layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, act)
+
+    _check_bf16(kernel, plain, inputs, dy, [(ln_triton, "bf16_layer_norm_launches"),
+                                            (layer_norm, "bf16_layer_norm_bwd_launches")])
+
+
+@pytest.mark.parametrize("B,rows,C", [(3, 37, 96), (12, 4096, 96), (2, 300, 1000), (8, 64, 768)])
+def test_ln_spatial_mean_kernels_bf16(dev, B, rows, C):
+    """x and dx bf16; the (B, C) mean and its cotangent fp32."""
+    g = torch.Generator().manual_seed(B * rows + C)
+    x = _rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev, BF16)
+    s, b = _rand(g, C, scale=0.2, shift=1.0).to(dev), _rand(g, C, scale=0.2).to(dev)
+    dm = _rand(g, B, C).to(dev)
+
+    def kernel(x, s, b):
+        return layer_norm.ln_spatial_mean(x, s, b, 1e-5)
+
+    def plain(x, s, b):
+        return layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5)
+
+    before = layer_norm.bf16_ln_mean_launches
+    y, got = _grads(kernel, [x, s, b], dm)
+    yw, want = _grads(plain, [x, s, b], dm)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and layer_norm.bf16_ln_mean_launches == before + 1
+    torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)   # fp32 out, no bf16 rounding
+    for t, gk, w in zip((x, s, b), got, want):
+        assert gk.dtype == t.dtype
+        _bf16_close(gk, w)
+
+
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (12, 64, 64, 192), (6, 8, 8, 1536)])
+def test_dwconv_kernels_bf16(dev, act, has_bias, shape):
+    """x, out, dy and dx bf16 (C = 3 takes the scalar path); w and bias bf16
+    parameters that enter the kernels as fp32 (gradients back in bf16)."""
+    g = torch.Generator().manual_seed(sum(shape))
+    C = shape[-1]
+    inputs = [_rand(g, *shape).to(dev, BF16), _rand(g, 3, 3, C, scale=0.3).to(dev, BF16),
+              _rand(g, C, scale=0.1).to(dev, BF16) if has_bias else None]
+    dy = _rand(g, *shape).to(dev, BF16)
+    _check_bf16(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act=act),
+                lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act=act),
+                inputs, dy, [(dwconv, "bf16_launches"), (dwconv, "bf16_bwd_launches")])
+
+
+@pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (512, 768, 3072), (3072, 96, 384),
+                                   (768, 192, 768)])
+def test_mlp_kernels_bf16(dev, M, C, H):
+    """Every tensor bf16: the forward (fused and two-pass), and the backward
+    with its bf16 roundings of the hidden and of dL/dh, against the plain
+    version that rounds at the same places."""
+    g = torch.Generator().manual_seed(M + C + H)
+    x = _rand(g, M, C).to(dev, BF16)
+    w1, b1 = _rand(g, H, C, scale=C ** -0.5).to(dev, BF16), _rand(g, H, scale=0.1).to(dev, BF16)
+    w2, b2 = _rand(g, C, H, scale=H ** -0.5).to(dev, BF16), _rand(g, C, scale=0.1).to(dev, BF16)
+    want = mlp.fused_mlp_plain(x, w1.t(), b1, w2.t(), b2)
+    for fused in (True, False):
+        with torch.no_grad():
+            got = mlp.mlp_fwd(x, w1, b1, w2, b2, fused=fused)
+        _bf16_close(got, want)
+    dy = _rand(g, M, C).to(dev, BF16)
+    _check_bf16(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
+                lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
+                [x, w1, b1, w2, b2], dy, [(mlp, "bf16_launches"), (mlp, "bf16_bwd_launches")])
+
+
+def test_mlp_kernel_bf16_width_limit(dev):
+    """bf16 widths must be whole 16-byte copies: multiples of 8."""
+    x = torch.zeros(4, 20, device=dev, dtype=BF16)
+    w1, b1 = torch.zeros(20, 72, device=dev, dtype=BF16), torch.zeros(72, device=dev, dtype=BF16)
+    w2, b2 = torch.zeros(72, 20, device=dev, dtype=BF16), torch.zeros(20, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        mlp.fused_mlp(x, w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_train_steps_never_wait_for_the_card(dev, precision):
+    """A warm fusion step and a warm segmentation step (mode both, the
+    improved loss with class weights on the card) under
+    torch.cuda.set_sync_debug_mode("error"): no host-device synchronisation
+    inside either step."""
+    from fusionmamba_torch.config import test_config
+    from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
+    from fusionmamba_torch.nn import init_weights
+    from fusionmamba_torch.train import (fusion_train_step, make_fusion_optimizer,
+                                         make_seg_optimizer, resolve_compute_dtype,
+                                         seg_train_step)
+
+    dtype = resolve_compute_dtype(precision)
+    g = torch.Generator().manual_seed(6)
+    vis, ir = (torch.rand(2, 32, 32, 1, generator=g).to(dev) for _ in range(2))
+    labels = torch.randint(0, 5, (2, 32, 32), generator=g).to(dev)
+    weights = torch.tensor([1.0, 3.0, 2.0, 4.0, 1.5], device=dev)
+    net = init_weights(VSSMFusion(test_config(drop_path_rate=0.1)), seed=1).to(dev)
+    opt = make_fusion_optimizer(net.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    seg = init_weights(VSSMFusionSeg(test_config(num_seg_classes=5)), seed=2).to(dev)
+    seg_opt = make_seg_optimizer(seg.parameters())
+
+    def steps():
+        a = fusion_train_step(net, opt, vis, ir, gen, compute_dtype=dtype)
+        b = seg_train_step(seg, seg_opt, vis, ir, labels, num_classes=5, mode="both",
+                           class_weights=weights, improved=True, generator=gen,
+                           compute_dtype=dtype)
+        return a, b
+
+    steps()          # warm: the kernels build, the losses' matrices are made
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        a, b = steps()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(v)) for v in (*a.values(), *b.values()))

@@ -123,11 +123,13 @@ def sp_scan_case(n_model: int, inputs: dict, cot: np.ndarray) -> dict:
     return {"y": y.detach().numpy(), **{k: v.grad.numpy() for k, v in t.items()}}
 
 
-def train_case(cfg_kwargs: dict, mesh_shape, batches, steps: int) -> dict:
+def train_case(cfg_kwargs: dict, mesh_shape, batches, steps: int,
+               precision: str = "fp32") -> dict:
     """`steps` fusion steps of VSSMFusion(test_config(**cfg_kwargs)) from
     seed-0 weights on the global `batches` (numpy (vis, ir) pairs), DropPath
     drawn from a generator seeded 0, over a mesh of `mesh_shape` (each data
-    rank its rows; the model tensor-parallel over the model axis). Returns
+    rank its rows; the model tensor-parallel over the model axis), at
+    `precision` (`train.resolve_compute_dtype`). Returns
     the losses, the first step's gradients and the final state dict, both
     gathered whole, how many parameters were sharded, and each op's calls
     by shape over the steps (`count_plain_calls`)."""
@@ -148,7 +150,8 @@ def train_case(cfg_kwargs: dict, mesh_shape, batches, steps: int) -> dict:
         for vis, ir in batches[:steps]:
             rows = rank_rows(vis.shape[0], mesh)
             m = train.fusion_train_step(net, opt, torch.from_numpy(vis[rows]),
-                                        torch.from_numpy(ir[rows]), gen, mesh)
+                                        torch.from_numpy(ir[rows]), gen, mesh,
+                                        compute_dtype=train.resolve_compute_dtype(precision))
             losses.append(float(m["loss_total"]))
             if grads is None:
                 grads = gather_state_dict(net, mesh, {n: p.grad for n, p in
