@@ -6,7 +6,8 @@
 Phases, each printing one JSON line per result; any failure exits non-zero:
   1. device  - the card, its power limit; fp32 numerics pinned (no TF32).
   2. build   - builds the CUDA kernels from `fusionmamba_torch/csrc`, with
-               nvcc's register and shared-memory report.
+               nvcc's register and shared-memory report and the entries
+               that ptxas reports spilling.
   3. kernel  - each of the five forward kernels against its plain PyTorch
                version at every shape of the serving path (full config, 8
                pairs of 256^2; the encoder runs both modalities as 16): max
@@ -37,12 +38,16 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                bf16 inputs a bf16 step hands it, against its plain version:
                the output and every gradient (each in its input's dtype)
                within 8e-3 |plain| + 8e-3 max|plain|, two launches
-               bit-identical, its time and device time beside the fp32
-               kernel's device time, and the bf16 bound (bytes halved where
-               the I/O is bf16, the MLP's products at the bf16 rate); a
-               `kernel_bf16_step` line sums them a step.
+               bit-identical, its time and device time (and their gap)
+               beside the fp32 kernel's device time, the bf16 bound (bytes
+               halved where the I/O is bf16, the MLP's products at the bf16
+               rate) and its share, and the bf16 library call's time and
+               device time where there is one (#3 ungated, #4 its autograd,
+               #7, #8, #9, #10); a `kernel_bf16_step` line sums them a step.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
-               each training shape: error against the plain version, time.
+               each training shape, in fp32 and in bf16 (the fused bf16
+               design where C <= 192): error against the plain version,
+               time (and the bf16 device time).
      scan_paths - the scan kernels at every training and serving shape, and
                at the full-resolution scan's (L = H*W at each stage's width,
                batch 12), with L cut as the wrapper cuts it and, where that
@@ -169,7 +174,7 @@ the shapes the profiler timed, `device_shapes_covered` of `shapes`; launches
 of the training run, of the segmentation CLI's PST900 run, of the LM's scoring
 forwards and of visualize_segmentation's run; bf16_launches of the bf16
 training run and the bf16 variant's times, error and bound from
-kernel_bf16), and the result line.
+kernel_bf16, with the bf16 library call's), and the result line.
 Without a CUDA device it fails before any phase. It imports nothing of JAX.
 """
 from __future__ import annotations
@@ -828,25 +833,45 @@ def phase_kernel_train(calls, dev, pairs, checked, phase="kernel_train"):
 
 def phase_mlp_paths(calls, dev):
     """Both designs of the MLP forward at every training shape, whichever
-    the wrapper takes there: the fused kernel (hidden on chip) and the two
-    tiled passes, each held against the plain version and timed."""
+    the wrapper takes there: in fp32 the fused kernel (hidden on chip) and
+    the two tiled passes, held against the plain version to KERNEL_RTOL; in
+    bf16 the fused kernel where its widths allow (C and C_out up to
+    mlp.BF16_FUSED_MAX_WIDTH) and the two passes, to BF16_RTOL; each timed
+    (events and, in bf16, device time)."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    for shape, n in sorted(calls.items(), key=str):
-        inputs, _, plain, _, _ = make_case("mlp", shape, dev, gen)
-        line = {"phase": "mlp_paths", "shape": list(shape), "calls_per_step": n,
-                "wrapper_takes": "fused" if shape[1] <= mlp.FUSED_MAX_OUT else "two_pass"}
-        with torch.no_grad():
-            want = plain(*inputs)
-            for name, fused in (("fused", True), ("two_pass", False)):
-                def run():
-                    return mlp.mlp_fwd(*inputs, fused=fused)
-                err = (run() - want).abs()
-                if not bool(torch.all(err <= KERNEL_ATOL + KERNEL_RTOL * want.abs())):
-                    fail(f"mlp {name} at {shape} disagrees with its plain version "
-                         f"(max abs err {float(err.max())})")
-                line[name + "_max_abs_err"] = float(err.max())
-                line[name + "_ms"] = cuda_ms(run, 20)
-        emit(line)
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        for shape, n in sorted(calls.items(), key=str):
+            M, C, _ = shape
+            inputs, _, plain, _, _ = make_case("mlp", shape, dev, gen, dtype)
+            takes = (mlp.bf16_fused(M, C, C, torch.cuda.get_device_properties(0)
+                                    .multi_processor_count) if bf16 else C <= mlp.FUSED_MAX_OUT)
+            line = {"phase": "mlp_paths", "dtype": str(dtype).split(".")[-1],
+                    "shape": list(shape), "calls_per_step": n,
+                    "wrapper_takes": "fused" if takes else "two_pass"}
+            designs = [("two_pass", False)]
+            if not bf16 or C <= mlp.BF16_FUSED_MAX_WIDTH:
+                designs.insert(0, ("fused", True))
+            with torch.no_grad():
+                want = plain(*inputs)
+                for name, fused in designs:
+                    def run():
+                        return mlp.mlp_fwd(*inputs, fused=fused)
+                    got = run()
+                    if bf16:
+                        err, ok = _bf16_check(got, want)
+                    else:
+                        err = float((got - want).abs().max())
+                        ok = bool(torch.all((got - want).abs()
+                                            <= KERNEL_ATOL + KERNEL_RTOL * want.abs()))
+                    if not ok:
+                        fail(f"mlp {name} ({dtype}) at {shape} disagrees with its plain "
+                             f"version (max abs err {err})")
+                    line[name + "_max_abs_err"] = err
+                    line[name + "_ms"] = cuda_ms(run, 20)
+                    if bf16:
+                        line[name + "_device_ms"] = device_ms(run)
+            emit(line)
 
 
 def fullres_scan_shapes(cfg, batch: int, size: int):
@@ -1225,22 +1250,30 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
     hands it, against its plain version on the same inputs: the output (and
     through the op's autograd Function every input's gradient, each in its
     input's dtype) within BF16_RTOL / BF16_ATOL_OF_MAX, two launches
-    bit-identical, the kernel's time and device time beside the fp32
-    kernel's device time at the shape (kernel_train's, from `checked`), and
-    the bf16 bound (bytes halved where I/O is bf16; the MLP's products at the
-    bf16 rate). Returns the per-step sums of each kernel."""
+    bit-identical, the kernel's time and device time (and their gap, the
+    host's share of a call) beside the fp32 kernel's device time at the
+    shape (kernel_train's, from `checked`), the bf16 bound (bytes halved
+    where I/O is bf16; the MLP's products at the bf16 rate) and its share of
+    the device time, and, where one PyTorch call computes the same function
+    (the LN's ungated shapes, the dwconv, the MLP), that call's time and
+    device time in bf16 (its autograd for a backward). Returns the per-step
+    sums of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(7)
     sums = {}
     for op in OPS:
         for k in (op, op + "_bwd"):
             sums[k] = dict(device_ms=0.0, fp32_device_ms=0.0, ms=0.0, bound_ms=0.0,
                            fp32_bound_ms=0.0, bytes_ms=0.0, ops_ms=0.0, sfu_ms=0.0,
-                           max_abs_err=0.0, shapes=0)
+                           max_abs_err=0.0, shapes=0, library_shapes=0, library_ms=0.0,
+                           library_device_ms=0.0, ms_at_library_shapes=0.0,
+                           device_ms_at_library_shapes=0.0)
         for shape, n in sorted(tcalls[op].items(), key=str):
             n_bwd = tcalls[op + "_bwd"][shape]
-            inputs, fn, plain, _, backward = make_case(op, shape, dev, gen, torch.bfloat16)
+            inputs, fn, plain, library, backward = make_case(op, shape, dev, gen,
+                                                             torch.bfloat16)
             reps = 5 if op == "scan" else 20
             for k, calls in [(op, n)] + ([(op + "_bwd", n_bwd)] if n_bwd else []):
+                lib_ms = lib_dev_ms = None
                 if k == op:
                     with torch.no_grad():
                         got, again, want = fn(*inputs), fn(*inputs), plain(*inputs)
@@ -1252,6 +1285,9 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                             return fn(*inputs)
 
                         ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                        if library is not None:
+                            lib_ms = cuda_ms(lambda: library(*inputs), reps)
+                            lib_dev_ms = device_ms(lambda: library(*inputs))
                 else:
                     live = [t.detach().requires_grad_(True) for t in inputs]
                     with torch.no_grad():
@@ -1271,6 +1307,14 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                         same = all(torch.equal(a, b) for a, b in zip(first, second)
                                    if a is not None)
                         ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                    if library is not None:
+                        out_l = library(*live)
+
+                        def lib_run():
+                            return torch.autograd.grad(out_l, live, dy, retain_graph=True)
+
+                        lib_ms, lib_dev_ms = cuda_ms(lib_run, reps), device_ms(lib_run)
+                        del out_l
                 b = _bound(k, shape, io=2)
                 fp32_dev = checked[(k, shape)][4]
                 fp32_bound = max(_bound(k, shape)[:3])
@@ -1278,6 +1322,8 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                       "pairs": TRAIN_PAIRS, "calls_per_step": calls, "max_abs_err": err,
                       "rtol": BF16_RTOL, "atol_of_max": BF16_ATOL_OF_MAX, "ok": ok,
                       "bit_identical_twice": same, "kernel_ms": ms, "kernel_device_ms": dev_ms,
+                      "event_minus_device_ms": None if dev_ms is None else ms - dev_ms,
+                      "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                       "fp32_kernel_device_ms": fp32_dev, "fp32_bound_ms": fp32_bound,
                       **_bound_fields(k, *b, dev_ms), "card": smi})
                 if not ok:
@@ -1295,8 +1341,19 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                 agg["fp32_bound_ms"] += calls * fp32_bound
                 for name, v in zip(("bytes_ms", "ops_ms", "sfu_ms"), b[:3]):
                     agg[name] += calls * v
+                if lib_ms is not None:
+                    agg["library_shapes"] += 1
+                    agg["library_ms"] += calls * lib_ms
+                    agg["library_device_ms"] += calls * (lib_dev_ms or 0.0)
+                    agg["ms_at_library_shapes"] += calls * ms
+                    agg["device_ms_at_library_shapes"] += calls * (dev_ms or 0.0)
             del inputs
         torch.cuda.empty_cache()
+    for agg in sums.values():
+        if not agg["library_shapes"]:
+            for name in ("library_ms", "library_device_ms", "ms_at_library_shapes",
+                         "device_ms_at_library_shapes"):
+                agg[name] = None
     emit({"phase": "kernel_bf16_step", "pairs": TRAIN_PAIRS, "per_step": sums, "card": smi})
     return sums
 
@@ -2100,7 +2157,10 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 "ln_mean_bwd": ("lnm_bwd_kernel", "lnm_bwd_reduce"),
                 "dwconv": ("dwconv3x3_fwd_kernel",),
                 "dwconv_bwd": ("dwconv3x3_bwd_kernel", "dwconv3x3_bwd_reduce"),
-                "mlp": ("mlp_fwd_",), "mlp_bwd": ("mlp_bwd_",),
+                # the bf16 MLP kernels: the forward's fused kernel and product
+                # launches, the backward's hidden kernel and product launch
+                "mlp": ("mlp_fwd_", "bf::fused_kernel", "product_kernel<0>"),
+                "mlp_bwd": ("mlp_bwd_", "bf::hidden_kernel", "product_kernel<1>"),
                 "library_conv": ("conv", "fprop", "dgrad", "wgrad", "cudnn"),
                 "library_matmul": ("gemm", "cutlass", "cublas"),
                 "optimizer": ("adam", "multi_tensor")}
@@ -2185,6 +2245,18 @@ def phase_trace_train(dev, steps: int = 3, precision: str = "fp32"):
           "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()}})
 
 
+def _spills(ptxas):
+    """{kernel entry: "<n> bytes spill stores, <n> bytes spill loads"} of each
+    entry that ptxas reports spilling."""
+    out, entry = {}, None
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln and entry and " 0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out[entry] = ln
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
@@ -2214,7 +2286,7 @@ def main() -> None:
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": str(path),
-          "ptxas": ptxas})
+          "ptxas": ptxas, "spills": _spills(ptxas)})
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
@@ -2300,6 +2372,9 @@ def main() -> None:
             "bf16_launches": bf16_launches[k], "bf16_max_abs_err": bf16[k]["max_abs_err"],
             "bf16_ms": bf16[k]["ms"], "bf16_device_ms": bf16[k]["device_ms"],
             "bf16_bound_ms": bf16[k]["bound_ms"],
+            "bf16_library_ms": bf16[k]["library_ms"],
+            "bf16_library_device_ms": bf16[k]["library_device_ms"],
+            "bf16_device_ms_at_library_shapes": bf16[k]["device_ms_at_library_shapes"],
             "bf16_bound_by": _bound_by(k, bf16[k]["bytes_ms"], bf16[k]["ops_ms"],
                                        bf16[k]["sfu_ms"])["bound_by"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -9,7 +9,7 @@
 // with gelu'(h) = Phi(h) + h phi(h) from one erff and one expf.
 //
 // What bounds it: operations, 10*M*C*H flops per call. All five products go
-// through the tensor cores as three TF32 products each (mma_tf32x3.cuh).
+// through the tensor cores (below: 3xTF32 in fp32, bf16 wgmma in bf16).
 // The TPU kernel carries dW1 and dW2 across a sequential grid; here blocks
 // run in parallel in no order and one block cannot hold all of dW1 (9.4 MB
 // at C=768), so the backward is three launches:
@@ -25,12 +25,26 @@
 //      bytes a thread where there are few slices.
 // No atomics: two launches give bit-identical results.
 //
-// With bf16 I/O (x, dy, the weights, b1 and every result bf16) each product
-// is exact in one TF32 product with fp32 sums (mma_tf32x3.cuh); a and g are
-// rounded to bf16 where the TPU kernel rounds them (the a and g scratch is
-// bf16), db1 sums the rounded g, and every partial is fp32, rounded to bf16
-// once, as the result is stored.
+// fp32: the three launches run the tile engines of mma_tf32x3.cuh, every
+// product as three TF32 products.
+//
+// bf16 (x, dy, the weights, b1 and every result bf16): the same three
+// launches on Hopper's bf16 wgmma fed by TMA (wgmma_bf16.cuh), every product
+// bf16 x bf16 with fp32 sums; a and g are rounded to bf16 where the TPU
+// kernel rounds them (the a and g scratch is bf16), db1 sums the rounded g,
+// and every partial is fp32, rounded to bf16 once, as the result is stored.
+//   1. hidden: per (128 rows, 64 hidden units) tile, h = x W1^T and then
+//      dy W2 through one TMA ring (each stage a 128 x 64 piece of x or dy
+//      and a 64 x 64 piece of W1, K-major, or of W2, read MN-major as it
+//      lies), two consumer warpgroups of 64 rows; the epilogue as in fp32.
+//   2. products: the engine's 128 x 64 product kernel, three
+//      products in one grid, each operand loaded as it lies: dx = g W1 (W1
+//      MN-major), dW1 = g^T x and dW2 = dy^T a (both operands MN-major);
+//      a depth cut into slices (multiples of 64) only where ops/mlp.py's
+//      plan finds it much longer than a block's share.
+//   3. reduce: as in fp32.
 #include "mma_tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -312,18 +326,209 @@ int mlp_bwd(const IO* x, const IO* dy, const IO* w1, const IO* b1, const IO* w2,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16: the wgmma kernels fed by TMA (wgmma_bf16.cuh)
+
+namespace bf {
+
+// the engine's names, declared here so that they, not the fp32 engine's
+// (`using namespace fm` above), are found
+using fm_wg::aligned_smem;
+using fm_wg::cdiv;
+using fm_wg::consume_tile;
+using fm_wg::consumers_sync;
+using fm_wg::for_each_pair;
+using fm_wg::kAlign;
+using fm_wg::kBK;
+using fm_wg::kBlocksPerSM;
+using fm_wg::kConsumers;
+using fm_wg::kStore;
+using fm_wg::kThreads;
+using fm_wg::kTile;
+using fm_wg::last16_of;
+using fm_wg::launch_products;
+using fm_wg::make_map;
+using fm_wg::mbar_init_fence;
+using fm_wg::Pos;
+using fm_wg::produce_tile;
+using fm_wg::product;
+using fm_wg::Products;
+using fm_wg::ring_barrier_bytes;
+using fm_wg::Ring;
+using fm_wg::zero;
+
+constexpr int kHidN = 64;  // hidden units of a hidden block's tile
+constexpr int kHidStages = 4;
+constexpr int kHidStageBytes = 3 * fm_wg::kBoxBytes;  // a 128-row piece, a 64-wide piece
+constexpr int kGroups = 128 * kConsumers / kHidN;  // db2's groups of consumer threads
+// the epilogue's sums: a row of kHidN a consumer warp (db1), one a group (db2)
+constexpr int kRedFloats = (4 * kConsumers + kGroups) * kHidN;
+constexpr int kHidSmem = kHidStages * kHidStageBytes + ring_barrier_bytes(kHidStages) +
+                         4 * kRedFloats + kAlign;
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+hidden_kernel(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap w1m,
+              const __grid_constant__ CUtensorMap dym, const __grid_constant__ CUtensorMap w2m,
+              const bf16* __restrict__ b1, const bf16* __restrict__ dy, bf16* __restrict__ a_out,
+              bf16* __restrict__ g_out, float* __restrict__ db1_p, float* __restrict__ db2_p,
+              int M, int C, int H, int Cout) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = aligned_smem(smem_raw);
+  const Ring r = Ring::make(smem, kHidStages, kHidStageBytes);
+  float* red = reinterpret_cast<float*>(smem + kHidStages * kHidStageBytes +
+                                        ring_barrier_bytes(kHidStages));
+  if (threadIdx.x == 0) mbar_init_fence();
+  __syncthreads();
+  const int n0 = blockIdx.x * kHidN, m0 = blockIdx.y * kTile;
+  const int n1 = cdiv(C, kBK), n2 = cdiv(Cout, kBK);
+  Pos pos;
+  if (threadIdx.x >= 128 * kConsumers) {
+    if (threadIdx.x == 128 * kConsumers) {
+      // x rows with W1's hidden rows (K-major), then dy rows with W2's
+      // hidden columns (stored [C_out][H]: MN-major)
+      produce_tile(r, pos, &xm, false, m0, &w1m, false, n0, 1, 0, n1);
+      produce_tile(r, pos, &dym, false, m0, &w2m, true, n0, 1, 0, n2);
+    }
+    return;
+  }
+  float hacc[kHidN / 2], dacc[kHidN / 2];
+  zero(hacc);
+  zero(dacc);
+  consume_tile<0, 0>(hacc, r, pos, n1, last16_of(0, C));
+  consume_tile<0, 1>(dacc, r, pos, n2, last16_of(0, Cout));
+
+  float colsum[kHidN / 8][2];
+#pragma unroll
+  for (int j = 0; j < kHidN / 8; ++j) colsum[j][0] = colsum[j][1] = 0.f;
+  for_each_pair<kHidN / 8>(m0, n0, [&](int e, int m, int n) {
+    if (m >= M || n >= H) return;  // H % 8 == 0: n + 1 < H too
+    float av[2], gv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float hv = hacc[e + i] + fm_io::to_f(b1[n + i]);
+      const float cdf = 0.5f * (1.f + erff(hv * 0.70710678118654752f));
+      const float pdf = 0.39894228040143268f * expf(-0.5f * hv * hv);
+      av[i] = hv * cdf;
+      // g as it is stored (bf16): db1 sums what the products read
+      gv[i] = fm_io::round_to<bf16>(dacc[e + i] * fmaf(hv, pdf, cdf));
+      colsum[e / 4][i] += gv[i];
+    }
+    fm_io::store2(a_out + (size_t)m * H + n, av[0], av[1]);
+    fm_io::store2(g_out + (size_t)m * H + n, gv[0], gv[1]);
+  });
+
+  // db1: the tile's column sums of g, over the 8 row groups of a warp
+  // (lanes of one lane % 4), then over the 8 warps in row order
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+#pragma unroll
+  for (int j = 0; j < kHidN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float v = colsum[j][i];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      colsum[j][i] = v;
+    }
+  if (lane < 4) {
+#pragma unroll
+    for (int j = 0; j < kHidN / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) red[warp * kHidN + 8 * j + 2 * lane + i] = colsum[j][i];
+  }
+  consumers_sync();
+  const int t = threadIdx.x % kHidN, rg = threadIdx.x / kHidN;
+  if (threadIdx.x < kHidN && n0 + t < H) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4 * kConsumers; ++w) v += red[w * kHidN + t];
+    db1_p[(size_t)blockIdx.y * H + n0 + t] = v;
+  }
+  // db2: the row tile's column sums of dy; this block takes the columns
+  // n0 + t + q H (t < 64, n0 + t < H, q >= 0), each summed over kGroups
+  // groups of rows, then the groups in order
+  float* red2 = red + 4 * kConsumers * kHidN;
+  const int m_end = min(M, m0 + kTile);
+  for (int c0 = n0; c0 < Cout; c0 += H) {
+    const int c = c0 + t;
+    const bool mine = c < Cout && n0 + t < H;
+    float v = 0.f;
+    if (mine)
+      for (int m = m0 + rg; m < m_end; m += kGroups) v += fm_io::to_f(dy[(size_t)m * Cout + c]);
+    red2[rg * kHidN + t] = v;
+    consumers_sync();
+    if (rg == 0 && mine) {
+      float sum = 0.f;
+#pragma unroll
+      for (int q = 0; q < kGroups; ++q) sum += red2[q * kHidN + t];
+      db2_p[(size_t)blockIdx.y * Cout + c] = sum;
+    }
+    consumers_sync();
+  }
+}
+
+int mlp_bwd(const bf16* x, const bf16* dy, const bf16* w1, const bf16* b1, const bf16* w2,
+            bf16* a_buf, bf16* g_buf, float* db1_p, float* db2_p, float* dx_p, float* dw1_p,
+            float* dw2_p, bf16* dx, bf16* dw1, bf16* db1, bf16* dw2, bf16* db2, int M, int C,
+            int H, int Cout, int slice_dx, int slice_w, cudaStream_t stream) {
+  if (M < 1 || C < 1 || H < 1 || Cout < 1 || C % 8 || H % 8 || Cout % 8 || slice_dx < 1 ||
+      slice_w < 1 || cdiv(M, kTile) > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int s_dx = cdiv(H, slice_dx), s_w = cdiv(M, slice_w);
+  if ((s_dx > 1 && (dx_p == nullptr || slice_dx % kBK)) ||
+      (s_w > 1 && (dw1_p == nullptr || dw2_p == nullptr || slice_w % kBK)))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, dym, w1m, w2m, am, gm;
+  if (!make_map(&xm, x, C, M) || !make_map(&dym, dy, Cout, M) || !make_map(&w1m, w1, C, H) ||
+      !make_map(&w2m, w2, H, Cout) || !make_map(&am, a_buf, H, M) || !make_map(&gm, g_buf, H, M))
+    return (int)cudaErrorInvalidValue;
+
+  cudaError_t err =
+      cudaFuncSetAttribute(hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHidSmem);
+  if (err != cudaSuccess) return (int)err;
+  hidden_kernel<<<dim3(cdiv(H, kHidN), cdiv(M, kTile)), kThreads, kHidSmem, stream>>>(
+      xm, w1m, dym, w2m, b1, dy, a_buf, g_buf, db1_p, db2_p, M, C, H, Cout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // dx (M, C) = g W1: g [row][h] K-major, W1 [h][c] MN-major; dW1 (H, C) =
+  // g^T x and dW2 (C_out, H) = dy^T a: both operands [row][..], MN-major
+  Products ps{};
+  ps.count = 3;
+  ps.p[0] = product(gm, false, w1m, true, M, C, H, slice_dx, kStore, nullptr, dx, dx_p);
+  ps.p[1] = product(gm, true, xm, true, H, C, M, slice_w, kStore, nullptr, dw1, dw1_p);
+  ps.p[2] = product(dym, true, am, true, Cout, H, M, slice_w, kStore, nullptr, dw2, dw2_p);
+  if ((err = launch_products<1>(ps, stream)) != cudaSuccess) return (int)err;
+
+  Sums<bf16> sums{};
+  if (s_dx > 1) add_sum(sums, dx_p, dx, s_dx, M * C);
+  if (s_w > 1) {
+    add_sum(sums, dw1_p, dw1, s_w, H * C);
+    add_sum(sums, dw2_p, dw2, s_w, Cout * H);
+  }
+  const int rows_t = cdiv(M, kTile);
+  add_sum(sums, db1_p, db1, rows_t, H);
+  add_sum(sums, db2_p, db2, rows_t, Cout);
+  int blocks = 0;
+  for (int i = 0; i < sums.count; ++i) blocks += sums.t[i].blocks;
+  mlp_bwd_reduce_kernel<bf16><<<blocks, fm::kThreads, 0, stream>>>(sums);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf
+
 }  // namespace
 
 // a_buf, g_buf: (M, H) scratch. db1_p (T, H) and db2_p (T, C_out) with
 // T = ceil(M / 128). dx (M, C), dw1 (H, C), dw2 (C_out, H), db1 (H,),
 // db2 (C_out,) are the results. The depth of dx (H) is cut into slices of
 // slice_dx and that of dW1 and dW2 (M) into slices of slice_w, both
-// multiples of 32; with more than one slice the product writes fp32
+// multiples of 32 in fp32, of 64 in bf16; with more than one slice the product writes fp32
 // partials to dx_p (S_dx, M, C), dw1_p (S_w, H, C), dw2_p (S_w, C_out, H),
 // which may be null otherwise. C, H and C_out must be multiples of 16 bytes
 // (4 floats, 8 bf16) and every pointer 16-byte aligned. The _bf16 entry
 // takes x, dy, the weights, b1, the a and g scratch and the results as bf16
-// (the partials stay fp32).
+// (the partials stay fp32) and runs the wgmma/TMA kernels.
 extern "C" int fm_fused_mlp_bwd(const float* x, const float* dy, const float* w1,
                                 const float* b1, const float* w2, float* a_buf, float* g_buf,
                                 float* db1_p, float* db2_p, float* dx_p, float* dw1_p,
@@ -339,6 +544,6 @@ extern "C" int fm_fused_mlp_bwd_bf16(const bf16* x, const bf16* dy, const bf16* 
                                      float* dw2_p, bf16* dx, bf16* dw1, bf16* db1, bf16* dw2,
                                      bf16* db2, int M, int C, int H, int Cout, int slice_dx,
                                      int slice_w, cudaStream_t stream) {
-  return mlp_bwd(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1, db1,
-                 dw2, db2, M, C, H, Cout, slice_dx, slice_w, stream);
+  return bf::mlp_bwd(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1,
+                     db1, dw2, db2, M, C, H, Cout, slice_dx, slice_w, stream);
 }

@@ -22,19 +22,12 @@
 //    shared-memory planes that wgmma reads. It serves the forward's long
 //    128x128 products.
 // Ragged edges read as zero, so rows, columns and K need no multiple of the
-// tile; leading dimensions must be multiples of 16 bytes (4 floats, 8 bf16)
-// and base pointers 16-byte aligned (the wrappers check both). No atomics
+// tile; leading dimensions must be multiples of 16 bytes (4 floats) and
+// base pointers 16-byte aligned (the wrappers check both). No atomics
 // anywhere.
 //
-// bf16 operands (IO = bf16). A bf16 value is exact in TF32 (8 mantissa bits
-// against 10), so the product of two is exact in one TF32 product: the
-// engines take one product each, not three, with fp32 accumulation, which
-// is what the TPU kernels' bf16 dots with fp32 accumulation compute. The
-// Gemm engine stages bf16 slices as they are (half the bytes, by the same
-// 16-byte cp.async, eight values a copy, in their own swizzle) and takes a
-// value to fp32 as a fragment loads it (a shift: exact); the warpgroup
-// engine converts as it loads a slice into registers and stores only the
-// big planes.
+// These engines serve the fp32 entry points only; the bf16 ones run bf16
+// wgmma fed by TMA (wgmma_bf16.cuh). The IO template parameters admit float.
 #pragma once
 
 #include "io_types.cuh"
@@ -44,11 +37,6 @@ namespace fm {
 using fm_io::bf16;
 using fm_io::from_f;
 using fm_io::to_f;
-
-// whether products of IO operands need the 3xTF32 split (fp32) or are exact
-// in one TF32 product (bf16)
-template <class IO>
-constexpr bool kSplitOf = sizeof(IO) == sizeof(float);
 
 constexpr int kThreads = 256;  // 8 warps a block
 constexpr int kBK = 32;        // depth of one staged K slice
@@ -136,64 +124,14 @@ struct Staged {
   }
 };
 
-// The bf16 slice: [r][kBK] or [k][kRows] bf16, in 16-byte chunks of 8 values
-// along the contiguous axis, swizzled so that the fragment loads (pairs
-// (r, k), (r, k + 1), k even, over the 8 rows and 4 pair columns of a warp)
-// fall in different banks. `s` is the stage's float pointer; kFloats counts
-// the floats the slice takes (half its values).
-template <int kRows, bool kKMajor>
-struct Staged<kRows, kKMajor, bf16> {
-  static constexpr int kFloats = kRows * kBK / 2;
-  static_assert(kRows % 32 == 0, "whole swizzle groups");
-
-  __device__ __forceinline__ static int index(int r, int k) {
-    return kKMajor ? r * kBK + ((((k >> 3) ^ ((r >> 1) & 3)) << 3) | (k & 7))
-                   : k * kRows + ((((r >> 3) ^ ((k >> 1) & 3)) << 3) | (r & 7));
-  }
-
-  __device__ __forceinline__ static float2 pair(const float* s, int r, int k) {
-    const uint16_t* h = reinterpret_cast<const uint16_t*>(s);
-    if (kKMajor) {
-      const uint32_t w = *reinterpret_cast<const uint32_t*>(h + index(r, k));
-      return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
-    }
-    return make_float2(__uint_as_float((uint32_t)h[index(r, k)] << 16),
-                       __uint_as_float((uint32_t)h[index(r, k + 1)] << 16));
-  }
-
-  __device__ __forceinline__ static void load(float* s, const bf16* g, int ld, int r0, int rows,
-                                              int k0, int k_end) {
-    constexpr int kChunks = kRows * kBK / 8;
-    bf16* sh = reinterpret_cast<bf16*>(s);
-    for (int c = threadIdx.x; c < kChunks; c += kThreads) {
-      int r, k, n;
-      if (kKMajor) {
-        r = c / (kBK / 8);
-        k = (c % (kBK / 8)) * 8;
-        n = r0 + r < rows ? min(8, k_end - k0 - k) : 0;
-      } else {
-        k = c / (kRows / 8);
-        r = (c % (kRows / 8)) * 8;
-        n = k0 + k < k_end ? min(8, rows - r0 - r) : 0;
-      }
-      n = max(n, 0);
-      const bf16* src =
-          n > 0 ? (kKMajor ? g + (size_t)(r0 + r) * ld + k0 + k : g + (size_t)(k0 + k) * ld + r0 + r)
-                : g;
-      cp_async16(sh + index(r, k), src, 2 * n);
-    }
-  }
-};
-
 // acc[i][j] += A(wm0 + 16i + .., k) B(k, wn0 + 8j + ..) over the kBK of the
 // staged slices `as` (rows of A) and `bs` (columns of B), in the mma
 // accumulator layout: lane (g = lane / 4, t = lane % 4) holds rows g, g + 8
 // and columns 2t, 2t + 1 of each 16x8 block. AT and BT provide pair(s, r, k).
 // The mma's k slots t and t + 4 take the operands' k = 2t and 2t + 1 (the
 // same permutation of the sum for A and B), so each lane loads adjacent
-// pairs. Without kSplit (operands exact in TF32: bf16 values) each product
-// is the one TF32 product big*big.
-template <int kMT, int kNT, class AT, class BT, bool kSplit = true>
+// pairs.
+template <int kMT, int kNT, class AT, class BT>
 __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], const float* as,
                                           const float* bs, int wm0, int wn0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -216,12 +154,10 @@ __device__ __forceinline__ void mma_slice(float (&acc)[kMT][kNT][4], const float
       split_tf32(lo.y, ab[2], al[2]);
       split_tf32(hi.y, ab[3], al[3]);
       // the small terms first, then big*big
-      if (kSplit) {
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], al, bb[j]);
+      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], al, bb[j]);
 #pragma unroll
-        for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bl[j]);
-      }
+      for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bl[j]);
 #pragma unroll
       for (int j = 0; j < kNT; ++j) mma_tf32(acc[i][j], ab, bb[j]);
     }
@@ -295,7 +231,7 @@ struct Gemm {
       __syncthreads();  // slice kt has landed for all; slot (kt - 1) % kStages is consumed
       issue(kt + kStages - 1);
       const float* s = smem + (kt % kStages) * kStageFloats;
-      mma_slice<W::MT, W::NT, AT, BT, kSplitOf<IO>>(acc, s, s + AT::kFloats, wm0, wn0);
+      mma_slice<W::MT, W::NT, AT, BT>(acc, s, s + AT::kFloats, wm0, wn0);
     }
     cp_async_wait<0>();
     __syncthreads();
@@ -384,12 +320,10 @@ __device__ __forceinline__ void split4_store(float4 v, float* big, float* small,
 // This thread's share of a kRows x kBK slice of an operand whose element
 // (r, k) is g[r * ld + k], held in registers (as fp32) between its load and
 // its store into the planes: pieces (r, 4 k) of 4 values, eight to a row.
-// Widths are multiples of 4, so each piece lies wholly inside or outside. A
-// bf16 slice stores its big planes only (its small parts are zero).
+// Widths are multiples of 4, so each piece lies wholly inside or outside.
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
-__device__ __forceinline__ float4 ldg4(const bf16* p) { return fm_io::load4(p); }
 
 template <int kRows, class IO = float>
 struct Slice {
@@ -411,11 +345,7 @@ struct Slice {
 #pragma unroll
     for (int it = 0; it < kPer; ++it) {
       const int u = threadIdx.x + it * kThreads, r = u / (kBK / 4), k = 4 * (u % (kBK / 4));
-      if (kSplitOf<IO>) {
-        split4_store(v[it], big, small, Plane<kRows>::index(r, k));
-      } else {
-        *reinterpret_cast<float4*>(big + Plane<kRows>::index(r, k)) = v[it];
-      }
+      split4_store(v[it], big, small, Plane<kRows>::index(r, k));
     }
   }
 };
@@ -424,8 +354,7 @@ struct Slice {
 // through wgmma, with A(m, k) = A[m * lda + k] and B(k, n) = B[n * ldb + k];
 // rows m >= M, columns n >= N and k >= k_end read as 0. acc is this thread's
 // share of its warpgroup's 64 x 128 accumulator. `smem` holds
-// kSmemFloats, 1024-byte aligned; it is free again on return. bf16 operands
-// (IO) take one wgmma a product (the header's note).
+// kSmemFloats, 1024-byte aligned; it is free again on return.
 template <class IO = float>
 struct WgGemm {
   static constexpr int BM = 128, BN = 128;
@@ -469,10 +398,8 @@ struct WgGemm {
 #pragma unroll
       for (int kk = 0; kk < kBK / 8; ++kk) {
         // 8 tf32 of K are 32 bytes: 2 in the descriptor's 16-byte units
-        if (kSplitOf<IO>) {
-          wgmma_m64n128k8(acc, al + 2 * kk, bb + 2 * kk);
-          wgmma_m64n128k8(acc, ab + 2 * kk, bl + 2 * kk);
-        }
+        wgmma_m64n128k8(acc, al + 2 * kk, bb + 2 * kk);
+        wgmma_m64n128k8(acc, ab + 2 * kk, bl + 2 * kk);
         wgmma_m64n128k8(acc, ab + 2 * kk, bb + 2 * kk);
       }
       wgmma_commit();

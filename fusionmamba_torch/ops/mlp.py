@@ -3,24 +3,32 @@ the wrappers of the CUDA kernels: the forward (`csrc/fused_mlp_fwd.cu`;
 replaces `fusionmamba_tpu/ops/mlp_pallas.py::_fwd_kernel`) and the backward
 (`csrc/fused_mlp_bwd.cu`; replaces `::_bwd_kernel`).
 
-Both are bound by operations and run their products on the tensor cores as
-three TF32 products each, which keeps fp32-class accuracy
-(`csrc/mma_tf32x3.cuh`). The forward keeps the hidden layer on chip for
-outputs up to `FUSED_MAX_OUT` wide, and takes two tiled passes through an
-(M, H) scratch above that, fc2's depth cut into slices where its output
-tiles alone cannot fill the card. The backward recomputes the hidden in
-tiles, writes gelu(h) and dL/dh as scratch, and forms dx, dW1 and dW2 in one
-grid of tiles whose depth is cut into slices that fill the card; partials,
-and the per-tile bias sums, are reduced in a fixed order by a third launch.
-See the sources for the designs.
+Both are bound by operations, and each I/O dtype has its own kernels.
 
-Both take fp32 or bf16 I/O (`cuda_lib.entry`). In bf16, as the JAX
-package's kernels compute: x, the weights, the biases, y and every gradient
-are bf16; every product is exact (a bf16 value is exact in TF32, so each
-takes one TF32 product) with fp32 accumulation; the hidden a = gelu(h) is
-rounded to bf16 before fc2 and dL/dh = (dy W2) gelu'(h) to bf16 before its
-products, and the weight and bias gradients are summed in fp32 and rounded
-once. bf16 widths must be multiples of 8 (16 bytes).
+fp32: the products run on the tensor cores as three TF32 products each,
+which keeps fp32-class accuracy (`csrc/mma_tf32x3.cuh`). The forward keeps
+the hidden layer on chip for outputs up to `FUSED_MAX_OUT` wide, and takes
+two tiled passes through an (M, H) scratch above that, fc2's depth cut into
+slices where its output tiles alone cannot fill the card. The backward
+recomputes the hidden in tiles, writes gelu(h) and dL/dh as scratch, and
+forms dx, dW1 and dW2 in one grid of tiles whose depth is cut into slices
+that fill the card; partials, and the per-tile bias sums, are reduced in a
+fixed order by a third launch. See the sources for the designs.
+
+bf16, as the JAX package's kernels compute: x, the weights, the biases, y
+and every gradient are bf16; every product is bf16 x bf16 with fp32
+accumulation; the hidden a = gelu(h) is rounded to bf16 before fc2 and
+dL/dh = (dy W2) gelu'(h) to bf16 before its products, db1 sums the rounded
+dL/dh, and the weight and bias gradients are summed in fp32 and rounded
+once; no atomics. The kernels run Hopper's bf16 `wgmma` on operands that TMA
+copies as they lie in device memory (transposed ones read MN-major), in
+`csrc/wgmma_bf16.cuh`; their plan is made here (`bf16_fused`,
+`bf16_fwd_plan`, `bf16_bwd_plan`, gathered by `bf16_plan`): the forward
+keeps the hidden layer in registers (fc1's accumulators, rounded to bf16,
+are fc2's A operand) where C and C_out are at most `BF16_FUSED_MAX_WIDTH`
+and its 128-row blocks fill half the card, and otherwise takes the two passes;
+the backward takes the same three launches as in fp32. bf16 widths must be
+multiples of 8 (16 bytes).
 """
 from __future__ import annotations
 
@@ -33,7 +41,20 @@ from . import cuda_lib
 # 96 the two designs are within 10% of each other, PERF.md)
 FUSED_MAX_OUT = 96
 _TILE = 128       # the kernels' 128-row tiles (128x128 in the products)
-_SLICE = 32       # depth slices are multiples of the kernels' kBK
+_SLICE = 32       # fp32 depth slices are multiples of the kernels' kBK
+# the bf16 kernels' layout (csrc/wgmma_bf16.cuh, fused_mlp_fwd.cu,
+# fused_mlp_bwd.cu): depth slices are multiples of kBK, the fused forward
+# takes C and C_out up to kFusedMaxWidth, the backward's hidden blocks are
+# 128 rows x kHidN units, and the product and hidden kernels run two blocks
+# an SM
+BF16_UNIT = 64
+BF16_FUSED_MAX_WIDTH = 192
+BF16_HID_N = 64
+BF16_BLOCKS_PER_SM = 2
+# the product kernel's output tiles: 128 rows x BF16_TILE_N columns (64-wide
+# tiles measured faster than 128-wide ones at most training shapes: more
+# blocks in flight at these small products, PERF.md)
+BF16_TILE_N = 64
 
 launches = 0            # every launch, of either I/O dtype
 bwd_launches = 0
@@ -117,19 +138,65 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tiles(r, c, tile_n=_TILE):
+    return -(-r // _TILE) * -(-c // tile_n)
+
+
+def _cut(depth, target, unit):
+    """Depth slices of about `target`, each a multiple of `unit`."""
+    per = -(-depth // -(-depth // target))   # depth over the number of slices
+    return -(-per // unit) * unit
+
+
 def fwd_slice(M, C_out, Hd, sms):
-    """Depth of one slice of the two-pass forward's fc2 (over H): about one
-    128x128 tile per SM when fc2's output tiles alone are fewer than the
+    """Depth of one slice of the fp32 two-pass forward's fc2 (over H): about
+    one 128x128 tile per SM when fc2's output tiles alone are fewer than the
     SMs, a multiple of 32 and at least 256 deep."""
-    tiles = -(-M // _TILE) * -(-C_out // _TILE)
-    n = max(1, min(round(sms / tiles), Hd // 256))
+    n = max(1, min(round(sms / _tiles(M, C_out)), Hd // 256))
     per = -(-Hd // n)
     return -(-per // _SLICE) * _SLICE
 
 
+def bf16_launch_plan(products, sms):
+    """[depth slice of each product] of one launch of the bf16 product kernel
+    over `products`, [(rows, cols, depth)], in 128 x 64 tiles: a depth is
+    cut (multiples of BF16_UNIT, at least 256) only where it is more than
+    twice a block slot's fair share of the launch's work (tiles x depth over
+    BF16_BLOCKS_PER_SM slots an SM), so that no slot carries much more than
+    its share; each cut writes fp32 partials that a reduce launch sums."""
+    work = sum(_tiles(r, c, BF16_TILE_N) * d for r, c, d in products)
+    target = max(256, 2 * -(-work // (BF16_BLOCKS_PER_SM * sms)))
+    return [d if d <= target else _cut(d, target, BF16_UNIT) for _, _, d in products]
+
+
+def bf16_fwd_plan(M, Hd, C_out, sms):
+    """The bf16 two-pass forward's fc2 depth slice (over H): H uncut where
+    fc2's 128 x 64 tiles give every SM a block, else the launch plan's cut.
+    fc1's depth C is never cut (its GELU needs the whole sum)."""
+    if _tiles(M, C_out, BF16_TILE_N) >= sms:
+        return Hd
+    return bf16_launch_plan([(M, C_out, Hd)], sms)[0]
+
+
+def bf16_bwd_plan(M, C, Hd, C_out, sms):
+    """The bf16 backward products' depth slices: dx's over H, dW1's and dW2's
+    over the M rows."""
+    slice_dx, slice_w, _ = bf16_launch_plan([(M, C, Hd), (Hd, C, M), (C_out, Hd, M)], sms)
+    return slice_dx, slice_w
+
+
+def bf16_fused(M, C, C_out, sms):
+    """Whether the bf16 forward keeps the hidden layer in registers: C and
+    C_out at most BF16_FUSED_MAX_WIDTH, and a 128-row block for at least half
+    the SMs (at 96 blocks, M = 12288, it measured 21% faster than the two
+    passes; at 48, M = 6144, 28% slower: PERF.md)."""
+    return max(C, C_out) <= BF16_FUSED_MAX_WIDTH and 2 * -(-M // _TILE) >= sms
+
+
 def mlp_fwd(x2, w1t, b1, w2t, b2, fused: bool):
     """y (M, C_out) for x2 (M, C) and nn.Linear-layout weights w1t (H, C),
-    w2t (C_out, H): fused (hidden on chip) or in two passes."""
+    w2t (C_out, H): fused (hidden on chip) or in two passes. bf16's fused
+    design takes C and C_out up to BF16_FUSED_MAX_WIDTH."""
     global launches, bf16_launches
     M, C = x2.shape
     Hd, C_out = w1t.shape[0], w2t.shape[0]
@@ -142,9 +209,14 @@ def mlp_fwd(x2, w1t, b1, w2t, b2, fused: bool):
     # the hidden scratch holds gelu(h) rounded to the I/O dtype; fc2's
     # partials are fp32
     y, hidden, partial, slice_h = empty(M, C_out), None, None, 0
+    bf16 = io == torch.bfloat16
+    sms = cuda_lib.sm_count(x2.device)
+    if fused and bf16 and max(C, C_out) > BF16_FUSED_MAX_WIDTH:
+        raise ValueError(f"fused_mlp: the fused bf16 forward takes widths up to "
+                         f"{BF16_FUSED_MAX_WIDTH}, got C={C}, C_out={C_out}")
     if not fused:
         hidden = empty(M, Hd)
-        slice_h = fwd_slice(M, C_out, Hd, cuda_lib.sm_count(x2.device))
+        slice_h = (bf16_fwd_plan(M, Hd, C_out, sms) if bf16 else fwd_slice(M, C_out, Hd, sms))
         if slice_h < Hd:
             partial = empty(-(-Hd // slice_h), M, C_out, dtype=torch.float32)
     cuda_lib.launch(cuda_lib.entry("fm_fused_mlp_fwd", io),
@@ -159,27 +231,40 @@ def _mlp_cuda(x, w1, b1, w2, b2):
     C, Hd, C_out = _check_shapes(x, w1, b1, w2, b2)
     # the kernel reads torch's nn.Linear layout (out, in): views, not copies,
     # when the weights came in as `linear.weight.t()`
-    y = mlp_fwd(x.reshape(-1, C), w1.t().contiguous(), b1, w2.t().contiguous(), b2,
-                fused=C_out <= FUSED_MAX_OUT)
+    x2 = x.reshape(-1, C)
+    if x.dtype == torch.bfloat16:
+        fused = bf16_fused(x2.shape[0], C, C_out, cuda_lib.sm_count(x.device))
+    else:
+        fused = C_out <= FUSED_MAX_OUT
+    y = mlp_fwd(x2, w1.t().contiguous(), b1, w2.t().contiguous(), b2, fused=fused)
     return y.reshape(*x.shape[:-1], C_out)
 
 
 def bwd_slices(M, C, Hd, C_out, sms):
-    """Depth of one slice of dx's product (over H) and of dW1's and dW2's
-    (over the M rows): the three products' 128x128 tiles times their depth,
-    cut so that the grid is about two waves of two blocks per SM, each slice
-    a multiple of 32 and at least 256 deep."""
-    def tiles(r, c):
-        return -(-r // _TILE) * -(-c // _TILE)
-
-    work = tiles(M, C) * Hd + (tiles(Hd, C) + tiles(C_out, Hd)) * M
+    """Depth of one slice of the fp32 backward's dx product (over H) and of
+    dW1's and dW2's (over the M rows): the three products' 128x128 tiles
+    times their depth, cut so that the grid is about two waves of two blocks
+    per SM, each slice a multiple of 32 and at least 256 deep."""
+    work = _tiles(M, C) * Hd + (_tiles(Hd, C) + _tiles(C_out, Hd)) * M
     target = max(256, -(-work // (4 * sms)))
+    return _cut(Hd, target, _SLICE), _cut(M, target, _SLICE)
 
-    def cut(depth):
-        per = -(-depth // -(-depth // target))   # depth over the number of slices
-        return -(-per // _SLICE) * _SLICE
 
-    return cut(Hd), cut(M)
+def bf16_plan(M, C, Hd, C_out, sms):
+    """The grids of the bf16 kernels at one shape, as the wrappers launch
+    them: {launch: blocks, or [(rows, cols, depth, slice) of each product, in
+    128 x BF16_TILE_N tiles]}, the forward by the design `bf16_fused`
+    picks, then the backward's hidden launch and its products."""
+    out = {}
+    if bf16_fused(M, C, C_out, sms):
+        out["fwd_fused"] = -(-M // _TILE)
+    else:
+        out["fwd_fc1"] = [(M, Hd, C, C)]
+        out["fwd_fc2"] = [(M, C_out, Hd, bf16_fwd_plan(M, Hd, C_out, sms))]
+    slice_dx, slice_w = bf16_bwd_plan(M, C, Hd, C_out, sms)
+    out["bwd_hidden"] = -(-Hd // BF16_HID_N) * -(-M // _TILE)
+    out["bwd_products"] = [(M, C, Hd, slice_dx), (Hd, C, M, slice_w), (C_out, Hd, M, slice_w)]
+    return out
 
 
 def mlp_bwd(x, w1, b1, w2, b2, dy):
@@ -191,7 +276,9 @@ def mlp_bwd(x, w1, b1, w2, b2, dy):
         "fused_mlp backward", C, Hd, C_out, x.reshape(-1, C), dy.reshape(-1, C_out),
         w1.t().contiguous(), b1, w2.t().contiguous())   # nn.Linear (out, in)
     M = x2.shape[0]
-    slice_dx, slice_w = bwd_slices(M, C, Hd, C_out, cuda_lib.sm_count(x.device))
+    sms = cuda_lib.sm_count(x.device)
+    plan = bf16_bwd_plan if io == torch.bfloat16 else bwd_slices
+    slice_dx, slice_w = plan(M, C, Hd, C_out, sms)
     s_dx, s_w, rows_t = -(-Hd // slice_dx), -(-M // slice_w), -(-M // _TILE)
 
     def empty(*shape, dtype=torch.float32):
@@ -230,8 +317,9 @@ class _MlpFn(torch.autograd.Function):
 def fused_mlp(x, w1, b1, w2, b2):
     """y = gelu_exact(x @ w1 + b1) @ w2 + b2 with x (..., C), w1 (C, H),
     b1 (H,), w2 (H, C_out), b2 (C_out,). CPU tensors take the plain version,
-    differentiated by autograd; CUDA tensors the kernels (tensor cores, fp32
-    accuracy) and, when a gradient is needed, the backward kernels."""
+    differentiated by autograd; CUDA tensors the kernels (tensor cores: fp32
+    accuracy in fp32, bf16 products with fp32 sums in bf16) and, when a
+    gradient is needed, the backward kernels."""
     if x.device.type == "cpu":
         return fused_mlp_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":

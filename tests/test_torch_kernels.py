@@ -684,18 +684,24 @@ def test_dwconv_kernels_bf16(dev, act, has_bias, shape):
                 inputs, dy, [(dwconv, "bf16_launches"), (dwconv, "bf16_bwd_launches")])
 
 
-@pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (512, 768, 3072), (3072, 96, 384),
-                                   (768, 192, 768)])
+@pytest.mark.parametrize("M,C,H", [
+    (1, 16, 64), (37, 96, 384), (512, 768, 3072), (3072, 96, 384), (768, 192, 768),
+    (200, 96, 384), (1000, 192, 768), (3072, 384, 768), (384, 768, 1536), (300, 40, 160),
+    (20000, 96, 384)])
 def test_mlp_kernels_bf16(dev, M, C, H):
-    """Every tensor bf16: the forward (fused and two-pass), and the backward
-    with its bf16 roundings of the hidden and of dL/dh, against the plain
-    version that rounds at the same places."""
+    """Every tensor bf16: the forward (fused where its widths allow, and
+    two-pass), and the backward with its bf16 roundings of the hidden and of
+    dL/dh, against the plain version that rounds at the same places; the
+    backward launched twice directly, bit-identical. Shapes: a 64-deep slice
+    with a tail (C = 96, 40), M not a multiple of 64, the smallest, a
+    tensor-parallel rank's half hidden (H = 2C), and one where the wrapper
+    takes the fused forward."""
     g = torch.Generator().manual_seed(M + C + H)
     x = _rand(g, M, C).to(dev, BF16)
     w1, b1 = _rand(g, H, C, scale=C ** -0.5).to(dev, BF16), _rand(g, H, scale=0.1).to(dev, BF16)
     w2, b2 = _rand(g, C, H, scale=H ** -0.5).to(dev, BF16), _rand(g, C, scale=0.1).to(dev, BF16)
     want = mlp.fused_mlp_plain(x, w1.t(), b1, w2.t(), b2)
-    for fused in (True, False):
+    for fused in (True, False) if C <= mlp.BF16_FUSED_MAX_WIDTH else (False,):
         with torch.no_grad():
             got = mlp.mlp_fwd(x, w1, b1, w2, b2, fused=fused)
         _bf16_close(got, want)
@@ -703,15 +709,26 @@ def test_mlp_kernels_bf16(dev, M, C, H):
     _check_bf16(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
                 lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
                 [x, w1, b1, w2, b2], dy, [(mlp, "bf16_launches"), (mlp, "bf16_bwd_launches")])
+    first = mlp.mlp_bwd(x, w1.t(), b1, w2.t(), b2, dy)
+    second = mlp.mlp_bwd(x, w1.t(), b1, w2.t(), b2, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def test_mlp_kernel_bf16_width_limit(dev):
-    """bf16 widths must be whole 16-byte copies: multiples of 8."""
+    """bf16 widths must be whole 16-byte copies: multiples of 8; the fused
+    bf16 forward takes widths up to BF16_FUSED_MAX_WIDTH."""
     x = torch.zeros(4, 20, device=dev, dtype=BF16)
     w1, b1 = torch.zeros(20, 72, device=dev, dtype=BF16), torch.zeros(72, device=dev, dtype=BF16)
     w2, b2 = torch.zeros(72, 20, device=dev, dtype=BF16), torch.zeros(20, device=dev, dtype=BF16)
     with pytest.raises(ValueError, match="multiples of 8"):
         mlp.fused_mlp(x, w1, b1, w2, b2)
+    C = mlp.BF16_FUSED_MAX_WIDTH + 8
+    x = torch.zeros(4, C, device=dev, dtype=BF16)
+    w1, b1 = torch.zeros(4 * C, C, device=dev, dtype=BF16), torch.zeros(4 * C, device=dev, dtype=BF16)
+    w2, b2 = torch.zeros(C, 4 * C, device=dev, dtype=BF16), torch.zeros(C, device=dev, dtype=BF16)
+    with pytest.raises(ValueError, match="fused bf16 forward"):
+        mlp.mlp_fwd(x, w1, b1, w2, b2, fused=True)
 
 
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
