@@ -41,9 +41,12 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                bit-identical, its time and device time (and their gap)
                beside the fp32 kernel's device time, the bf16 bound (bytes
                halved where the I/O is bf16, the MLP's products at the bf16
-               rate) and its share, and the bf16 library call's time and
+               rate) and its share, the bf16 library call's time and
                device time where there is one (#3 ungated, #4 its autograd,
-               #7, #8, #9, #10); a `kernel_bf16_step` line sums them a step.
+               #7, #8, #9, #10), the spills ptxas reported for the kernel's
+               bf16 instances and, for #4, the device time of its strided
+               design (the earlier bf16 kernel) on the same inputs; a
+               `kernel_bf16_step` line sums them a step.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
                each training shape, in fp32 and in bf16 (the fused bf16
                design where C <= 192): error against the plain version,
@@ -87,14 +90,17 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
      train_bf16 - the training CLI as in train with `--precision bf16`, 4
                steps on 24 pairs: every loss finite, the checkpoint fp32 and
                loading strictly, each kernel's bf16 launches equal to 4 times
-               the config's calls a step and no fp32 launch; the median step
-               and pairs/s beside train's.
+               the config's calls a step and no fp32 launch, every LN
+               backward launch the quads design (`bf16_quads_launches`); the
+               median step and pairs/s beside train's.
      train_disk - the same CLI on a PST900-layout folder of 24 pairs at
                1280x720 written from a seed (`--dataset pst900 -j 8`, under
                FUSIONMAMBA_DATA_ROOT): 4 steps through the threaded loader and
                the device prefetch, the launch counters equal to 4 times the
-               config's, every loss finite; step seconds, pairs/s and the
-               host's wait for the loader a step.
+               config's, every pair resized by the port's native library
+               (built with g++ at the first item; its counter equal to the
+               pairs), every loss finite; step seconds, pairs/s and the host's
+               wait for the loader a step.
      train_seg - `python -m fusionmamba_torch.train_segmentation --model full`
                on the same folder (written once, with a test split of 6
                pairs): PST900 in mode both, batch 2, 12 steps through `-j 8`
@@ -182,6 +188,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import functools
 import gc
 import json
 import math
@@ -199,7 +206,7 @@ from fusionmamba_torch import (evaluate_segmentation, infer, train, train_segmen
                                visualize_segmentation)
 from fusionmamba_torch.checkpoints import load_reference_checkpoint
 from fusionmamba_torch.config import full_config, test_config
-from fusionmamba_torch.data import SyntheticFusionDataset, batch_iterator
+from fusionmamba_torch.data import SyntheticFusionDataset, batch_iterator, native
 from fusionmamba_torch.device import select_device
 from fusionmamba_torch.losses import compute_class_weights
 from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
@@ -495,12 +502,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 def make_case(kernel, shape, dev, gen, dtype=torch.float32):
     """(inputs, op, plain, library or None, backward) on seeded inputs at
     `shape`, scaled as the model's activations and parameters are: op,
-    plain and library take the inputs; backward(inputs, dy) calls the
-    backward kernel's wrapper directly. With dtype bf16 the inputs are the
-    bf16 casts that a bf16 training step hands the ops (the parameters
-    included; the scan's A, D and bias stay fp32, as SS2D passes them), and
-    the backward passes what its kernel reads as fp32 as fp32, as the ops do
-    (`.float()` is the identity on an fp32 tensor)."""
+    plain and library take the inputs; backward(inputs, dy) returns the
+    call of the backward kernel's wrapper that is timed. With dtype bf16 the
+    inputs are the bf16 casts that a bf16 training step hands the ops (the
+    parameters included; the scan's A, D and bias stay fp32, as SS2D passes
+    them), and the backward passes what its kernel reads as fp32 as fp32, as
+    the ops do (`.float()` is the identity on an fp32 tensor), cast before
+    the call: the ops' autograd Functions save the fp32 casts, so a training
+    step's backward makes none."""
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
@@ -533,7 +542,8 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
         inputs = [t.to(dtype) for t in inputs]
 
         def backward(t, dy):
-            return lambda: layer_norm.layer_norm_bwd(t[0], t[1].float(), t[2].float(),
+            scale, bias = t[1].float(), t[2].float()
+            return lambda: layer_norm.layer_norm_bwd(t[0], scale, bias,
                                                      t[3] if len(t) > 3 else None, dy, 1e-6,
                                                      gate_act)
 
@@ -548,8 +558,8 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
         return ([t.to(dtype) for t in (rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C))],
                 lambda *t: layer_norm.ln_spatial_mean(*t, 1e-5),
                 lambda *t: layer_norm.ln_spatial_mean_plain(*t, 1e-5), None,
-                lambda t, dm: lambda: layer_norm.ln_spatial_mean_bwd(t[0], t[1].float(), dm,
-                                                                     1e-5))
+                lambda t, dm: functools.partial(layer_norm.ln_spatial_mean_bwd, t[0],
+                                                t[1].float(), dm, 1e-5))
     if kernel == "dwconv":
         B, H, W, C = shape
         return ([t.to(dtype) for t in (rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3),
@@ -558,8 +568,8 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
                 lambda *t: dwconv.depthwise_conv3x3_plain(*t, "silu"),
                 lambda x, w, b: F.silu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1)[:, None],
                                                 b, padding=1, groups=C)).permute(0, 2, 3, 1),
-                lambda t, dy: lambda: dwconv.dwconv_bwd(t[0], t[1].float(), t[2].float(), dy,
-                                                        "silu"))
+                lambda t, dy: functools.partial(dwconv.dwconv_bwd, t[0], t[1].float(),
+                                                t[2].float(), dy, "silu"))
     M, C, H = shape
     # nn.Linear's (out, in) weights, passed as `.t()` views as Mlp.forward does
     return ([t.to(dtype) for t in (rnd(M, C), rnd(H, C, scale=0.02), torch.zeros(H, device=dev),
@@ -965,6 +975,7 @@ def read_launches(kernels=KERNELS, bf16=False):
 def zero_launches():
     for module, name in (*_COUNTERS.values(), *_BF16_COUNTERS.values()):
         setattr(module, name, 0)
+    layer_norm.bf16_quads_launches = 0
 
 
 def phase_main_path(calls, smi, tmp):
@@ -1115,21 +1126,27 @@ def phase_train_disk(calls, smi, root: str, write_s: float):
     pairs = TRAIN_PAIRS * DISK_STEPS
     with tempfile.TemporaryDirectory() as ckpt, data_root(root):
         zero_launches()
+        native.pairs = 0
         stats = train.main(["--dataset", "pst900", "-B", str(TRAIN_PAIRS), "-E", "1",
                             "-j", str(DISK_WORKERS), "--model", "full", "--device", "cuda",
                             "--ckpt_dir", ckpt])
         torch.cuda.synchronize()
         launches = read_launches()
+        native_pairs = native.pairs
     torch.cuda.empty_cache()
     expected = {k: stats["steps"] * sum(c.values()) for k, c in calls.items()}
     if stats["steps"] != DISK_STEPS or not all(math.isfinite(v) for v in stats["losses"]):
         fail(f"training on disk ran {stats['steps']} steps with losses {stats['losses']}")
     if launches != expected:
         fail(f"training on disk: launch counts {launches} differ from the config's {expected}")
+    if native_pairs != pairs:
+        fail(f"training on disk: {native_pairs} of {pairs} pairs went through the native "
+             f"preprocessing library")
     steps, waits = stats["step_seconds"], stats["loader_wait_seconds"]
     emit({"phase": "train_disk", "dataset": "pst900", "pairs": pairs,
           "image_size": list(DISK_SIZE), "workers": DISK_WORKERS, "steps": stats["steps"],
           "losses": stats["losses"], "launches": launches, "expected_launches": expected,
+          "native_preprocessed_pairs": native_pairs, "native_threads": native.num_threads(),
           "step_seconds": steps, "median_warm_step_s": float(np.median(steps[1:])),
           "pairs_per_s": TRAIN_PAIRS / float(np.median(steps[1:])),
           "loader_wait_ms_per_step": [1e3 * w for w in waits],
@@ -1244,7 +1261,14 @@ def _bf16_check(got, want):
     return float(e.max()), ok and got.dtype == want.dtype
 
 
-def phase_kernel_bf16(tcalls, dev, checked, smi):
+def _bf16_spills(kernel, spills):
+    """The ptxas spill lines (from `_spills`) of the bf16 instances of the
+    kernel's entries: empty where none spills."""
+    return {e: ln for e, ln in spills.items()
+            if "bfloat16" in e and any(f in e for f in _TRACE_NAMES[kernel])}
+
+
+def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
     """Each of the ten kernels' bf16 variants at every shape of a training
     step (6 pairs; the encoder runs 12), on the bf16 inputs a bf16 step
     hands it, against its plain version on the same inputs: the output (and
@@ -1256,9 +1280,13 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
     where I/O is bf16; the MLP's products at the bf16 rate) and its share of
     the device time, and, where one PyTorch call computes the same function
     (the LN's ungated shapes, the dwconv, the MLP), that call's time and
-    device time in bf16 (its autograd for a backward). Returns the per-step
-    sums of each kernel."""
+    device time in bf16 (its autograd for a backward), and the spills ptxas
+    reported for the kernel's bf16 instances (`spills`, the build's); for the
+    LN backward also the device time of its strided design (the earlier bf16
+    kernel, which the plan keeps for misaligned tensors). Returns the
+    per-step sums of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(7)
+    sms = cuda_lib.sm_count(dev)
     sums = {}
     for op in OPS:
         for k in (op, op + "_bwd"):
@@ -1273,7 +1301,7 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                                                              torch.bfloat16)
             reps = 5 if op == "scan" else 20
             for k, calls in [(op, n)] + ([(op + "_bwd", n_bwd)] if n_bwd else []):
-                lib_ms = lib_dev_ms = None
+                lib_ms = lib_dev_ms = old_dev_ms = None
                 if k == op:
                     with torch.no_grad():
                         got, again, want = fn(*inputs), fn(*inputs), plain(*inputs)
@@ -1307,6 +1335,15 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                         same = all(torch.equal(a, b) for a, b in zip(first, second)
                                    if a is not None)
                         ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                        if k == "layer_norm_bwd":
+                            # the strided design (the earlier bf16 kernel), which the
+                            # plan keeps for misaligned tensors, on the same inputs
+                            strided = layer_norm.bwd_plan(shape[0], shape[1], sms,
+                                                          io=torch.bfloat16, aligned=False)
+                            sc, bi = inputs[1].float(), inputs[2].float()
+                            old_dev_ms = device_ms(lambda: layer_norm.layer_norm_bwd(
+                                inputs[0], sc, bi, inputs[3] if len(inputs) > 3 else None, dy,
+                                1e-6, shape[2], plan=strided))
                     if library is not None:
                         out_l = library(*live)
 
@@ -1325,7 +1362,9 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                       "event_minus_device_ms": None if dev_ms is None else ms - dev_ms,
                       "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
                       "fp32_kernel_device_ms": fp32_dev, "fp32_bound_ms": fp32_bound,
-                      **_bound_fields(k, *b, dev_ms), "card": smi})
+                      **_bound_fields(k, *b, dev_ms), "ptxas_spills": _bf16_spills(k, spills),
+                      **({"strided_design_device_ms": old_dev_ms} if old_dev_ms else {}),
+                      "card": smi})
                 if not ok:
                     fail(f"{k} bf16 at {shape} disagrees with its plain version "
                          f"(max abs err {err})")
@@ -1347,6 +1386,9 @@ def phase_kernel_bf16(tcalls, dev, checked, smi):
                     agg["library_device_ms"] += calls * (lib_dev_ms or 0.0)
                     agg["ms_at_library_shapes"] += calls * ms
                     agg["device_ms_at_library_shapes"] += calls * (dev_ms or 0.0)
+                if old_dev_ms is not None:
+                    agg["strided_design_device_ms"] = (agg.get("strided_design_device_ms", 0.0)
+                                                       + calls * old_dev_ms)
             del inputs
         torch.cuda.empty_cache()
     for agg in sums.values():
@@ -1426,7 +1468,8 @@ def phase_train_bf16(tcalls, smi, fp32_line):
     """`python -m fusionmamba_torch.train --model full -B 6 -E 1 --synthetic
     24 -j 0 --precision bf16`: 4 mixed-precision steps. Every loss finite,
     the saved state dict fp32 and loading strictly, each kernel's bf16
-    launches equal to 4 x the config's calls a step and no fp32 launch; the
+    launches equal to 4 x the config's calls a step and no fp32 launch, each
+    LN backward launch the quads design; the
     median step and pairs/s beside the fp32 train phase's of this call (no
     claim: bf16 is not tuned for speed yet)."""
     steps = TRAIN_BF16_STEPS
@@ -1438,6 +1481,7 @@ def phase_train_bf16(tcalls, smi, fp32_line):
         stats = train.main(argv)
         torch.cuda.synchronize()
         total, bf16 = read_launches(), read_launches(bf16=True)
+        quads = layer_norm.bf16_quads_launches
         path = os.path.join(tmp, "fusion_model_pst900.pth")
         saved = torch.load(path, weights_only=True)
         fp32_saved = all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
@@ -1448,7 +1492,8 @@ def phase_train_bf16(tcalls, smi, fp32_line):
     warm = stats["step_seconds"][1:]
     emit({"phase": "train_bf16", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
           "losses": stats["losses"], "bf16_launches": bf16, "fp32_launches": fp32_launches,
-          "expected_bf16_launches": expected, "checkpoint_fp32": fp32_saved,
+          "expected_bf16_launches": expected, "layer_norm_bwd_quads_launches": quads,
+          "checkpoint_fp32": fp32_saved,
           "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
           "median_warm_step_s": float(np.median(warm)),
           "pairs_per_s": TRAIN_PAIRS / float(np.median(warm)),
@@ -1460,6 +1505,9 @@ def phase_train_bf16(tcalls, smi, fp32_line):
         fail("bf16 training saved a state dict that is not fp32")
     if bf16 != expected or any(fp32_launches.values()):
         fail(f"bf16 training launches: bf16 {bf16} (expected {expected}), fp32 {fp32_launches}")
+    if quads != expected["layer_norm_bwd"]:
+        fail(f"bf16 training: {quads} of {expected['layer_norm_bwd']} LN backward launches took "
+             f"the quads design")
     return bf16
 
 
@@ -2285,8 +2333,9 @@ def main() -> None:
     path, log = cuda_lib.build()
     ptxas = [ln.strip() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    spills = _spills(ptxas)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": str(path),
-          "ptxas": ptxas, "spills": _spills(ptxas)})
+          "ptxas": ptxas, "spills": spills})
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
@@ -2300,7 +2349,7 @@ def main() -> None:
             k: _brief(r) for k, r in per_step.items()}})
     emit({"phase": "kernel_train_step", "pairs": TRAIN_PAIRS, "per_step": {
         k: _brief(r) for k, r in results.items()}})
-    bf16 = phase_kernel_bf16(tcalls, dev, checked, smi)
+    bf16 = phase_kernel_bf16(tcalls, dev, checked, smi, spills)
     phase_mlp_paths(tcalls["mlp"], dev)
     phase_scan_paths(tcalls["scan"], calls["scan"],
                      fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)

@@ -39,16 +39,19 @@
 // this file checks them. C not a multiple of 4, or an x, dy or dx not aligned
 // to 4 elements, takes the same kernel with scalar, masked loads and stores
 // (VEC = false). All index arithmetic is 32-bit (the entry point rejects
-// tensors of 2^31 elements or more). With bf16 I/O the tiles are staged as
-// fp32, each value converted as it is loaded (plain 8-byte loads: cp.async
-// cannot convert), so dz, the sums and dw stay fp32, and dx is rounded to
-// bf16 as it is stored.
+// tensors of 2^31 elements or more).
+//
+// bf16 I/O has a design of its own (dwconv3x3_bwd_kernel_bf16): the same
+// walk, tiles and arithmetic, but x and dy are staged as bf16, by 8-byte
+// cp.async (a quad of channels) straight from device memory, and converted
+// to fp32 as they are read from shared memory. dz stays fp32, as the plain
+// version computes it, in a tile of its own (the staged dy is bf16). The
+// sums, dw and dbias stay fp32, and dx is rounded to bf16 as it is stored.
 #include "io_types.cuh"
 
 namespace {
 
 using fm_io::from_f;
-using fm_io::to_f;
 
 constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 227 * 1024;  // the most a block can opt in to on the H100
@@ -58,6 +61,11 @@ constexpr int kReduceSlices = 8;      // and interleaved slices of the partials
 __device__ __forceinline__ void cp_async_16(float4* dst, const float* src) {
   const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_8(uint2* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
 }
 
 __device__ __forceinline__ void fma4(float4& acc, const float4& a, const float4& b) {
@@ -85,27 +93,25 @@ __device__ __forceinline__ float dsilu(float g, float pre, float b) {
 // Stage column ww of an image (channels c..c+3), window rows k0..k1-1,
 // into dst (the window's column, one float4 a row, ld float4s apart); row k
 // of the window is image row r0 + k. Zeros outside the image and past C.
-template <bool VEC, class IO>
-__device__ __forceinline__ void stage_col(float4* dst, int ld, const IO* img, int k0, int k1,
+template <bool VEC>
+__device__ __forceinline__ void stage_col(float4* dst, int ld, const float* img, int k0, int k1,
                                           int r0, int ww, int H, int W, int C, int c) {
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
   const bool col_ok = ww >= 0 && ww < W && c < C;
-  const IO* src = img + ((r0 + k0) * W + ww) * C + c;
+  const float* src = img + ((r0 + k0) * W + ww) * C + c;
   dst += k0 * ld;
   for (int k = k0; k < k1; ++k, src += W * C, dst += ld) {
     const int hh = r0 + k;
     if (!col_ok || hh < 0 || hh >= H) {
       *dst = zero;
-    } else if (VEC && sizeof(IO) == sizeof(float)) {
-      cp_async_16(dst, reinterpret_cast<const float*>(src));
     } else if (VEC) {
-      *dst = fm_io::load4(src);
+      cp_async_16(dst, src);
     } else {
       float4 v;
-      v.x = to_f(src[0]);
-      v.y = c + 1 < C ? to_f(src[1]) : 0.f;
-      v.z = c + 2 < C ? to_f(src[2]) : 0.f;
-      v.w = c + 3 < C ? to_f(src[3]) : 0.f;
+      v.x = src[0];
+      v.y = c + 1 < C ? src[1] : 0.f;
+      v.z = c + 2 < C ? src[2] : 0.f;
+      v.w = c + 3 < C ? src[3] : 0.f;
       *dst = v;
     }
   }
@@ -114,11 +120,11 @@ __device__ __forceinline__ void stage_col(float4* dst, int ld, const IO* img, in
 // Four blocks an SM (the plan's grid where shared memory allows): it caps
 // registers at 128, against 135 left to itself (three blocks an SM, which
 // timed slower on the card); ptxas then spills 4 bytes in some variants.
-template <class IO, int CQ, bool VEC>
+template <int CQ, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, const IO* __restrict__ dy,
-                     IO* __restrict__ dx, float* __restrict__ part, int B, int H, int W, int C,
+dwconv3x3_bwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, const float* __restrict__ dy,
+                     float* __restrict__ dx, float* __restrict__ part, int B, int H, int W, int C,
                      int TW, int TH, int act_silu) {
   extern __shared__ float4 smem[];
   const int q = threadIdx.x % CQ, tw = threadIdx.x / CQ;
@@ -180,7 +186,7 @@ dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
                        W, C, c);
       }
     }
-    if (VEC && sizeof(IO) == sizeof(float)) {
+    if (VEC) {
       asm volatile("cp.async.commit_group;\n" ::);
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
@@ -242,7 +248,7 @@ dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
     // outputs t = rr-1 (i = 0), rr-2 (i = 1), rr-3 (i = 2).
     const float4* zr = zs + tw * CQ + q;
     const float4* xr = xs + (tw + 1) * CQ + q;
-    IO* out = dx + img + ((h0 - 2) * W + w0 + tw) * C + c;
+    float* out = dx + img + ((h0 - 2) * W + w0 + tw) * C + c;
     const bool col_ok = w0 + tw < W && c < C;
     float4 d0 = zero, d1 = zero;  // dx sums of rows rr-2, rr-1
     float4 z1 = zero, z2 = zero;  // dz of outputs rr-2, rr-3
@@ -258,10 +264,10 @@ dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
           if (VEC) {
             fm_io::store4(out, d0);
           } else {
-            out[0] = from_f<IO>(d0.x);
-            if (c + 1 < C) out[1] = from_f<IO>(d0.y);
-            if (c + 2 < C) out[2] = from_f<IO>(d0.z);
-            if (c + 3 < C) out[3] = from_f<IO>(d0.w);
+            out[0] = d0.x;
+            if (c + 1 < C) out[1] = d0.y;
+            if (c + 2 < C) out[2] = d0.z;
+            if (c + 3 < C) out[3] = d0.w;
           }
         }
         d0 = d1;
@@ -270,6 +276,238 @@ dwconv3x3_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
       }
       if (rr >= 1) {  // x row 0 meets no output (and is not staged without SiLU)
         const float4 u0 = xr[0], u1 = xr[CQ], u2 = xr[2 * CQ];
+        fma4(dw[0], z0, u0);
+        fma4(dw[1], z0, u1);
+        fma4(dw[2], z0, u2);
+        fma4(dw[3], z1, u0);
+        fma4(dw[4], z1, u1);
+        fma4(dw[5], z1, u2);
+        fma4(dw[6], z2, u0);
+        fma4(dw[7], z2, u1);
+        fma4(dw[8], z2, u2);
+        db.x += z0.x;
+        db.y += z0.y;
+        db.z += z0.z;
+        db.w += z0.w;
+      }
+      z2 = z1;
+      z1 = z0;
+    }
+  }
+
+  // the block's partial: its columns' sums, in column order
+  __syncthreads();
+  float4* red = smem;  // [TW][10][CQ]
+#pragma unroll
+  for (int t = 0; t < 9; ++t) red[(tw * 10 + t) * CQ + q] = dw[t];
+  red[(tw * 10 + 9) * CQ + q] = db;
+  __syncthreads();
+  for (int item = threadIdx.x; item < 10 * CQ; item += blockDim.x) {
+    const int k = item / CQ, qq = item % CQ, cc = c0 + 4 * qq;
+    float4 s = red[k * CQ + qq];
+    for (int i = 1; i < TW; ++i) {
+      const float4 v = red[(i * 10 + k) * CQ + qq];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    float* p = part + (blockIdx.y * 10 + k) * C + cc;
+    if (cc < C) p[0] = s.x;
+    if (cc + 1 < C) p[1] = s.y;
+    if (cc + 2 < C) p[2] = s.z;
+    if (cc + 3 < C) p[3] = s.w;
+  }
+}
+
+// 4 bf16 as 8 bytes, as fp32
+__device__ __forceinline__ float4 unpack(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+// Stage column ww of a bf16 image (channels c..c+3), window rows k0..k1-1,
+// into dst as bf16 quads (ld quads apart), as stage_col does for fp32: by
+// 8-byte cp.async (VEC), else by masked scalar loads; zeros outside the image
+// and past C.
+template <bool VEC>
+__device__ __forceinline__ void stage_col_bf16(uint2* dst, int ld, const fm_io::bf16* img, int k0,
+                                               int k1, int r0, int ww, int H, int W, int C,
+                                               int c) {
+  const bool col_ok = ww >= 0 && ww < W && c < C;
+  const fm_io::bf16* src = img + ((r0 + k0) * W + ww) * C + c;
+  dst += k0 * ld;
+  for (int k = k0; k < k1; ++k, src += W * C, dst += ld) {
+    const int hh = r0 + k;
+    if (!col_ok || hh < 0 || hh >= H) {
+      *dst = make_uint2(0u, 0u);
+    } else if (VEC) {
+      cp_async_8(dst, src);
+    } else {
+      const unsigned short* u = reinterpret_cast<const unsigned short*>(src);
+      const uint32_t e0 = u[0], e1 = c + 1 < C ? u[1] : 0u;
+      const uint32_t e2 = c + 2 < C ? u[2] : 0u, e3 = c + 3 < C ? u[3] : 0u;
+      *dst = make_uint2(e0 | e1 << 16, e2 | e3 << 16);
+    }
+  }
+}
+
+// The bf16 backward (see the header): a thread a quad of channels, as in the
+// fp32 kernel. Shared memory: the fp32 dz tile, then the bf16 tiles of x
+// (halo 2) and dy (halo 1).
+template <int CQ, bool VEC>
+__global__ void __launch_bounds__(kMaxThreads, 4)
+dwconv3x3_bwd_kernel_bf16(const fm_io::bf16* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, const fm_io::bf16* __restrict__ dy,
+                          fm_io::bf16* __restrict__ dx, float* __restrict__ part, int B, int H,
+                          int W, int C, int TW, int TH, int act_silu) {
+  extern __shared__ float4 smem[];
+  const int q = threadIdx.x % CQ, tw = threadIdx.x / CQ;
+  const int c0 = blockIdx.x * 4 * CQ, c = c0 + 4 * q;
+  const int XW = TW + 4, ZW = TW + 2;  // columns of the staged x and dz tiles
+  const int xn = (TH + 4) * XW * CQ, zn = (TH + 2) * ZW * CQ;  // quads of each tile
+  float4* zs = smem;                    // [TH + 2][TW + 2][CQ] fp32, rows h0-1.., cols w0-1..
+  uint2* xs = reinterpret_cast<uint2*>(smem + zn);  // [TH + 4][TW + 4][CQ] bf16 quads
+  uint2* ys = xs + xn;                              // [TH + 2][TW + 2][CQ] bf16 quads
+  const int h_tiles = (H + TH - 1) / TH, w_tiles = (W + TW - 1) / TW;
+  const int tiles = B * h_tiles * w_tiles;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 wt[9];  // wt[i * 3 + j]: the tap (i, j) of the 4 channels
+#pragma unroll
+  for (int t = 0; t < 9; ++t) wt[t] = zero;
+  const float* wc = w + c * 9;
+  if (c < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].x = wc[t];
+  }
+  if (c + 1 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].y = wc[9 + t];
+  }
+  if (c + 2 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].z = wc[18 + t];
+  }
+  if (c + 3 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].w = wc[27 + t];
+  }
+  float4 bv = zero;
+  if (bias) {
+    if (c < C) bv.x = bias[c];
+    if (c + 1 < C) bv.y = bias[c + 1];
+    if (c + 2 < C) bv.z = bias[c + 2];
+    if (c + 3 < C) bv.w = bias[c + 3];
+  }
+  float4 dw[9], db = zero;  // dw[i * 3 + j]
+#pragma unroll
+  for (int t = 0; t < 9; ++t) dw[t] = zero;
+
+  const int k_lo = act_silu ? 0 : 1, k_hi = act_silu ? TH + 4 : TH + 3;
+  for (int tile = blockIdx.y; tile < tiles; tile += gridDim.y) {
+    const int b = tile / (h_tiles * w_tiles), rem = tile - b * h_tiles * w_tiles;
+    const int h0 = rem / w_tiles * TH, w0 = rem % w_tiles * TW;
+    const fm_io::bf16* xi = x + b * H * W * C;
+    const fm_io::bf16* yi = dy + b * H * W * C;
+    __syncthreads();  // the previous tile's reads of shared memory are done
+    // each thread stages its own column of both tiles; the six halo columns
+    // (x: 0, 1, TW+2, TW+3; dy: 0, TW+1) go to threads 0..5 of each channel
+    // quad, x's outer ring only with SiLU
+    stage_col_bf16<VEC>(xs + (tw + 2) * CQ + q, XW * CQ, xi, k_lo, k_hi, h0 - 2, w0 + tw, H, W,
+                        C, c);
+    stage_col_bf16<VEC>(ys + (tw + 1) * CQ + q, ZW * CQ, yi, 0, TH + 2, h0 - 1, w0 + tw, H, W, C,
+                        c);
+    for (int j = tw; j < 6; j += TW) {
+      if (j < 4) {
+        const int col = j < 2 ? j : TW + j;  // 0, 1, TW+2, TW+3
+        if (act_silu || (col != 0 && col != TW + 3)) {
+          stage_col_bf16<VEC>(xs + col * CQ + q, XW * CQ, xi, k_lo, k_hi, h0 - 2, w0 - 2 + col, H,
+                              W, C, c);
+        }
+      } else {
+        const int col = j == 4 ? 0 : TW + 1;
+        stage_col_bf16<VEC>(ys + col * CQ + q, ZW * CQ, yi, 0, TH + 2, h0 - 1, w0 - 1 + col, H, W,
+                            C, c);
+      }
+    }
+    if (VEC) {
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // dz over the haloed tile (see the fp32 kernel), from the staged x and
+    // dy into the fp32 tile; without SiLU dz is dy
+    if (act_silu) {
+      {
+        const uint2* src = xs + (tw + 1) * CQ + q;
+        const uint2* g = ys + (tw + 1) * CQ + q;
+        float4* z = zs + (tw + 1) * CQ + q;
+        float4 a0 = zero, a1 = zero;  // pre of rows k-2, k-1
+        for (int k = 0; k < TH + 4; ++k, src += XW * CQ) {
+          const float4 v0 = unpack(src[0]), v1 = unpack(src[CQ]), v2 = unpack(src[2 * CQ]);
+          float4 a2 = zero;
+          taps(a2, v0, v1, v2, wt);
+          taps(a1, v0, v1, v2, wt + 3);
+          taps(a0, v0, v1, v2, wt + 6);
+          if (k >= 2) {
+            const float4 gv = unpack(g[(k - 2) * ZW * CQ]);
+            z[(k - 2) * ZW * CQ] = make_float4(dsilu(gv.x, a0.x, bv.x), dsilu(gv.y, a0.y, bv.y),
+                                               dsilu(gv.z, a0.z, bv.z), dsilu(gv.w, a0.w, bv.w));
+          }
+          a0 = a1;
+          a1 = a2;
+        }
+      }
+      for (int j = tw; j < 2 * (TH + 2); j += TW) {
+        const int r = j >> 1, cc = (j & 1) * (TW + 1);
+        const uint2* src = xs + (r * XW + cc) * CQ + q;
+        float4 a = zero;
+#pragma unroll
+        for (int ii = 0; ii < 3; ++ii, src += XW * CQ) {
+          taps(a, unpack(src[0]), unpack(src[CQ]), unpack(src[2 * CQ]), wt + 3 * ii);
+        }
+        const float4 gv = unpack(ys[(r * ZW + cc) * CQ + q]);
+        zs[(r * ZW + cc) * CQ + q] = make_float4(dsilu(gv.x, a.x, bv.x), dsilu(gv.y, a.y, bv.y),
+                                                 dsilu(gv.z, a.z, bv.z), dsilu(gv.w, a.w, bv.w));
+      }
+    } else {
+      for (int k = threadIdx.x; k < zn; k += blockDim.x) zs[k] = unpack(ys[k]);
+    }
+    __syncthreads();
+
+    // This thread's output column w0+tw, as in the fp32 kernel
+    const float4* zr = zs + tw * CQ + q;
+    const uint2* xr = xs + (tw + 1) * CQ + q;
+    fm_io::bf16* out = dx + b * H * W * C + ((h0 - 2) * W + w0 + tw) * C + c;
+    const bool col_ok = w0 + tw < W && c < C;
+    float4 d0 = zero, d1 = zero;  // dx sums of rows rr-2, rr-1
+    float4 z1 = zero, z2 = zero;  // dz of outputs rr-2, rr-3
+    for (int rr = 0; rr < TH + 3; ++rr, zr += ZW * CQ, xr += XW * CQ, out += W * C) {
+      float4 z0 = zero;  // dz of output rr-1
+      if (rr < TH + 2) {
+        const float4 v0 = zr[0], v1 = zr[CQ], v2 = zr[2 * CQ];
+        float4 d2 = zero;
+        taps(d2, v2, v1, v0, wt + 6);
+        taps(d1, v2, v1, v0, wt + 3);
+        taps(d0, v2, v1, v0, wt);
+        if (rr >= 2 && h0 + rr - 2 < H && col_ok) {
+          if (VEC) {
+            fm_io::store4(out, d0);
+          } else {
+            out[0] = from_f<fm_io::bf16>(d0.x);
+            if (c + 1 < C) out[1] = from_f<fm_io::bf16>(d0.y);
+            if (c + 2 < C) out[2] = from_f<fm_io::bf16>(d0.z);
+            if (c + 3 < C) out[3] = from_f<fm_io::bf16>(d0.w);
+          }
+        }
+        d0 = d1;
+        d1 = d2;
+        if (rr >= 1 && rr <= TH) z0 = v1;
+      }
+      if (rr >= 1) {  // x row 0 meets no output (and is not staged without SiLU)
+        const float4 u0 = unpack(xr[0]), u1 = unpack(xr[CQ]), u2 = unpack(xr[2 * CQ]);
         fma4(dw[0], z0, u0);
         fma4(dw[1], z0, u1);
         fma4(dw[2], z0, u2);
@@ -334,21 +572,52 @@ dwconv3x3_bwd_reduce(const float* __restrict__ part, int P, int n, float* __rest
   }
 }
 
-template <class IO, int CQ>
-int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const IO* x,
-           const float* w, const float* bias, const IO* dy, IO* dx, float* part, int B, int H,
-           int W, int C, int tw, int th, int act_silu) {
-  // above 48 KB a block's dynamic shared memory needs an opt-in, once per kernel
-  static bool opted[2] = {false, false};
-  auto kernel = vec ? dwconv3x3_bwd_kernel<IO, CQ, true> : dwconv3x3_bwd_kernel<IO, CQ, false>;
-  if (smem > 48 * 1024 && !opted[vec]) {
+// above 48 KB a block's dynamic shared memory needs an opt-in, once per kernel
+template <class Kernel>
+int opt_in(Kernel kernel, int smem, bool& opted) {
+  if (smem > 48 * 1024 && !opted) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return (int)err;
-    opted[vec] = true;
+    opted = true;
   }
+  return 0;
+}
+
+template <int CQ>
+int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const float* x,
+           const float* w, const float* bias, const float* dy, float* dx, float* part, int B,
+           int H, int W, int C, int tw, int th, int act_silu) {
+  static bool opted[2] = {false, false};
+  auto kernel = vec ? dwconv3x3_bwd_kernel<CQ, true> : dwconv3x3_bwd_kernel<CQ, false>;
+  if (const int err = opt_in(kernel, smem, opted[vec])) return err;
   kernel<<<grid, threads, smem, stream>>>(x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu);
   return (int)cudaGetLastError();
+}
+
+template <int CQ>
+int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream,
+           const fm_io::bf16* x, const float* w, const float* bias, const fm_io::bf16* dy,
+           fm_io::bf16* dx, float* part, int B, int H, int W, int C, int tw, int th,
+           int act_silu) {
+  static bool opted[2] = {false, false};
+  auto kernel = vec ? dwconv3x3_bwd_kernel_bf16<CQ, true> : dwconv3x3_bwd_kernel_bf16<CQ, false>;
+  if (const int err = opt_in(kernel, smem, opted[vec])) return err;
+  kernel<<<grid, threads, smem, stream>>>(x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu);
+  return (int)cudaGetLastError();
+}
+
+// the dynamic shared memory of a block: the staged tiles (fp32: x and dz in
+// place of dy; bf16: the fp32 dz tile and bf16 x and dy tiles), at least the
+// block's sums at the end
+inline int smem_bytes(const float*, int cq, int tw, int th) {
+  const int tile = ((th + 4) * (tw + 4) + (th + 2) * (tw + 2)) * cq;
+  return (tile > 10 * tw * cq ? tile : 10 * tw * cq) * (int)sizeof(float4);
+}
+inline int smem_bytes(const fm_io::bf16*, int cq, int tw, int th) {
+  const int bytes =
+      (16 * (th + 2) * (tw + 2) + 8 * ((th + 4) * (tw + 4) + (th + 2) * (tw + 2))) * cq;
+  return bytes > 160 * tw * cq ? bytes : 160 * tw * cq;
 }
 
 template <class IO>
@@ -360,8 +629,7 @@ int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, 
     return (int)cudaErrorInvalidValue;
   }
   const long long tiles = (long long)B * ((H + th - 1) / th) * ((W + tw - 1) / tw);
-  const int tile = ((th + 4) * (tw + 4) + (th + 2) * (tw + 2)) * cq;
-  const int smem = (tile > 10 * tw * cq ? tile : 10 * tw * cq) * (int)sizeof(float4);
+  const int smem = smem_bytes(x, cq, tw, th);
   if (grid_x != (C + 4 * cq - 1) / (4 * cq) || grid_x > 65535 || grid_y < 1 || grid_y > tiles ||
       grid_y > 65535 || smem > kMaxSmem || (long long)grid_y * 10 * C >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
@@ -374,11 +642,11 @@ int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, 
   const int threads = cq * tw;
   int err;
   switch (cq) {
-    case 1: err = launch<IO, 1>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 2: err = launch<IO, 2>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 4: err = launch<IO, 4>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 8: err = launch<IO, 8>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 16: err = launch<IO, 16>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 1: err = launch<1>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 2: err = launch<2>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 4: err = launch<4>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 8: err = launch<8>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 16: err = launch<16>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != 0) return err;
@@ -393,9 +661,9 @@ int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, 
 // cq, tw, th: the tile (4*cq channels, tw columns, th rows); grid_x: the
 // channel blocks, ceil(C / (4 cq)); grid_y: the blocks that walk a channel
 // block's tiles, each writing one (10, C) partial into part (grid_y, 10, C);
-// out (10, C): rows 0..8 dw's taps i*3+j, row 9 dbias. smem: the plan's
-// dynamic shared memory (dwconv.py::bwd_plan), checked here. The _bf16
-// entry takes x, dy and dx as bf16.
+// out (10, C): rows 0..8 dw's taps i*3+j, row 9 dbias. The dynamic shared
+// memory follows from the tile (dwconv.py::bwd_plan reckons it alike). The
+// _bf16 entry takes x, dy and dx as bf16.
 extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bias,
                                 const float* dy, float* dx, float* part, float* out, int B, int H,
                                 int W, int C, int act_silu, int cq, int tw, int th, int grid_x,

@@ -43,6 +43,21 @@
 // registers and takes mean(w) once. No atomics, so two launches give the
 // same bits, and each call is two launches (no separate reductions, no
 // elementwise ops around them).
+//
+// 3. The LN backward's bf16 design (ln_bwd_kernel_quads, the bf16 entry's
+// templates FM_LN_BF16_TEMPLATES). With bf16 I/O the strided layout above
+// moves 2 bytes a lane a load, 64 bytes a warp, and keeps half fp32's bytes in
+// flight. Here a lane owns Q quads of consecutive channels, quad q being
+// channels 4 (lane + q G) .. +3, so every load and store of x, dy, the gate,
+// dx and dgate moves 8 bytes a lane (a warp's load 256 bytes) and each lane
+// holds 12 values at every model width (3 quads; G = C / 12 = 2 ... 128
+// lanes a row, all busy; a masked variant of 32, 128 or 512 lanes for any
+// other C that is a multiple of 4). The next row's raw quads are loaded
+// while the current row is summed and written, so a group keeps two rows
+// in flight. The math, the places of rounding (dx and dgate, at their
+// stores) and the fixed-order sums over rows are the design above; a C that
+// is not a multiple of 4, or a tensor not on an 8-byte boundary, takes the
+// strided templates in bf16 (layer_norm.py::bwd_plan chooses).
 #include <cuda_runtime.h>
 
 #include "io_types.cuh"
@@ -53,6 +68,7 @@ namespace {
 using fm_io::from_f;
 using fm_io::to_f;
 
+using fm_io::bf16;
 using fm_ln::group_sum;
 using fm_ln::kBlock;
 constexpr int kReduceCols = 32;      // the reduce kernel: columns of a block
@@ -193,6 +209,190 @@ ln_bwd_reduce(const float* __restrict__ part, int P, int C, float* __restrict__ 
       dscale[col] = t;
     } else {
       dbias[col - C] = t;
+    }
+  }
+}
+
+// The bf16 templates of the LN backward (quads a lane, lanes a row, masked):
+// layer_norm.py's BF16_TEMPLATES and its masked variants.
+#define FM_LN_BF16_TEMPLATES(Q) \
+  Q(3, 2, false)                \
+  Q(3, 8, false)                \
+  Q(3, 16, false)               \
+  Q(3, 32, false)               \
+  Q(3, 64, false)               \
+  Q(3, 128, false)              \
+  Q(3, 32, true)                \
+  Q(3, 128, true)               \
+  Q(3, 512, true)
+
+// 4 consecutive bf16, 8 bytes on an 8-byte boundary, raw and as fp32
+__device__ __forceinline__ uint2 load_quad(const bf16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float4 unpack(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
+// The LN backward with bf16 I/O on quads (see 3. above); the partials as
+// ln_bwd_kernel writes them. Two blocks an SM cap registers at 128, as for
+// the strided templates' 12 values a lane.
+template <int Q, int G, int GATE, bool MASK>
+__global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
+ln_bwd_kernel_quads(const bf16* __restrict__ x, const bf16* __restrict__ gate,
+                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    const bf16* __restrict__ dy, bf16* __restrict__ dx, bf16* __restrict__ dg,
+                    float* __restrict__ part, int rows, int C, float eps) {
+  constexpr int T = G > kBlock ? G : kBlock;
+  constexpr int GPB = T / G;  // groups (rows at a time) of a block
+  constexpr int V = 4 * Q;
+  __shared__ float2 red[2][T / 32];
+  __shared__ __align__(16) float sums[GPB > 1 ? GPB : 1][2][GPB > 1 ? V * G : 4];
+  const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+
+  bool has[Q];  // quad q holds channels of the row
+  float sc[V], bi[V], ds[V], db[V];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int c = 4 * (lane + q * G);
+    has[q] = !MASK || c < C;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sc[4 * q + j] = has[q] ? scale[c + j] : 0.f;
+      bi[4 * q + j] = GATE && has[q] ? bias[c + j] : 0.f;
+      ds[4 * q + j] = 0.f;
+      db[4 * q + j] = 0.f;
+    }
+  }
+  const float fc = (float)C;
+  const int stride = gridDim.x * GPB;
+  const uint2 none = make_uint2(0u, 0u);
+
+  // the raw quads of the row this group takes next
+  uint2 px[Q], pd[Q], pg[Q];
+  int r = blockIdx.x * GPB + grp;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const bool ok = r < rows && has[q];
+    const int o = r * C + 4 * (lane + q * G);
+    px[q] = ok ? load_quad(x + o) : none;
+    pd[q] = ok ? load_quad(dy + o) : none;
+    pg[q] = GATE && ok ? load_quad(gate + o) : none;
+  }
+
+  for (int base = blockIdx.x * GPB; base < rows; base += stride, r += stride) {
+    const bool live = r < rows;
+    const int off = r * C + 4 * lane;
+    float xv[V], d[V], gv[V];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 a = unpack(px[q]), b = unpack(pd[q]), g = unpack(pg[q]);
+      xv[4 * q] = a.x, xv[4 * q + 1] = a.y, xv[4 * q + 2] = a.z, xv[4 * q + 3] = a.w;
+      d[4 * q] = b.x, d[4 * q + 1] = b.y, d[4 * q + 2] = b.z, d[4 * q + 3] = b.w;
+      gv[4 * q] = g.x, gv[4 * q + 1] = g.y, gv[4 * q + 2] = g.z, gv[4 * q + 3] = g.w;
+    }
+    // the next row's loads go out before this row's sums
+    const int rn = r + stride;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const bool ok = rn < rows && has[q];
+      const int o = rn * C + 4 * (lane + q * G);
+      px[q] = ok ? load_quad(x + o) : none;
+      pd[q] = ok ? load_quad(dy + o) : none;
+      pg[q] = GATE && ok ? load_quad(gate + o) : none;
+    }
+
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s.x += xv[v];
+      s.y = fmaf(xv[v], xv[v], s.y);
+    }
+    s = group_sum<G>(s, red[0]);
+    const float mu = s.x / fc;
+    const float rs = rsqrtf(s.y / fc - mu * mu + eps);
+    float2 m = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const bool ok = live && has[q];
+      float dgq[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int v = 4 * q + j;
+        const float xh = ok ? (xv[v] - mu) * rs : 0.f;
+        float u = d[v];
+        dgq[j] = 0.f;
+        if (GATE == 3) {
+          dgq[j] = u * (xh * sc[v] + bi[v]);
+          u *= gv[v];
+        } else if (GATE) {
+          const float g = gv[v], sg = sigmoid(g), s1 = g * sg;
+          float dgate = sg * (1.f + g * (1.f - sg));  // silu'(g)
+          float act = s1;
+          if (GATE == 2) {
+            const float ss = sigmoid(s1);
+            act = s1 + s1 * ss;
+            dgate = (1.f + ss * (1.f + s1 * (1.f - ss))) * dgate;
+          }
+          dgq[j] = u * (xh * sc[v] + bi[v]) * dgate;
+          u *= act;
+        }
+        ds[v] = fmaf(u, xh, ds[v]);
+        db[v] += u;
+        const float wv = u * sc[v];
+        m.x += wv;
+        m.y = fmaf(wv, xh, m.y);
+        xv[v] = xh;
+        d[v] = wv;
+      }
+      if (GATE && ok)
+        fm_io::store4(dg + off + 4 * q * G, make_float4(dgq[0], dgq[1], dgq[2], dgq[3]));
+    }
+    m = group_sum<G>(m, red[1]);
+    const float m1 = m.x / fc, m2 = m.y / fc;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (live && has[q]) {
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = rs * (d[4 * q + j] - m1 - xv[4 * q + j] * m2);
+        fm_io::store4(dx + off + 4 * q * G, make_float4(o[0], o[1], o[2], o[3]));
+      }
+    }
+  }
+
+  float* out = part + blockIdx.x * 2 * C;
+  if constexpr (GPB == 1) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int c = 4 * (lane + q * G);
+      if (has[q]) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          out[c + j] = ds[4 * q + j];
+          out[C + c + j] = db[4 * q + j];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int c = 4 * (lane + q * G);
+      *reinterpret_cast<float4*>(&sums[grp][0][c]) =
+          make_float4(ds[4 * q], ds[4 * q + 1], ds[4 * q + 2], ds[4 * q + 3]);
+      *reinterpret_cast<float4*>(&sums[grp][1][c]) =
+          make_float4(db[4 * q], db[4 * q + 1], db[4 * q + 2], db[4 * q + 3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      for (int c = threadIdx.x; c < C; c += T) {
+        float t = sums[0][k][c];
+#pragma unroll
+        for (int g = 1; g < GPB; ++g) t += sums[g][k][c];
+        out[k * C + c] = t;
+      }
     }
   }
 }
@@ -341,19 +541,71 @@ int launch(int gate_kind, int blocks, cudaStream_t stream, const IO* x, const IO
   return (int)cudaGetLastError();
 }
 
+template <int Q, int G, bool MASK>
+int launch_quads(int gate_kind, int blocks, cudaStream_t stream, const bf16* x, const bf16* gate,
+                 const float* scale, const float* bias, const bf16* dy, bf16* dx, bf16* dg,
+                 float* part, int rows, int C, float eps) {
+  constexpr int T = G > kBlock ? G : kBlock;
+  switch (gate_kind) {
+    case 0:
+      ln_bwd_kernel_quads<Q, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
+                                                                   dg, part, rows, C, eps);
+      break;
+    case 1:
+      ln_bwd_kernel_quads<Q, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
+                                                                   dg, part, rows, C, eps);
+      break;
+    case 3:
+      ln_bwd_kernel_quads<Q, G, 3, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
+                                                                   dg, part, rows, C, eps);
+      break;
+    default:
+      ln_bwd_kernel_quads<Q, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
+                                                                   dg, part, rows, C, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the quads templates for bf16 I/O; none for fp32
+inline int rows_quads(int, int, int, int, int, cudaStream_t, const float*, const float*,
+                      const float*, const float*, const float*, float*, float*, float*, int, int,
+                      float) {
+  return (int)cudaErrorInvalidValue;
+}
+inline int rows_quads(int values, int lanes, int masked, int gate_kind, int blocks,
+                      cudaStream_t stream, const bf16* x, const bf16* gate, const float* scale,
+                      const float* bias, const bf16* dy, bf16* dx, bf16* dg, float* part, int rows,
+                      int C, float eps) {
+  const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)gate | (uintptr_t)dy | (uintptr_t)dx |
+                         (uintptr_t)dg;
+  if (C % 4 != 0 || (ptrs & 7) != 0) return (int)cudaErrorInvalidValue;
+  int err = (int)cudaErrorInvalidValue;
+#define FM_LN_BWD_QUADS(Q, G, MASK)                                                           \
+  if (values == 4 * Q && lanes == G && (masked != 0) == MASK)                                 \
+    err = launch_quads<Q, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, \
+                                   part, rows, C, eps);
+  FM_LN_BF16_TEMPLATES(FM_LN_BWD_QUADS)
+#undef FM_LN_BWD_QUADS
+  return err;
+}
+
 template <class IO>
 int layer_norm_bwd(const IO* x, const IO* gate, const float* scale, const float* bias,
                    const IO* dy, IO* dx, IO* dg, float* part, float* dscale, float* dbias,
-                   int rows, int C, int gate_kind, int values, int lanes, int masked, int blocks,
-                   float eps, cudaStream_t stream) {
+                   int rows, int C, int gate_kind, int values, int lanes, int masked, int quads,
+                   int blocks, float eps, cudaStream_t stream) {
   if (rows < 1 || C < 1 || (long long)rows * C >= (1ll << 31) || blocks < 1 ||
       (long long)blocks * 2 * C >= (1ll << 31) || gate_kind < 0 || gate_kind > 3 ||
       (gate_kind && (!gate || !dg)) || (masked ? values * lanes < C : values * lanes != C)) {
     return (int)cudaErrorInvalidValue;
   }
   int err = (int)cudaErrorInvalidValue;
+  if (quads) {
+    err = rows_quads(values, lanes, masked, gate_kind, blocks, stream, x, gate, scale, bias, dy,
+                     dx, dg, part, rows, C, eps);
+  }
 #define FM_LN_BWD(V, G, MASK)                                                                 \
-  if (values == V && lanes == G && (masked != 0) == MASK)                                     \
+  if (!quads && values == V && lanes == G && (masked != 0) == MASK)                           \
     err = launch<IO, V, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, \
                                  part, rows, C, eps);
   FM_LN_TEMPLATES(FM_LN_BWD)
@@ -389,24 +641,24 @@ int ln_mean_bwd(const IO* x, const float* scale, const float* dm, IO* dx, float*
 
 // x, dy, dx (and gate, dg when gate_kind is 1 (silu), 2 (silu_sum) or 3 (raw)):
 // (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,
-// lanes, masked: the template (bwd_plan); blocks: the grid of the first
+// lanes, masked, quads: the template (bwd_plan; quads, the bf16 design's
+// quads a lane, only in the _bf16 entry); blocks: the grid of the first
 // kernel. The _bf16 entry takes x, gate, dy, dx and dg as bf16.
 extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float* scale,
                                  const float* bias, const float* dy, float* dx, float* dg,
                                  float* part, float* dscale, float* dbias, int rows, int C,
-                                 int gate_kind, int values, int lanes, int masked, int blocks,
-                                 float eps, cudaStream_t stream) {
+                                 int gate_kind, int values, int lanes, int masked, int quads,
+                                 int blocks, float eps, cudaStream_t stream) {
   return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
-                        gate_kind, values, lanes, masked, blocks, eps, stream);
+                        gate_kind, values, lanes, masked, quads, blocks, eps, stream);
 }
-extern "C" int fm_layer_norm_bwd_bf16(const fm_io::bf16* x, const fm_io::bf16* gate,
-                                      const float* scale, const float* bias,
-                                      const fm_io::bf16* dy, fm_io::bf16* dx, fm_io::bf16* dg,
+extern "C" int fm_layer_norm_bwd_bf16(const bf16* x, const bf16* gate, const float* scale,
+                                      const float* bias, const bf16* dy, bf16* dx, bf16* dg,
                                       float* part, float* dscale, float* dbias, int rows, int C,
                                       int gate_kind, int values, int lanes, int masked,
-                                      int blocks, float eps, cudaStream_t stream) {
+                                      int quads, int blocks, float eps, cudaStream_t stream) {
   return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
-                        gate_kind, values, lanes, masked, blocks, eps, stream);
+                        gate_kind, values, lanes, masked, quads, blocks, eps, stream);
 }
 
 // x, dx: (B, rows, C); dm: (B, C); part: (B, blocks, C) scratch; dscale,

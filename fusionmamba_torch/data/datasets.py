@@ -1,8 +1,9 @@
 """Training data of the port, in numpy: the on-disk fusion datasets, the
 synthetic pairs and the batch iterator. The port's own copy of
-`fusionmamba_tpu/data/datasets.py` (its PIL path: the port reads images with
-PIL only), with the same discovery, item pipeline and seeds, so that both
-packages see the same pairs.
+`fusionmamba_tpu/data/datasets.py` (it reads images with PIL only, and
+resizes the pairs with the native library as the JAX dataset does), with the
+same discovery, item pipeline and seeds, so that both packages see the same
+pairs.
 
 On-disk layouts (the reference's `TaskFusion_dataset.py`), under roots set by
 `FUSIONMAMBA_DATA_ROOT` (default `/data`):
@@ -13,10 +14,12 @@ On-disk layouts (the reference's `TaskFusion_dataset.py`), under roots set by
   * pst900: `PST900_RGBT_Dataset/<split>/{rgb,thermal,labels}`, unreadable
     files left out;
   * any other test set: two paired folders, `vi_path` and `ir_path`.
-An item is (vis_y, ir) float32 (H, W, 1) in [0, 1] (PIL bicubic resize to
-`size`, the visible image's BT.601 luma rounded to uint8, then / 255), plus an
-int32 (H, W) label (nearest resize; acod thresholded at 127 to {0, 1}, the
-others rounded and clipped to [0, 8]) where the dataset has labels.
+An item is (vis_y, ir) float32 (H, W, 1) in [0, 1] (bicubic resize to `size`,
+the visible image's BT.601 luma rounded to uint8, then / 255, by the native
+library `native.preprocess_pair` as the JAX dataset takes it;
+`preprocess_pair_plain` is the same in PIL), plus an int32 (H, W) label
+(PIL nearest resize; acod thresholded at 127 to {0, 1}, the others rounded
+and clipped to [0, 8]) where the dataset has labels.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from typing import Iterator, Sequence
 
 import numpy as np
 from PIL import Image
+
+from . import native
 
 IMG_EXTS = (".bmp", ".tif", ".jpg", ".png")
 
@@ -50,6 +55,16 @@ def _rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
     """ITU-R BT.601 luma, rounded to rgb's dtype."""
     g = rgb[..., 0] * 0.299 + rgb[..., 1] * 0.587 + rgb[..., 2] * 0.114
     return np.round(g).astype(rgb.dtype)
+
+
+def preprocess_pair_plain(rgb: np.ndarray, ir: np.ndarray,
+                          size_hw: Sequence[int]) -> tuple[np.ndarray, np.ndarray]:
+    """The plain version of `native.preprocess_pair`: PIL bicubic resize, the
+    luma rounded to uint8, / 255; (vis_y, ir) float32 (H, W, 1). PIL's
+    fixed-point resize can differ from the native one by one uint8 step."""
+    ir = _resize(ir, size_hw, Image.BICUBIC).astype(np.float32)[..., None] / 255.0
+    vis_y = _rgb_to_gray(_resize(rgb, size_hw, Image.BICUBIC))
+    return vis_y.astype(np.float32)[..., None] / 255.0, ir
 
 
 def prepare_data_path(dataset_path: str):
@@ -178,9 +193,7 @@ class FusionDataset:
             if vis is None or ir is None:
                 index = (index + 1) % n
                 continue
-            ir = _resize(ir, self.size, Image.BICUBIC).astype(np.float32)[..., None] / 255.0
-            vis_y = _rgb_to_gray(_resize(vis, self.size, Image.BICUBIC))
-            vis_y = vis_y.astype(np.float32)[..., None] / 255.0
+            vis_y, ir = native.preprocess_pair(vis, ir, self.size)
             if self.has_labels:
                 lbl = _read(self.filepath_labels[index], "L")
                 if lbl is not None:

@@ -56,8 +56,8 @@ SIGNATURES = {
     # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, stream
     "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
     # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
-    # gate kind, values, lanes, masked, blocks, eps, stream
-    "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 7 + (_F, _P),
+    # gate kind, values, lanes, masked, quads, blocks, eps, stream
+    "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _P),
     # x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
     # blocks, eps, stream
     "fm_ln_mean_bwd": (_P,) * 7 + (_I,) * 7 + (_F, _P),

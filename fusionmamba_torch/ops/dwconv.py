@@ -9,8 +9,9 @@ included, in shared memory with 16-byte copies, and each thread walks down a
 column with 4 channels as one float4; `fwd_plan` and `bwd_plan` size the
 tiles and the grids. The backward computes dz once a position of its haloed
 tile, keeps dw and dbias in registers over a grid-stride walk of tiles and
-sums the per-block partials in a second kernel of the same call. See the
-sources for the designs.
+sums the per-block partials in a second kernel of the same call. Its bf16
+variant stages x and dy as bf16 by 8-byte copies beside an fp32 dz tile.
+See the sources for the designs.
 
 Both take fp32 or bf16 I/O (`cuda_lib.entry`): x, dy, the output and dx in
 the I/O dtype; the weight, the bias, their gradients and all the sums fp32,
@@ -100,7 +101,8 @@ class BwdPlan(NamedTuple):
     channels and walks tiles of th rows x tw columns in a grid-stride loop;
     the grid is (channel blocks, blocks a channel block), each block writing
     one (10, C) partial; smem_bytes of dynamic shared memory hold the staged
-    x (halo 2) and dz (halo 1) tiles, and the block's sums at the end."""
+    x (halo 2) and dz (halo 1) tiles (in bf16: bf16 x and dy tiles beside
+    the fp32 dz tile), and the block's sums at the end."""
     cq: int
     tw: int
     th: int
@@ -110,19 +112,32 @@ class BwdPlan(NamedTuple):
     tiles: int                 # tiles of a channel block: B x row tiles x column tiles
 
 
-def bwd_plan(B: int, H: int, W: int, C: int, sms: int = 132) -> BwdPlan:
-    """Tile sizes and grid of the backward kernel for x (B, H, W, C) on a
-    card with `sms` SMs. Up to 16 columns and 8 rows a tile, and 4 channels
-    a thread with up to 128 threads a block (so 32 channels at 16 columns,
-    64 at 8). The grid has at most as many blocks as fit on the card at once
-    (shared memory allowing, at most BWD_BLOCKS_PER_SM an SM), spread so that
-    every block walks the same number of tiles but the last. (Shorter tiles
-    at the small shapes gave no gain on the card: tools/bwd_tune.py.)"""
+def bwd_smem(cq: int, tw: int, th: int, io: torch.dtype = torch.float32) -> int:
+    """The backward kernel's dynamic shared memory (as its source reckons
+    it): fp32 x and dz tiles, or the bf16 design's fp32 dz tile beside bf16
+    x and dy tiles; at least the block's sums, 10 float4 a thread."""
+    if io == torch.bfloat16:
+        staged = 16 * (th + 2) * (tw + 2) + 8 * ((th + 4) * (tw + 4) + (th + 2) * (tw + 2))
+        return max(staged * cq, 160 * tw * cq)
+    return 16 * cq * max((th + 4) * (tw + 4) + (th + 2) * (tw + 2), 10 * tw)
+
+
+def bwd_plan(B: int, H: int, W: int, C: int, sms: int = 132,
+             io: torch.dtype = torch.float32) -> BwdPlan:
+    """Tile sizes and grid of the backward kernel for x (B, H, W, C) of I/O
+    dtype `io` on a card with `sms` SMs. Up to 16 columns and 8 rows a tile,
+    and 4 channels a thread with up to 128 threads a block (so 32 channels
+    at 16 columns, 64 at 8). The grid has at most as many blocks as fit on
+    the card at once (shared memory allowing, at most BWD_BLOCKS_PER_SM an
+    SM), spread so that every block walks the same number of tiles but the
+    last. (Shorter fp32 tiles at the small shapes gave no gain on the card:
+    tools/bwd_tune.py.) bf16 counts its own tiles' shared memory
+    (`bwd_smem`)."""
     tw = min(BWD_MAX_COLS, _pow2_at_least(W))
     cq = min(16, BWD_MAX_THREADS // tw, _pow2_at_least(-(-C // 4)))
     th = min(BWD_MAX_ROWS, _pow2_at_least(H))
     c_blocks = -(-C // (4 * cq))
-    smem = 16 * cq * max((th + 4) * (tw + 4) + (th + 2) * (tw + 2), 10 * tw)
+    smem = bwd_smem(cq, tw, th, io)
     per_sm = max(1, min(BWD_BLOCKS_PER_SM, SMEM_PER_SM // (smem + 1024)))
     tiles = B * -(-H // th) * -(-W // tw)
     per_block = -(-tiles // max(1, per_sm * sms // c_blocks))
@@ -168,7 +183,7 @@ def dwconv_bwd(x, w, bias, dy, act, plan=None):
     if dy.shape != x.shape:
         raise ValueError("depthwise_conv3x3 backward: dy must have x's shape")
     cuda_lib.check_cuda("depthwise_conv3x3 backward", io, dy)
-    plan = plan or bwd_plan(B, H, W, C, sms=cuda_lib.sm_count(x.device))
+    plan = plan or bwd_plan(B, H, W, C, cuda_lib.sm_count(x.device), io)
     dx = torch.empty_like(x)
     part = torch.empty((plan.grid[1], 10, C), device=x.device, dtype=torch.float32)
     sums = torch.empty((10, C), device=x.device, dtype=torch.float32)

@@ -37,6 +37,17 @@ TEMPLATES = {24: (3, 8), 96: (3, 32), 192: (6, 32), 384: (12, 32), 768: (12, 64)
              1536: (12, 128)}
 MASKED_VALUES = 12
 MASKED_LANES = (32, 128, 512)
+# The LN backward's bf16 design (FM_LN_BF16_TEMPLATES in csrc/layer_norm_bwd.cu):
+# a lane holds BF16_QUADS runs of 4 consecutive channels (8-byte loads and
+# stores), BF16_TEMPLATES lanes a row at the model's widths (C / 12, all
+# busy), masked variants of MASKED_LANES lanes for any other C that is a
+# multiple of 4. A C that is not, or a tensor off an 8-byte boundary, takes
+# the strided templates above.
+BF16_QUADS = 3
+BF16_TEMPLATES = {24: 2, 96: 8, 192: 16, 384: 32, 768: 64, 1536: 128}
+# a block of the bf16 design walks at least this many row steps where the
+# grid keeps a block an SM, so that the row it loads ahead is there to load
+BF16_MIN_WALK = 3
 BWD_BLOCK = 256             # threads of a block whose rows take at most 256 lanes
 BWD_REDUCE_SLICES = 32      # the partials' reduce: interleaved slices summed in order
 # the LN-mean forward (csrc/ln_mean_fwd.cu): threads of a block whose rows take
@@ -55,6 +66,7 @@ ln_mean_bwd_launches = 0
 bf16_layer_norm_bwd_launches = 0   # the launches of the bf16-I/O variants
 bf16_ln_mean_launches = 0
 bf16_ln_mean_bwd_launches = 0
+bf16_quads_launches = 0            # the LN backward's bf16 launches with the quads design
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -71,7 +83,9 @@ def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
 
 class BwdPlan(NamedTuple):
     """The LN backward kernel's layout: `lanes` lanes a row, each holding
-    `values` channels (lanes past C masked when `masked`); a block of
+    `values` channels (lanes past C masked when `masked`): channels l, l +
+    lanes, ... of lane l, or with `quads` (the LN backward's bf16 design)
+    values // 4 runs of 4, channels 4 (l + q lanes) .. + 3; a block of
     `threads` takes `rows_per_step` rows at a time and walks the rows in a
     grid-stride loop over `blocks` blocks, each writing one (2, C) partial."""
     values: int
@@ -80,6 +94,7 @@ class BwdPlan(NamedTuple):
     threads: int
     rows_per_step: int
     blocks: int
+    quads: bool = False
 
 
 def _widths(C: int, name: str) -> tuple[int, int, bool]:
@@ -103,12 +118,28 @@ def _template(C: int, name: str) -> tuple[int, int, bool, int, int, int]:
     return values, lanes, masked, threads, threads // lanes, 2 if values > 6 else 4
 
 
-def bwd_plan(rows: int, C: int, sms: int = 132) -> BwdPlan:
-    """The LN backward's template and grid for (rows, C) on a card with `sms`
-    SMs: a few blocks an SM (`_template`), never more blocks than row steps."""
+def bwd_plan(rows: int, C: int, sms: int = 132, io: torch.dtype = torch.float32,
+             aligned: bool = True) -> BwdPlan:
+    """The LN backward's template and grid for (rows, C) of I/O dtype `io` on
+    a card with `sms` SMs: a few blocks an SM (`_template`), never more
+    blocks than row steps. bf16 takes the quads where C is a multiple of 4
+    and `aligned` (every I/O tensor on an 8-byte boundary), one to two
+    blocks an SM, each walking BF16_MIN_WALK row steps or more where one
+    block an SM allows it."""
     values, lanes, masked, threads, step, per_sm = _template(C, "layer_norm_fused")
-    return BwdPlan(values, lanes, masked, threads, step,
-                   max(1, min(math.ceil(rows / step), per_sm * sms)))
+    steps = math.ceil(rows / step)
+    blocks = max(1, min(steps, per_sm * sms))
+    quads = io == torch.bfloat16 and aligned and C % 4 == 0
+    if quads:
+        values = 4 * BF16_QUADS
+        lanes, masked = BF16_TEMPLATES.get(C), C not in BF16_TEMPLATES
+        if masked:
+            lanes = next(n for n in MASKED_LANES if n * values >= C)
+        threads = max(BWD_BLOCK, lanes)
+        step = threads // lanes
+        steps = math.ceil(rows / step)
+        blocks = max(1, min(steps, max(sms, min(math.ceil(steps / BF16_MIN_WALK), 2 * sms))))
+    return BwdPlan(values, lanes, masked, threads, step, blocks, quads)
 
 
 def lnm_bwd_plan(B: int, rows: int, C: int, sms: int = 132) -> BwdPlan:
@@ -170,12 +201,13 @@ def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None):
     return out
 
 
-def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
+def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
     """Gradients of the fused LN for the cotangent dy, on the card: (dx,
     dgate or None, dscale, dbias), dx and dgate in x's dtype, dscale and
     dbias fp32. Two launches: the rows, then the sum of the per-block
-    partials of dscale and dbias."""
-    global layer_norm_bwd_launches, bf16_layer_norm_bwd_launches
+    partials of dscale and dbias. `plan` overrides `bwd_plan`'s layout (to
+    time others)."""
+    global layer_norm_bwd_launches, bf16_layer_norm_bwd_launches, bf16_quads_launches
     C = x.shape[-1]
     io = cuda_lib.io_dtype("layer_norm_fused backward", x)
     cuda_lib.check_cuda("layer_norm_fused backward", io, x, dy,
@@ -185,9 +217,10 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("layer_norm_fused backward: scale and bias must be (C,)")
     rows = x.numel() // C
-    plan = bwd_plan(rows, C, cuda_lib.sm_count(x.device))
     dx = torch.empty_like(x)
     dg = None if gate is None else torch.empty_like(gate)
+    aligned = all(t.data_ptr() % 8 == 0 for t in (x, dy, dx, gate, dg) if t is not None)
+    plan = plan or bwd_plan(rows, C, cuda_lib.sm_count(x.device), io, aligned)
     part = torch.empty((plan.blocks, 2, C), device=x.device, dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
@@ -195,10 +228,11 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act):
                     scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
                     db.data_ptr(), rows, C, 0 if gate is None else ln_triton.GATE_CODES[gate_act],
-                    plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
+                    plan.values, plan.lanes, int(plan.masked), int(plan.quads), plan.blocks, eps,
                     device=x.device)
     layer_norm_bwd_launches += 1
     bf16_layer_norm_bwd_launches += io == torch.bfloat16
+    bf16_quads_launches += plan.quads
     return dx, dg, ds, db
 
 

@@ -334,3 +334,100 @@ def test_lnm_bwd_replay_matches_the_triton_design():
     xh = F.layer_norm(x, (C,), eps=1e-5)
     _close([g.numpy() for g in got[1:]],
            [((dm * xh.sum(1)).sum(0) / rows).numpy(), dm.sum(0).numpy()])
+
+
+# ---------------------------------------------------------------------------
+# dwconv backward, bf16 design: the tiles of bwd_plan(io=bf16)
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+
+
+@pytest.mark.parametrize("shape", _train_shapes("dwconv_bwd", (6, *SEG_PAIRS)) + _DW_RAGGED)
+def test_dwconv_bwd_bf16_plan_covers_each_output_once(shape):
+    """The bf16 plan's walk covers every output once; its shared memory is
+    the fp32 dz tile plus bf16 x and dy tiles (at least the block's sums),
+    within a block's and, at its blocks an SM, an SM's."""
+    B, H, W, C = shape
+    for sms in (132, 1):
+        plan = dwconv.bwd_plan(B, H, W, C, sms=sms, io=BF)
+        assert plan.cq in _DW_CQ and plan.threads == plan.cq * plan.tw
+        assert plan.threads <= dwconv.BWD_MAX_THREADS and plan.th >= 1
+        staged = (16 * (plan.th + 2) * (plan.tw + 2) + 8 * (
+            (plan.th + 4) * (plan.tw + 4) + (plan.th + 2) * (plan.tw + 2))) * plan.cq
+        assert plan.smem_bytes == max(staged, 160 * plan.tw * plan.cq)
+        assert plan.smem_bytes <= min(dwconv.BWD_MAX_SMEM, SMEM_PER_BLOCK)
+        assert plan.grid[0] == -(-C // (4 * plan.cq))
+        assert 1 <= plan.grid[1] <= min(plan.tiles, 65535)
+        count = np.zeros((B, H, W), np.int8)
+        for _, b, h0, w0 in _dw_walk(plan, B, H, W):
+            count[b, h0:h0 + plan.th, w0:w0 + plan.tw] += 1
+        assert (count == 1).all(), (shape, sms, plan)
+        walks = np.bincount([py for py, *_ in _dw_walk(plan, B, H, W)])
+        assert walks.max() - walks.min() <= 1
+
+
+def test_dwconv_bwd_bf16_plan_fills_the_card():
+    """At every training shape of the fusion and segmentation steps a
+    thread moves 8 bytes (a whole quad of channels), and the grid puts a
+    block on each of 132 SMs where the shape has the tiles (channel blocks x
+    tiles), and no more blocks than fit at once."""
+    for shape in _train_shapes("dwconv_bwd", (6, *SEG_PAIRS)):
+        plan = dwconv.bwd_plan(*shape, io=BF)
+        assert shape[-1] % (4 * plan.cq) == 0, shape
+        blocks = plan.grid[0] * plan.grid[1]
+        per_sm = min(dwconv.BWD_BLOCKS_PER_SM, dwconv.SMEM_PER_SM // (plan.smem_bytes + 1024))
+        assert min(132, plan.grid[0] * plan.tiles) <= blocks <= per_sm * 132, (shape, plan)
+
+
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+@pytest.mark.parametrize("shape,sms", [((2, 5, 7, 3), 132), ((3, 9, 13, 6), 1),
+                                       ((2, 11, 19, 40), 1), ((1, 1, 1, 8), 132),
+                                       ((2, 17, 20, 64), 2), ((4, 24, 32, 32), 1)])
+def test_dwconv_bwd_bf16_replay_matches_autograd_and_pallas(shape, sms, act, has_bias):
+    """The replay on the bf16 plan's tiles and walk, on bf16 x and dy (fp32
+    w and bias, as the kernel reads them), dz and every sum fp32, dx rounded
+    to bf16: against autograd of the plain version at the bf16 kernels'
+    gate, and against the Pallas kernel in interpret mode at the JAX
+    package's bf16 tolerance (3e-2, its absolute term scaled by the largest
+    entry)."""
+    rng = np.random.default_rng(sum(shape) + 2)
+    f = np.float32
+    C = shape[-1]
+    x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(f)).to(BF) for _ in range(2))
+    w = torch.from_numpy((0.3 * rng.standard_normal((3, 3, C))).astype(f))
+    b = torch.from_numpy(rng.standard_normal(C).astype(f)) if has_bias else None
+    plan = dwconv.bwd_plan(*shape, sms=sms, io=BF)
+    got = [g for g in _dwconv_bwd_replay(x.float(), w, b, dy.float(), act, plan)
+           if g is not None]
+    assert not torch.isnan(got[0]).any()
+    got[0] = got[0].to(BF)
+
+    live = [a.clone().requires_grad_(True) for a in (x, w, b) if a is not None]
+    out = dwconv.depthwise_conv3x3_plain(*live, *([None] if b is None else []), act=act)
+    want = torch.autograd.grad(out, live, dy)
+    assert want[0].dtype == BF
+    for g_, w_ in zip(got, want):
+        g_, w_ = g_.float().numpy(), w_.float().numpy()
+        assert (np.abs(g_ - w_) <= 8e-3 * np.abs(w_) + 8e-3 * np.abs(w_).max()).all()
+
+    jdx, jdw, jdb = dwconv_pallas._bwd_pallas(
+        jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(w.numpy()).reshape(1, 9, 1, C),
+        None if b is None else jnp.asarray(b.numpy()).reshape(1, 1, 1, C),
+        jnp.asarray(dy.float().numpy(), jnp.bfloat16), act, True)
+    jwant = [jdx, np.asarray(jdw, f).reshape(3, 3, C)] + ([] if b is None else [jdb])
+    for g_, jw in zip(got, jwant):
+        jw = np.asarray(jw, f).reshape(g_.shape)
+        np.testing.assert_allclose(g_.float().numpy(), jw, rtol=3e-2,
+                                   atol=3e-2 * max(1.0, float(np.abs(jw).max())))
+
+
+def test_dwconv_bwd_ab_needs_trees_and_a_card():
+    """The A/B timing tool asks for at least one checkout, and without a
+    card exits before it starts any process."""
+    from fusionmamba_torch.tools import dwconv_bwd_ab
+
+    with pytest.raises(SystemExit):
+        dwconv_bwd_ab.main([])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        dwconv_bwd_ab.main(["."])

@@ -2,12 +2,12 @@
 image folders, on the CPU, against the JAX package.
 
 The tests write small acod, mfnet and pst900 folders themselves. The port
-reads images with PIL only. The JAX package takes cv2 and its native
-preprocessing library where they are present; with both switched off it
-takes PIL too, and then the two packages must give the same items bit for
-bit. Against the JAX defaults the values may differ by one uint8 step (the
-native resize accumulates in double, PIL in fixed point), so they are held
-to 1/255 + 1e-6 there, and the labels (nearest resize in both) to equality.
+reads images with PIL only and resizes the pairs with its native library, as
+the JAX package does by default (it reads with cv2 where it is present; the
+decoded bytes are the same), so the two packages must give the same items
+bit for bit. With the JAX package's cv2 and native library switched off it
+takes PIL throughout, and then it must equal the port's dataset with the
+port's PIL version (`preprocess_pair_plain`) in place of the library.
 """
 import os
 import re
@@ -24,6 +24,8 @@ from fusionmamba_torch import train as ttrain
 from fusionmamba_torch.data import DatasetRoots, FusionDataset, SyntheticFusionDataset
 from fusionmamba_torch.data import batch_iterator as tbatch_iterator
 from fusionmamba_torch.data import color as tcolor
+from fusionmamba_torch.data import native as tnative
+from fusionmamba_torch.data import preprocess_pair_plain
 from fusionmamba_torch.data.prefetch import device_prefetch, threaded_batches
 from fusionmamba_tpu.data import DatasetRoots as JDatasetRoots
 from fusionmamba_tpu.data import FusionDataset as JFusionDataset
@@ -94,6 +96,7 @@ _CASES = [("pst900", "train"), ("pst900", "test"), ("acod", "train"), ("mfnet", 
 def test_dataset_matches_jax_pil_path(roots, name, split, monkeypatch):
     monkeypatch.setattr(jdatasets, "_HAS_CV2", False)
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(tnative, "preprocess_pair", preprocess_pair_plain)
     port, ref = _pair(roots, name, split)
     assert len(port) == len(ref) > 0
     assert port.filepath_vis == ref.filepath_vis and port.filepath_ir == ref.filepath_ir
@@ -111,13 +114,18 @@ def test_dataset_matches_jax_pil_path(roots, name, split, monkeypatch):
 
 @pytest.mark.parametrize("name,split", _CASES)
 def test_dataset_near_jax_defaults(roots, name, split):
+    """The JAX defaults (its native library) and the port's: the same bits."""
+    assert jnative.available()
     port, ref = _pair(roots, name, split)
     assert len(port) == len(ref) > 0
+    before = tnative.pairs
     for i in range(len(port)):
-        (gv, gi, gl), (wv, wi, wl) = port[i], ref[i]
-        np.testing.assert_allclose(gv, wv, rtol=0, atol=1 / 255 + 1e-6)
-        np.testing.assert_allclose(gi, wi, rtol=0, atol=1 / 255 + 1e-6)
-        np.testing.assert_array_equal(gl, wl)
+        got, want = port[i], ref[i]
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            np.testing.assert_array_equal(g, w)
+    assert tnative.pairs == before + len(port)
 
 
 def test_unreadable_pair_is_skipped(roots, tmp_path):

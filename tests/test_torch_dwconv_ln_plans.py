@@ -277,3 +277,221 @@ def test_layer_norm_bwd_replay_matches_autograd_and_pallas(gate_act, rows, C, sm
         for ref in (w_, jw):
             np.testing.assert_allclose(g_.numpy(), ref, rtol=GRAD_RTOL,
                                        atol=GRAD_SCALED_ATOL * float(np.abs(ref).max()))
+
+
+# ---------------------------------------------------------------------------
+# LN backward, bf16 design: the quads layout of bwd_plan(io=bf16)
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+_LN_BF16_VARIANTS = {(int(q), int(g), m == "true") for q, g, m in re.findall(
+    r"Q\((\d+), (\d+), (true|false)\)", (CSRC / "layer_norm_bwd.cu").read_text())}
+_LN_BF16_RAGGED = [(1, 24), (5, 40), (1, 1000), (300, 1000), (3, 1536), (37, 100), (2, 6144),
+                   (9, 4)]
+STATIC_SMEM = 48 * 1024           # a block's static shared memory at most
+
+
+def _quad_channels(plan):
+    """(lanes, values) channel index of each of a lane's values: quad q of
+    lane l holds channels 4 (l + q lanes) .. + 3."""
+    lane = torch.arange(plan.lanes)[:, None]
+    v = torch.arange(plan.values)[None, :]
+    return 4 * (lane + v // 4 * plan.lanes) + v % 4
+
+
+@pytest.mark.parametrize("rows,C", sorted({s[:2] for s in _model_shapes("layer_norm")})
+                         + _LN_BF16_RAGGED)
+def test_layer_norm_bwd_bf16_plan_covers_each_row_and_element_once(rows, C):
+    for sms in (132, 1):
+        plan = layer_norm.bwd_plan(rows, C, sms, io=BF)
+        assert plan.quads and plan.values == 4 * layer_norm.BF16_QUADS
+        assert (plan.values // 4, plan.lanes, plan.masked) in _LN_BF16_VARIANTS
+        assert plan.masked == (C not in layer_norm.BF16_TEMPLATES)
+        assert plan.threads == max(layer_norm.BWD_BLOCK, plan.lanes) <= 1024
+        assert plan.rows_per_step * plan.lanes == plan.threads
+        assert 1 <= plan.blocks <= max(2, 2 * sms)
+        seen = np.zeros(rows, np.int32)
+        for _, _, visited in _walk(plan, rows):
+            seen[visited] += 1
+        assert (seen == 1).all(), (rows, C, sms, plan)
+        chans = _quad_channels(plan)
+        held = np.bincount(chans[chans < C].numpy(), minlength=C)
+        assert (held == 1).all(), (C, plan)
+        # the kernel's static shared memory: two rounds of warp sums, and
+        # each group's (2, values x lanes) sums where a block has several
+        groups = plan.threads // plan.lanes
+        smem = 2 * (plan.threads // 32) * 8 + (groups * 2 * plan.values * plan.lanes * 4
+                                               if groups > 1 else 0)
+        assert smem <= STATIC_SMEM
+
+
+def test_layer_norm_bwd_bf16_plan_fills_lanes_and_the_card():
+    """Every width the model normalises has a quads template with every lane
+    busy (12 values a lane, C / 12 lanes), and the grid puts a block on
+    each of 132 SMs wherever the rows make that many row steps, more only
+    where each block still walks BF16_MIN_WALK steps."""
+    assert len(_LN_BF16_VARIANTS) == 9 and layer_norm.BF16_QUADS == 3
+    for rows, C, _ in _model_shapes("layer_norm"):
+        plan = layer_norm.bwd_plan(rows, C, io=BF)
+        assert plan.quads and not plan.masked and plan.values * plan.lanes == C, C
+        steps = -(-rows // plan.rows_per_step)
+        assert min(132, steps) <= plan.blocks <= min(264, steps), (rows, C, plan)
+        assert plan.blocks <= max(132, -(-steps // layer_norm.BF16_MIN_WALK)), (rows, C, plan)
+
+
+@pytest.mark.parametrize("C,aligned,quads", [(96, True, True), (96, False, False),
+                                             (40, True, True), (30, True, False),
+                                             (3, True, False), (1000, False, False)])
+def test_layer_norm_bwd_bf16_plan_takes_quads_only_on_8_byte_runs(C, aligned, quads):
+    """The quads need C a multiple of 4 and every I/O tensor on an 8-byte
+    boundary; else the strided templates in bf16, and fp32 always."""
+    plan = layer_norm.bwd_plan(64, C, io=BF, aligned=aligned)
+    assert plan.quads == quads
+    if not quads:
+        assert plan == layer_norm.bwd_plan(64, C)
+        assert (plan.values, plan.lanes, plan.masked) in _LN_VARIANTS
+    assert not layer_norm.bwd_plan(64, C).quads
+
+
+def _group_sum(v, G):
+    """The kernel's sums over a group of G lanes of v (rows, G): xor
+    butterflies inside a warp, then the warps in order; every lane the same
+    bits."""
+    w = min(G, 32)
+    off = w // 2
+    while off:
+        v = v + v[:, torch.arange(G) ^ off]
+        off //= 2
+    if G > 32:
+        total = v[:, 0]
+        for i in range(1, G // 32):
+            total = total + v[:, 32 * i]
+        v = total[:, None].expand(-1, G)
+    return v
+
+
+def _ln_bwd_quads_replay(x, scale, bias, gate, dy, eps, gate_act, plan):
+    """The bf16 kernel's arithmetic and order in plain PyTorch, on the quads
+    layout: a lane's values in quad order, the row sums per lane then over
+    the group, dx and dgate rounded to bf16 at their stores (NaN where no
+    lane writes), dscale and dbias summed as the strided design sums them."""
+    rows, C = x.shape
+    G, V = plan.lanes, plan.values
+    chans = _quad_channels(plan)
+    ok = (chans < C).float()
+    idx = chans.clamp(max=C - 1)
+
+    def lanes(t):
+        return t.float()[:, idx] * ok                 # (rows, G, V)
+
+    xv, d = lanes(x), lanes(dy)
+    sc, bi = scale.float()[idx] * ok, bias.float()[idx] * ok
+    s1, s2 = torch.zeros(rows, G), torch.zeros(rows, G)
+    for v in range(V):
+        s1, s2 = s1 + xv[..., v], s2 + xv[..., v] * xv[..., v]
+    s1, s2 = _group_sum(s1, G)[..., None], _group_sum(s2, G)[..., None]
+    mu = s1 / C
+    rs = torch.rsqrt(s2 / C - mu * mu + eps)
+    xh = (xv - mu) * rs * ok
+    u, dg = d, None
+    if gate is not None:
+        g = lanes(gate)
+        if gate_act == "none":                         # the raw gate
+            dg, u = d * (xh * sc + bi), d * g
+        else:
+            sg = torch.sigmoid(g)
+            s1g = g * sg
+            dgate, act = sg * (1 + g * (1 - sg)), s1g
+            if gate_act == "silu_sum":
+                ss = torch.sigmoid(s1g)
+                act = s1g + s1g * ss
+                dgate = (1 + ss * (1 + s1g * (1 - ss))) * dgate
+            dg, u = d * (xh * sc + bi) * dgate, d * act
+    wv = u * sc
+    m1, m2 = torch.zeros(rows, G), torch.zeros(rows, G)
+    for v in range(V):
+        m1, m2 = m1 + wv[..., v], m2 + wv[..., v] * xh[..., v]
+    m1, m2 = _group_sum(m1, G)[..., None] / C, _group_sum(m2, G)[..., None] / C
+    dxl = rs * (wv - m1 - xh * m2)
+
+    live = chans < C
+
+    def store(vals):
+        out = torch.full((rows, C), float("nan"), dtype=BF)
+        out[:, chans[live]] = vals[:, live].to(BF)
+        return out
+
+    terms = torch.zeros(rows, 2, C)
+    terms[:, 0, chans[live]] = (u * xh)[:, live]
+    terms[:, 1, chans[live]] = u[:, live]
+    part = torch.zeros(plan.blocks, 2, C)
+    for p, grp, visited in _walk(plan, rows):
+        acc = torch.zeros(2, C)
+        for r in visited:
+            acc = acc + terms[r]
+        part[p] = acc if grp == 0 else part[p] + acc
+    slices = torch.zeros(layer_norm.BWD_REDUCE_SLICES, 2, C)
+    for p in range(plan.blocks):
+        slices[p % layer_norm.BWD_REDUCE_SLICES] += part[p]
+    total = slices[0]
+    for y in range(1, layer_norm.BWD_REDUCE_SLICES):
+        total = total + slices[y]
+    return store(dxl), None if dg is None else store(dg), total[0], total[1]
+
+
+def _kernel_gate(got, want):
+    """The bf16 kernels' gate (chip_smoke's): two bf16 ulps of the value plus
+    two of the tensor's largest entry."""
+    g, w = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert not np.isnan(g).any()
+    assert (np.abs(g - w) <= 8e-3 * np.abs(w) + 8e-3 * np.abs(w).max()).all(), \
+        float(np.abs(g - w).max())
+
+
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
+@pytest.mark.parametrize("rows,C,sms", [(300, 24, 1), (37, 96, 1), (50, 40, 2), (9, 384, 132),
+                                        (20, 768, 3), (6, 1536, 2), (12, 100, 1)])
+def test_layer_norm_bwd_bf16_replay_matches_autograd_and_pallas(gate_act, rows, C, sms):
+    """On bf16 x, gate and dy (fp32 scale and bias, as the kernel reads
+    them): against autograd of the plain version at the bf16 kernels' gate,
+    and against the Pallas kernel in interpret mode at the JAX package's
+    bf16 tolerance (3e-2, its absolute term scaled by the largest entry)."""
+    rng = np.random.default_rng(rows + C + 1)
+    f = np.float32
+
+    def bf(a):
+        return torch.from_numpy(a.astype(f)).to(BF)
+
+    x = bf(2.0 * rng.standard_normal((rows, C)) + 0.5)
+    s, b = torch.from_numpy((1 + 0.2 * rng.standard_normal(C)).astype(f)), \
+        torch.from_numpy((0.2 * rng.standard_normal(C)).astype(f))
+    gate = None if gate_act == "none" else bf(rng.standard_normal((rows, C)))
+    dy = bf(rng.standard_normal((rows, C)))
+    act = "none" if gate_act == "raw" else gate_act
+    plan = layer_norm.bwd_plan(rows, C, sms, io=BF)
+    dx, dg, ds, db = _ln_bwd_quads_replay(x, s, b, gate, dy, 1e-6, act, plan)
+    got = [dx, ds, db] + ([] if dg is None else [dg])
+
+    live = [t.clone().requires_grad_(True) for t in (x, s, b, gate) if t is not None]
+    y = layer_norm.layer_norm_plain(*(live + [None] * (4 - len(live))), 1e-6, act)
+    want = torch.autograd.grad(y, live, dy)
+    assert want[0].dtype == dx.dtype == BF
+    for g_, w_ in zip(got, want):
+        _kernel_gate(g_.float().numpy(), w_.float().numpy())
+
+    def jfn(*a):
+        out = ln_pallas.layer_norm_fused(*a, eps=1e-6, impl="pallas", interpret=True,
+                                         gate_act=act)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(dy.float().numpy()))
+
+    jx = [jnp.asarray(x.float().numpy(), jnp.bfloat16), jnp.asarray(s.numpy()),
+          jnp.asarray(b.numpy())]
+    if gate is None:
+        jwant = jax.grad(lambda x_, s_, b_: jfn(x_, s_, b_, None), argnums=(0, 1, 2))(*jx)
+    else:
+        jx.append(jnp.asarray(gate.float().numpy(), jnp.bfloat16))
+        jwant = jax.grad(jfn, argnums=(0, 1, 2, 3))(*jx)
+    for g_, jw in zip(got, jwant):
+        jw = np.asarray(jw, np.float32)
+        np.testing.assert_allclose(g_.float().numpy(), jw, rtol=3e-2,
+                                   atol=3e-2 * max(1.0, float(np.abs(jw).max())))

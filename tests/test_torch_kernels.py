@@ -621,8 +621,15 @@ def test_scan_kernels_bf16(dev, batch, L, D, N, R, chunk):
                 _bf16_close(a, b)
 
 
+# the backward's bf16 design: every model width (C = 24 ... 1536, two to
+# 128 lanes a row), C outside its templates (40, 100: masked quads; 30 and
+# 3: not a multiple of 4, the strided templates), rows that leave groups of
+# a block idle (5), and (49152, 96) and (393216, 24), the training step's
+# largest
 @pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
-@pytest.mark.parametrize("rows,C", [(37, 96), (4096, 192), (64, 1536), (37, 100)])
+@pytest.mark.parametrize("rows,C", [(37, 96), (4096, 192), (64, 1536), (37, 100), (300, 24),
+                                    (37, 40), (5, 384), (70, 768), (9, 30), (11, 3),
+                                    (49152, 96), (393216, 24)])
 def test_layer_norm_kernels_bf16(dev, gate_act, rows, C):
     """x, the gate, y, dx and dgate bf16; scale and bias bf16 parameters that
     enter the kernels as fp32 (their gradients return in bf16)."""
@@ -642,6 +649,33 @@ def test_layer_norm_kernels_bf16(dev, gate_act, rows, C):
 
     _check_bf16(kernel, plain, inputs, dy, [(ln_triton, "bf16_layer_norm_launches"),
                                             (layer_norm, "bf16_layer_norm_bwd_launches")])
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("gate_act", ["none", "silu"])
+@pytest.mark.parametrize("rows,C", [(37, 96), (64, 384)])
+def test_layer_norm_backward_bf16_misaligned(dev, gate_act, rows, C, offset):
+    """x, the gate and dy `offset` elements (2 or 4 bytes) off an 8-byte
+    boundary: the plan takes the strided templates, and their result agrees
+    with the quads' on aligned copies of the same values."""
+    g = torch.Generator().manual_seed(rows + C + offset)
+
+    def view(*shape, **kw):
+        n = math.prod(shape)
+        return _rand(g, n + offset, **kw).to(dev, BF16)[offset:].view(shape)
+
+    x, dy = view(rows, C, scale=2.0, shift=0.5), view(rows, C)
+    gate = view(rows, C) if gate_act != "none" else None
+    s, b = _rand(g, C, scale=0.2, shift=1.0).to(dev), _rand(g, C, scale=0.2).to(dev)
+    assert not layer_norm.bwd_plan(rows, C, io=BF16, aligned=False).quads
+    got = layer_norm.layer_norm_bwd(x, s, b, gate, dy, 1e-6, gate_act)
+    copies = [None if t is None else t.clone() for t in (x, gate, dy)]
+    assert all(t is None or t.data_ptr() % 8 == 0 for t in copies)
+    want = layer_norm.layer_norm_bwd(copies[0], s, b, copies[1], copies[2], 1e-6, gate_act)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        if w is not None:
+            _bf16_close(a, w)
 
 
 @pytest.mark.parametrize("B,rows,C", [(3, 37, 96), (12, 4096, 96), (2, 300, 1000), (8, 64, 768)])
@@ -669,8 +703,16 @@ def test_ln_spatial_mean_kernels_bf16(dev, B, rows, C):
         _bf16_close(gk, w)
 
 
+# the backward's bf16 design: blocks that walk one tile and several (12, 64,
+# 64, 192 walks five tiles a block), grids of fewer blocks than SMs at the
+# small images (2, 8, 8, 1536 and 4, 16, 16, 768), a ragged image and C (40),
+# C = 24 (a channel block with lanes past C), C not a multiple of 4 (3:
+# scalar staging), a 1x1 image
 @pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
-@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (12, 64, 64, 192), (6, 8, 8, 1536)])
+@pytest.mark.parametrize("shape", [(2, 5, 7, 3), (12, 64, 64, 192), (6, 8, 8, 1536),
+                                   (2, 8, 8, 1536), (4, 16, 16, 768), (12, 32, 32, 384),
+                                   (2, 11, 19, 40), (1, 1, 1, 8), (3, 9, 13, 6),
+                                   (2, 8, 8, 24)])
 def test_dwconv_kernels_bf16(dev, act, has_bias, shape):
     """x, out, dy and dx bf16 (C = 3 takes the scalar path); w and bias bf16
     parameters that enter the kernels as fp32 (gradients back in bf16)."""
@@ -682,6 +724,29 @@ def test_dwconv_kernels_bf16(dev, act, has_bias, shape):
     _check_bf16(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act=act),
                 lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act=act),
                 inputs, dy, [(dwconv, "bf16_launches"), (dwconv, "bf16_bwd_launches")])
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("act", ["none", "silu"])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 8), (6, 16, 16, 768)])
+def test_dwconv_backward_bf16_misaligned(dev, act, shape, offset):
+    """x and dy `offset` elements (2 or 4 bytes) off an 8-byte boundary: the
+    kernel's scalar staging, against autograd of the plain version."""
+    g = torch.Generator().manual_seed(sum(shape) + offset)
+    C = shape[-1]
+
+    def view():
+        n = math.prod(shape)
+        return _rand(g, n + offset).to(dev, BF16)[offset:].view(shape)
+
+    x, dy = view(), view()
+    w, b = _rand(g, 3, 3, C, scale=0.3).to(dev), _rand(g, C, scale=0.1).to(dev)
+    got = dwconv.dwconv_bwd(x, w, b, dy, act)
+    _, want = _grads(lambda *a: dwconv.depthwise_conv3x3_plain(*a, act), [x, w, b], dy)
+    torch.cuda.synchronize()
+    _bf16_close(got[0], want[0])
+    for a, w_ in zip(got[1:], want[1:]):
+        _bf16_close(a, w_)
 
 
 @pytest.mark.parametrize("M,C,H", [
