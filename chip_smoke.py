@@ -7,7 +7,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
   1. device  - the card, its power limit; fp32 numerics pinned (no TF32).
   2. build   - builds the CUDA kernels from `fusionmamba_torch/csrc`, with
                nvcc's register and shared-memory report and the entries
-               that ptxas reports spilling.
+               that ptxas reports spilling; `build_lnm_bf16` lists the
+               registers and spills of the bf16 LN-mean designs' instances
+               and fails on a spill in any bf16 instance of #5 or #6.
   3. kernel  - each of the five forward kernels against its plain PyTorch
                version at every shape of the serving path (full config, 8
                pairs of 256^2; the encoder runs both modalities as 16): max
@@ -44,9 +46,12 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                rate) and its share, the bf16 library call's time and
                device time where there is one (#3 ungated, #4 its autograd,
                #7, #8, #9, #10), the spills ptxas reported for the kernel's
-               bf16 instances and, for #4, the device time of its strided
-               design (the earlier bf16 kernel) on the same inputs; a
-               `kernel_bf16_step` line sums them a step.
+               bf16 instances and, for #4, #5 and #6, the device time of
+               its strided design (the earlier bf16 kernel) on the same
+               inputs; for #3, #5 and #7 also `cast_free_device_ms`, the
+               forward with its parameters cast to fp32 before the timed
+               call (the kernel alone); a `kernel_bf16_step` line sums them
+               a step.
      mlp_paths - both designs of the MLP forward (fused, two passes) at
                each training shape, in fp32 and in bf16 (the fused bf16
                design where C <= 192): error against the plain version,
@@ -91,8 +96,11 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                steps on 24 pairs: every loss finite, the checkpoint fp32 and
                loading strictly, each kernel's bf16 launches equal to 4 times
                the config's calls a step and no fp32 launch, every LN
-               backward launch the quads design (`bf16_quads_launches`); the
-               median step and pairs/s beside train's.
+               backward launch and every LN-mean forward launch the quads
+               design (`bf16_quads_launches`, `bf16_lnm_quads_launches`),
+               as many one-launch LN-mean backwards as the plan predicts
+               (`bf16_lnm_bwd_one_launch`); the median step and pairs/s
+               beside train's.
      train_disk - the same CLI on a PST900-layout folder of 24 pairs at
                1280x720 written from a seed (`--dataset pst900 -j 8`, under
                FUSIONMAMBA_DATA_ROOT): 4 steps through the threaded loader and
@@ -304,6 +312,9 @@ TRAIN_BF16_STEPS = 4
 TRAIN_BF16_LOSS_RTOL = 1e-2
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
+# the forwards whose bf16 times kernel_bf16 also takes with the parameters cast
+# to fp32 before the timed call (the kernel alone, without the op's casts)
+CAST_FREE_OPS = ("layer_norm", "ln_mean", "dwconv")
 KERNELS = {
     "scan": ("cuda", "fusionmamba_torch/csrc/selective_scan_fwd.cu",
              "fusionmamba_tpu/ops/scan_pallas.py:912"),
@@ -499,6 +510,14 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _lnm_backward(t, dm):
+    """The LN-mean backward's wrapper on what the op's autograd Function
+    saves: the parameters as they came, and on the bf16 quads the forward's
+    means of xhat (computed here, outside the timed call)."""
+    _, xmean = layer_norm.ln_spatial_mean_fwd(*t, 1e-5, with_mean=True)
+    return functools.partial(layer_norm.ln_spatial_mean_bwd, t[0], t[1], dm, 1e-5, xmean=xmean)
+
+
 def make_case(kernel, shape, dev, gen, dtype=torch.float32):
     """(inputs, op, plain, library or None, backward) on seeded inputs at
     `shape`, scaled as the model's activations and parameters are: op,
@@ -509,7 +528,9 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
     them), and the backward passes what its kernel reads as fp32 as fp32, as
     the ops do (`.float()` is the identity on an fp32 tensor), cast before
     the call: the ops' autograd Functions save the fp32 casts, so a training
-    step's backward makes none."""
+    step's backward makes none. The LN-mean's kernels read bf16 parameters as
+    they are, and its op passes them so (with the forward's means of xhat,
+    `_lnm_backward`)."""
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
@@ -558,8 +579,7 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
         return ([t.to(dtype) for t in (rnd(B, rows, C, scale=2.0, shift=0.5), rnd(C), rnd(C))],
                 lambda *t: layer_norm.ln_spatial_mean(*t, 1e-5),
                 lambda *t: layer_norm.ln_spatial_mean_plain(*t, 1e-5), None,
-                lambda t, dm: functools.partial(layer_norm.ln_spatial_mean_bwd, t[0],
-                                                t[1].float(), dm, 1e-5))
+                _lnm_backward)
     if kernel == "dwconv":
         B, H, W, C = shape
         return ([t.to(dtype) for t in (rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3),
@@ -976,6 +996,8 @@ def zero_launches():
     for module, name in (*_COUNTERS.values(), *_BF16_COUNTERS.values()):
         setattr(module, name, 0)
     layer_norm.bf16_quads_launches = 0
+    layer_norm.bf16_lnm_quads_launches = 0
+    layer_norm.bf16_lnm_bwd_one_launch = 0
 
 
 def phase_main_path(calls, smi, tmp):
@@ -1283,8 +1305,10 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
     device time in bf16 (its autograd for a backward), and the spills ptxas
     reported for the kernel's bf16 instances (`spills`, the build's); for the
     LN backward also the device time of its strided design (the earlier bf16
-    kernel, which the plan keeps for misaligned tensors). Returns the
-    per-step sums of each kernel."""
+    kernel, which the plan keeps for misaligned tensors), and likewise for
+    the LN-mean forward and backward; for the forwards of CAST_FREE_OPS the
+    device time with the parameters cast to fp32 before the timed call.
+    Returns the per-step sums of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(7)
     sms = cuda_lib.sm_count(dev)
     sums = {}
@@ -1301,7 +1325,7 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                                                              torch.bfloat16)
             reps = 5 if op == "scan" else 20
             for k, calls in [(op, n)] + ([(op + "_bwd", n_bwd)] if n_bwd else []):
-                lib_ms = lib_dev_ms = old_dev_ms = None
+                lib_ms = lib_dev_ms = old_dev_ms = cast_free_dev_ms = None
                 if k == op:
                     with torch.no_grad():
                         got, again, want = fn(*inputs), fn(*inputs), plain(*inputs)
@@ -1313,6 +1337,19 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                             return fn(*inputs)
 
                         ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                        if op == "ln_mean":
+                            # the strided design (the earlier bf16 kernel), which
+                            # the plan keeps for misaligned x, on the same inputs
+                            strided = layer_norm.lnm_fwd_plan(*shape, sms, torch.bfloat16,
+                                                              aligned=False)
+                            old_dev_ms = device_ms(lambda: layer_norm.ln_spatial_mean_fwd(
+                                *inputs, 1e-5, plan=strided))
+                        if op in CAST_FREE_OPS:
+                            # the parameters cast to fp32 before the timed call,
+                            # so that only the kernel is timed
+                            cast = [t.float() if i in (1, 2) else t
+                                    for i, t in enumerate(inputs)]
+                            cast_free_dev_ms = device_ms(lambda: fn(*cast))
                         if library is not None:
                             lib_ms = cuda_ms(lambda: library(*inputs), reps)
                             lib_dev_ms = device_ms(lambda: library(*inputs))
@@ -1335,6 +1372,13 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                         same = all(torch.equal(a, b) for a, b in zip(first, second)
                                    if a is not None)
                         ms, dev_ms = cuda_ms(run, reps), device_ms(run)
+                        if k == "ln_mean_bwd":
+                            # the two-launch strided design (the earlier bf16
+                            # kernel), which the plan keeps for misaligned x
+                            strided = layer_norm.lnm_bwd_plan(*shape, sms, torch.bfloat16,
+                                                              aligned=False)
+                            old_dev_ms = device_ms(lambda: layer_norm.ln_spatial_mean_bwd(
+                                inputs[0], inputs[1], dy, 1e-5, plan=strided))
                         if k == "layer_norm_bwd":
                             # the strided design (the earlier bf16 kernel), which the
                             # plan keeps for misaligned tensors, on the same inputs
@@ -1364,6 +1408,7 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                       "fp32_kernel_device_ms": fp32_dev, "fp32_bound_ms": fp32_bound,
                       **_bound_fields(k, *b, dev_ms), "ptxas_spills": _bf16_spills(k, spills),
                       **({"strided_design_device_ms": old_dev_ms} if old_dev_ms else {}),
+                      **({"cast_free_device_ms": cast_free_dev_ms} if k in CAST_FREE_OPS else {}),
                       "card": smi})
                 if not ok:
                     fail(f"{k} bf16 at {shape} disagrees with its plain version "
@@ -1389,6 +1434,9 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                 if old_dev_ms is not None:
                     agg["strided_design_device_ms"] = (agg.get("strided_design_device_ms", 0.0)
                                                        + calls * old_dev_ms)
+                if k in CAST_FREE_OPS:
+                    agg["cast_free_device_ms"] = (agg.get("cast_free_device_ms", 0.0)
+                                                  + calls * (cast_free_dev_ms or 0.0))
             del inputs
         torch.cuda.empty_cache()
     for agg in sums.values():
@@ -1469,9 +1517,10 @@ def phase_train_bf16(tcalls, smi, fp32_line):
     24 -j 0 --precision bf16`: 4 mixed-precision steps. Every loss finite,
     the saved state dict fp32 and loading strictly, each kernel's bf16
     launches equal to 4 x the config's calls a step and no fp32 launch, each
-    LN backward launch the quads design; the
-    median step and pairs/s beside the fp32 train phase's of this call (no
-    claim: bf16 is not tuned for speed yet)."""
+    LN backward launch and each LN-mean forward launch the quads design, and
+    as many LN-mean backwards in one launch as the plan predicts; the median
+    step and pairs/s beside the fp32 train phase's of this call (no claim:
+    bf16 is not tuned for speed yet)."""
     steps = TRAIN_BF16_STEPS
     with tempfile.TemporaryDirectory() as tmp:
         argv = ["--synthetic", str(TRAIN_PAIRS * steps), "-B", str(TRAIN_PAIRS), "-E", "1",
@@ -1482,17 +1531,24 @@ def phase_train_bf16(tcalls, smi, fp32_line):
         torch.cuda.synchronize()
         total, bf16 = read_launches(), read_launches(bf16=True)
         quads = layer_norm.bf16_quads_launches
+        lnm_quads, lnm_one = layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch
         path = os.path.join(tmp, "fusion_model_pst900.pth")
         saved = torch.load(path, weights_only=True)
         fp32_saved = all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
         load_reference_checkpoint(VSSMFusion(full_config()), path)
     torch.cuda.empty_cache()
     expected = {k: stats["steps"] * sum(c.values()) for k, c in tcalls.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    one_launch = stats["steps"] * sum(
+        n for shape, n in tcalls["ln_mean_bwd"].items()
+        if layer_norm.lnm_bwd_plan(*shape, sms, torch.bfloat16).quads)
     fp32_launches = {k: total[k] - bf16[k] for k in total}
     warm = stats["step_seconds"][1:]
     emit({"phase": "train_bf16", "steps": stats["steps"], "pairs_per_step": TRAIN_PAIRS,
           "losses": stats["losses"], "bf16_launches": bf16, "fp32_launches": fp32_launches,
           "expected_bf16_launches": expected, "layer_norm_bwd_quads_launches": quads,
+          "ln_mean_quads_launches": lnm_quads, "ln_mean_bwd_one_launch_calls": lnm_one,
+          "expected_ln_mean_bwd_one_launch_calls": one_launch,
           "checkpoint_fp32": fp32_saved,
           "first_step_s": stats["step_seconds"][0], "step_seconds": stats["step_seconds"],
           "median_warm_step_s": float(np.median(warm)),
@@ -1508,6 +1564,12 @@ def phase_train_bf16(tcalls, smi, fp32_line):
     if quads != expected["layer_norm_bwd"]:
         fail(f"bf16 training: {quads} of {expected['layer_norm_bwd']} LN backward launches took "
              f"the quads design")
+    if lnm_quads != expected["ln_mean"]:
+        fail(f"bf16 training: {lnm_quads} of {expected['ln_mean']} LN-mean forward launches "
+             f"took the quads design")
+    if lnm_one != one_launch:
+        fail(f"bf16 training: {lnm_one} LN-mean backwards in one launch, the plan predicts "
+             f"{one_launch}")
     return bf16
 
 
@@ -2201,8 +2263,8 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 "scan_bwd": ("selective_scan_bwd", "scan_bwd_reduce"),
                 "scan_carry": ("carry_kernel",),   # the chunk carries, forward and backward
                 "layer_norm": ("ln_fwd",), "layer_norm_bwd": ("ln_bwd_kernel", "ln_bwd_reduce"),
-                "ln_mean": ("lnm_fwd_kernel",),
-                "ln_mean_bwd": ("lnm_bwd_kernel", "lnm_bwd_reduce"),
+                "ln_mean": ("lnm_fwd_kernel",),   # the strided and the quads kernels
+                "ln_mean_bwd": ("lnm_bwd_kernel", "lnm_bwd_reduce", "lnm_bwd_one_launch"),
                 "dwconv": ("dwconv3x3_fwd_kernel",),
                 "dwconv_bwd": ("dwconv3x3_bwd_kernel", "dwconv3x3_bwd_reduce"),
                 # the bf16 MLP kernels: the forward's fused kernel and product
@@ -2293,6 +2355,18 @@ def phase_trace_train(dev, steps: int = 3, precision: str = "fp32"):
           "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()}})
 
 
+def _instances(ptxas, frags):
+    """{kernel entry: its ptxas lines (registers, spills)} of each entry whose
+    name holds one of `frags`."""
+    out, entry = {}, None
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif entry and any(f in entry for f in frags):
+            out.setdefault(entry, []).append(ln)
+    return out
+
+
 def _spills(ptxas):
     """{kernel entry: "<n> bytes spill stores, <n> bytes spill loads"} of each
     entry that ptxas reports spilling."""
@@ -2336,6 +2410,12 @@ def main() -> None:
     spills = _spills(ptxas)
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "library": str(path),
           "ptxas": ptxas, "spills": spills})
+    # the bf16 LN-mean designs' instances: registers and spills of each
+    lnm = _instances(ptxas, ("lnm_fwd_kernel_quads", "lnm_bwd_one_launch"))
+    lnm_spills = {**_bf16_spills("ln_mean", spills), **_bf16_spills("ln_mean_bwd", spills)}
+    emit({"phase": "build_lnm_bf16", "instances": lnm, "bf16_spills": lnm_spills})
+    if not lnm or lnm_spills:
+        fail(f"the bf16 LN-mean instances: {len(lnm)} built, spills {lnm_spills}")
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)
@@ -2424,6 +2504,10 @@ def main() -> None:
             "bf16_library_ms": bf16[k]["library_ms"],
             "bf16_library_device_ms": bf16[k]["library_device_ms"],
             "bf16_device_ms_at_library_shapes": bf16[k]["device_ms_at_library_shapes"],
+            **({"bf16_cast_free_device_ms": bf16[k]["cast_free_device_ms"]}
+               if k in CAST_FREE_OPS else {}),
+            **({"bf16_strided_design_device_ms": bf16[k]["strided_design_device_ms"]}
+               if "strided_design_device_ms" in bf16[k] else {}),
             "bf16_bound_by": _bound_by(k, bf16[k]["bytes_ms"], bf16[k]["ops_ms"],
                                        bf16[k]["sfu_ms"])["bound_by"]})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -1,6 +1,7 @@
 // LayerNorm (+ gate) backward and LN-spatial-mean backward for Hopper (sm_90a),
 // fp32 or bf16 I/O (x, the gate, dy, dx and dgate in the I/O type; scale,
-// bias, dm, the partials, dscale and dbias fp32; the math fp32 either way).
+// bias, dm, the partials, dscale and dbias fp32, but for the LN-mean's scale,
+// which the bf16 entry also takes as bf16; the math fp32 either way).
 //
 // 1. The LN backward: dx, dgate, dscale, dbias. Replaces
 // fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel (built by _bwd_pallas).
@@ -42,7 +43,7 @@
 // walks the rows of one batch row, forms w from dm, scale and 1 / rows in
 // registers and takes mean(w) once. No atomics, so two launches give the
 // same bits, and each call is two launches (no separate reductions, no
-// elementwise ops around them).
+// elementwise ops around them); the LN-mean's bf16 design (4.) is one.
 //
 // 3. The LN backward's bf16 design (ln_bwd_kernel_quads, the bf16 entry's
 // templates FM_LN_BF16_TEMPLATES). With bf16 I/O the strided layout above
@@ -58,7 +59,25 @@
 // stores) and the fixed-order sums over rows are the design above; a C that
 // is not a multiple of 4, or a tensor not on an 8-byte boundary, takes the
 // strided templates in bf16 (layer_norm.py::bwd_plan chooses).
+//
+// 4. The LN-mean backward's bf16 design (lnm_bwd_one_launch): one launch a
+// call. dscale = sum over b of dm[b] * (sum over rows of xhat) / rows needs
+// the sums of xhat over every row of a batch row, which 2 collects from its
+// blocks' partials in a second kernel. At the model's small shapes that
+// second launch, or any sum of the partials within the launch (a cluster's
+// through distributed shared memory, then the clusters' after a ticket
+// elects the last), cost as much as the rows (PERF.md, section 6). Here the
+// forward's bf16 quads kernel, when it records its backward, also writes the
+// mean of xhat of each batch row and column ((B, C), ln_mean_fwd.cu), so the
+// backward sums only over b: block (0, 0) writes dscale = sum over b of dm[b]
+// times that mean and dbias = sum over b of dm[b], in b order, while its
+// loads are in flight, and every block computes dx on quads as in 3 (8-byte
+// loads of x and stores of dx, the next row's quads loaded while the current
+// one is summed). No partials, no scratch, no atomics: two launches give the
+// same bits. scale may be bf16 (the _bf16 entry's `params`), as may the
+// strided templates' in bf16.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "io_types.cuh"
 #include "ln_common.cuh"
@@ -71,8 +90,11 @@ using fm_io::to_f;
 using fm_io::bf16;
 using fm_ln::group_sum;
 using fm_ln::kBlock;
+using fm_ln::load_quad;
+using fm_ln::unpack;
 constexpr int kReduceCols = 32;      // the reduce kernel: columns of a block
 constexpr int kReduceSlices = 32;    // and interleaved slices of the partials
+constexpr int kOneBlock = 512;       // threads of a block of the one-launch LN-mean backward
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
 
@@ -211,28 +233,6 @@ ln_bwd_reduce(const float* __restrict__ part, int P, int C, float* __restrict__ 
       dbias[col - C] = t;
     }
   }
-}
-
-// The bf16 templates of the LN backward (quads a lane, lanes a row, masked):
-// layer_norm.py's BF16_TEMPLATES and its masked variants.
-#define FM_LN_BF16_TEMPLATES(Q) \
-  Q(3, 2, false)                \
-  Q(3, 8, false)                \
-  Q(3, 16, false)               \
-  Q(3, 32, false)               \
-  Q(3, 64, false)               \
-  Q(3, 128, false)              \
-  Q(3, 32, true)                \
-  Q(3, 128, true)               \
-  Q(3, 512, true)
-
-// 4 consecutive bf16, 8 bytes on an 8-byte boundary, raw and as fp32
-__device__ __forceinline__ uint2 load_quad(const bf16* p) {
-  return *reinterpret_cast<const uint2*>(p);
-}
-__device__ __forceinline__ float4 unpack(uint2 q) {
-  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
-                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
 }
 
 // The LN backward with bf16 I/O on quads (see 3. above); the partials as
@@ -400,9 +400,9 @@ ln_bwd_kernel_quads(const bf16* __restrict__ x, const bf16* __restrict__ gate,
 // The LN-mean backward's rows: grid (P, B), block b = blockIdx.y walks the
 // rows of batch row b; each block writes one (C,) partial, dm[b] times the
 // sum of xhat over its rows, into part (B, P, C).
-template <class IO, int V, int G, bool MASK>
+template <class IO, class PT, int V, int G, bool MASK>
 __global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
-lnm_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ scale,
+lnm_bwd_kernel(const IO* __restrict__ x, const PT* __restrict__ scale,
                const float* __restrict__ dm, IO* __restrict__ dx, float* __restrict__ part,
                int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
@@ -420,7 +420,7 @@ lnm_bwd_kernel(const IO* __restrict__ x, const float* __restrict__ scale,
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int c = lane + v * G;
-    wv[v] = !MASK || c < C ? dm[b * C + c] * scale[c] / fr : 0.f;
+    wv[v] = !MASK || c < C ? dm[b * C + c] * to_f(scale[c]) / fr : 0.f;
     xs[v] = 0.f;
     m.x += wv[v];
   }
@@ -507,12 +507,157 @@ lnm_bwd_reduce(const float* __restrict__ part, const float* __restrict__ dm, int
   }
 }
 
-template <class IO, int V, int G, bool MASK>
-int launch_lnm(int B, int blocks, cudaStream_t stream, const IO* x, const float* scale,
+// The LN-mean backward's bf16 design (see 4. above): grid (P, B), a block of
+// T threads walks the rows of batch row b on quads, one row a group at a time
+// with the next row's quads loaded ahead. The first row's loads go out before
+// anything else; w = dm * scale / rows lives in shared memory where a block
+// has several groups (in registers where it has one, whose 512 lanes leave a
+// block an SM); block (0, 0) sums dscale and dbias over b while its loads are
+// in flight.
+template <class PT, int Q, int G, bool MASK>
+__global__ void __launch_bounds__(G > kOneBlock ? G : kOneBlock, G >= kOneBlock ? 1 : 2)
+lnm_bwd_one_launch(const bf16* __restrict__ x, const PT* __restrict__ scale,
+                   const float* __restrict__ dm, const float* __restrict__ xmean,
+                   bf16* __restrict__ dx, float* __restrict__ dscale, float* __restrict__ dbias,
+                   int rows, int C, float eps) {
+  constexpr int T = G > kOneBlock ? G : kOneBlock;
+  constexpr int GPB = T / G;
+  constexpr int V = 4 * Q;
+  constexpr int CW = V * G;  // channels a group holds (C, or more where masked)
+  __shared__ float2 red[3][T / 32];
+  __shared__ __align__(16) float wsh[GPB > 1 ? CW : 4];
+  const int grp = threadIdx.x / G, lane = threadIdx.x % G;
+  const int b = blockIdx.y, B = gridDim.y;
+  const float fc = (float)C, fr = (float)rows;
+
+  bool has[Q];  // quad q holds channels of the row
+#pragma unroll
+  for (int q = 0; q < Q; ++q) has[q] = !MASK || 4 * (lane + q * G) < C;
+  const bf16* xb = x + (size_t)b * rows * C + 4 * lane;
+  bf16* dxb = dx + (size_t)b * rows * C + 4 * lane;
+  const int stride = gridDim.x * GPB;
+  const uint2 none = make_uint2(0u, 0u);
+  uint2 px[Q];  // the raw quads of the row this group takes next
+  int r = blockIdx.x * GPB + grp;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) px[q] = r < rows && has[q] ? load_quad(xb + r * C + 4 * q * G) : none;
+
+  if (blockIdx.x == 0 && b == 0) {
+    // dscale = sum over b of dm[b] * (the forward's mean of xhat), dbias =
+    // sum over b of dm[b], each in b order
+    for (int c = threadIdx.x; c < C; c += T) {
+      float ts = 0.f, tb = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < B; ++k) {
+        const float d = dm[k * C + c];
+        ts = fmaf(d, xmean[k * C + c], ts);
+        tb += d;
+      }
+      dscale[c] = ts;
+      dbias[c] = tb;
+    }
+  }
+  // the row-constant cotangent w = dm[b] * scale / rows, and its mean
+  float wr[GPB > 1 ? 1 : V];
+  const auto w_of = [&](int q) {
+    if constexpr (GPB > 1) {
+      return *reinterpret_cast<const float4*>(&wsh[4 * (lane + q * G)]);
+    } else {
+      return make_float4(wr[4 * q], wr[4 * q + 1], wr[4 * q + 2], wr[4 * q + 3]);
+    }
+  };
+  if constexpr (GPB > 1) {
+    for (int c = threadIdx.x; c < CW; c += T) {
+      wsh[c] = c < C ? dm[b * C + c] * to_f(scale[c]) / fr : 0.f;
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = 4 * (lane + v / 4 * G) + v % 4;
+      wr[v] = has[v / 4] ? dm[b * C + c] * to_f(scale[c]) / fr : 0.f;
+    }
+  }
+  float2 m = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float4 w = w_of(q);
+    m.x += w.x;
+    m.x += w.y;
+    m.x += w.z;
+    m.x += w.w;
+  }
+  m = group_sum<G>(m, red[2]);
+  const float m1 = m.x / fc;
+
+  for (int base = blockIdx.x * GPB; base < rows; base += stride, r += stride) {
+    const bool live = r < rows;
+    float xv[V];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 a = unpack(px[q]);
+      xv[4 * q] = a.x, xv[4 * q + 1] = a.y, xv[4 * q + 2] = a.z, xv[4 * q + 3] = a.w;
+    }
+    // the next row's loads go out before this row's sums
+    const int rn = r + stride;
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      px[q] = rn < rows && has[q] ? load_quad(xb + rn * C + 4 * q * G) : none;
+
+    float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      s.x += xv[v];
+      s.y = fmaf(xv[v], xv[v], s.y);
+    }
+    s = group_sum<G>(s, red[0]);
+    const float mu = s.x / fc;
+    const float rs = rsqrtf(s.y / fc - mu * mu + eps);
+    float2 n = make_float2(0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const float4 w = w_of(q);
+      const float wq[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int v = 4 * q + j;
+        const float xh = live && has[q] ? (xv[v] - mu) * rs : 0.f;
+        n.y = fmaf(wq[j], xh, n.y);
+        xv[v] = xh;
+      }
+    }
+    n = group_sum<G>(n, red[1]);
+    const float m2 = n.y / fc;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (live && has[q]) {
+        const float4 w = w_of(q);
+        const float wq[4] = {w.x, w.y, w.z, w.w};
+        float o[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) o[j] = rs * (wq[j] - m1 - xv[4 * q + j] * m2);
+        fm_io::store4(dxb + r * C + 4 * q * G, make_float4(o[0], o[1], o[2], o[3]));
+      }
+    }
+  }
+}
+
+template <class IO, class PT, int V, int G, bool MASK>
+int launch_lnm(int B, int blocks, cudaStream_t stream, const IO* x, const PT* scale,
                const float* dm, IO* dx, float* part, int rows, int C, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
-  lnm_bwd_kernel<IO, V, G, MASK><<<dim3(blocks, B), T, 0, stream>>>(x, scale, dm, dx, part, rows,
-                                                                    C, eps);
+  lnm_bwd_kernel<IO, PT, V, G, MASK><<<dim3(blocks, B), T, 0, stream>>>(x, scale, dm, dx, part,
+                                                                        rows, C, eps);
+  return (int)cudaGetLastError();
+}
+
+template <class PT, int Q, int G, bool MASK>
+int launch_lnm_one(int B, int blocks, cudaStream_t stream, const bf16* x, const PT* scale,
+                   const float* dm, const float* xmean, bf16* dx, float* dscale, float* dbias,
+                   int rows, int C, float eps) {
+  constexpr int T = G > kOneBlock ? G : kOneBlock;
+  lnm_bwd_one_launch<PT, Q, G, MASK><<<dim3(blocks, B), T, 0, stream>>>(
+      x, scale, dm, xmean, dx, dscale, dbias, rows, C, eps);
   return (int)cudaGetLastError();
 }
 
@@ -616,19 +761,47 @@ int layer_norm_bwd(const IO* x, const IO* gate, const float* scale, const float*
   return (int)cudaGetLastError();
 }
 
-template <class IO>
-int ln_mean_bwd(const IO* x, const float* scale, const float* dm, IO* dx, float* part,
-                float* dscale, float* dbias, int B, int rows, int C, int values, int lanes,
-                int masked, int blocks, float eps, cudaStream_t stream) {
+// the one-launch templates for bf16 I/O; none for fp32
+template <class PT>
+int rows_one(int, int, int, int, cudaStream_t, const float*, const PT*, const float*,
+             const float*, float*, float*, float*, int, int, float) {
+  return (int)cudaErrorInvalidValue;
+}
+template <class PT>
+int rows_one(int B, int lanes, int masked, int blocks, cudaStream_t stream, const bf16* x,
+             const PT* scale, const float* dm, const float* xmean, bf16* dx, float* dscale,
+             float* dbias, int rows, int C, float eps) {
+  if (C % 4 != 0 || (((uintptr_t)x | (uintptr_t)dx) & 7) != 0 || !xmean) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int err = (int)cudaErrorInvalidValue;
+#define FM_LNM_BWD_ONE(Q, G, MASK)                                                        \
+  if (lanes == G && (masked != 0) == MASK)                                                 \
+    err = launch_lnm_one<PT, Q, G, MASK>(B, blocks, stream, x, scale, dm, xmean, dx, dscale, \
+                                         dbias, rows, C, eps);
+  FM_LN_BF16_TEMPLATES(FM_LNM_BWD_ONE)
+#undef FM_LNM_BWD_ONE
+  return err;
+}
+
+template <class IO, class PT>
+int ln_mean_bwd(const IO* x, const PT* scale, const float* dm, const float* xmean, IO* dx,
+                float* part, float* dscale, float* dbias, int B, int rows, int C, int values,
+                int lanes, int masked, int quads, int blocks, float eps, cudaStream_t stream) {
   if (B < 1 || B > 65535 || rows < 1 || C < 1 || (long long)B * rows * C >= (1ll << 31) ||
       blocks < 1 || blocks > rows || (long long)B * blocks * C >= (1ll << 31) ||
       (masked ? values * lanes < C : values * lanes != C)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (quads) {
+    return values == 12 ? rows_one(B, lanes, masked, blocks, stream, x, scale, dm, xmean, dx,
+                                   dscale, dbias, rows, C, eps)
+                        : (int)cudaErrorInvalidValue;
+  }
   int err = (int)cudaErrorInvalidValue;
-#define FM_LNM_BWD(V, G, MASK)                                                                \
-  if (values == V && lanes == G && (masked != 0) == MASK)                                     \
-    err = launch_lnm<IO, V, G, MASK>(B, blocks, stream, x, scale, dm, dx, part, rows, C, eps);
+#define FM_LNM_BWD(V, G, MASK)                                                                 \
+  if (values == V && lanes == G && (masked != 0) == MASK)                                      \
+    err = launch_lnm<IO, PT, V, G, MASK>(B, blocks, stream, x, scale, dm, dx, part, rows, C, eps);
   FM_LN_TEMPLATES(FM_LNM_BWD)
 #undef FM_LNM_BWD
   if (err != 0) return err;
@@ -661,21 +834,31 @@ extern "C" int fm_layer_norm_bwd_bf16(const bf16* x, const bf16* gate, const flo
                         gate_kind, values, lanes, masked, quads, blocks, eps, stream);
 }
 
-// x, dx: (B, rows, C); dm: (B, C); part: (B, blocks, C) scratch; dscale,
-// dbias: (C,). values, lanes, masked: the template (lnm_bwd_plan); blocks:
-// the blocks of each batch row in the first kernel's grid (blocks, B). The
+// x, dx: (B, rows, C); dm: (B, C); xmean: with quads the forward's (B, C)
+// means of xhat over the rows, else unused; part: (B, blocks, C) scratch
+// (unused with quads); dscale, dbias: (C,). scale: fp32, or in the _bf16
+// entry bf16 where params is 1. values, lanes, masked, quads: the template
+// (lnm_bwd_plan; quads, the one-launch bf16 design, only in the _bf16
+// entry); blocks: the blocks of each batch row in the grid (blocks, B). The
 // _bf16 entry takes x and dx as bf16.
-extern "C" int fm_ln_mean_bwd(const float* x, const float* scale, const float* dm, float* dx,
-                              float* part, float* dscale, float* dbias, int B, int rows, int C,
-                              int values, int lanes, int masked, int blocks, float eps,
+extern "C" int fm_ln_mean_bwd(const float* x, const void* scale, const float* dm,
+                              const float* xmean, float* dx, float* part, float* dscale,
+                              float* dbias, int B, int rows, int C, int values, int lanes,
+                              int masked, int quads, int blocks, int params, float eps,
                               cudaStream_t stream) {
-  return ln_mean_bwd(x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
-                     blocks, eps, stream);
+  if (quads || params) return (int)cudaErrorInvalidValue;
+  return ln_mean_bwd(x, static_cast<const float*>(scale), dm, xmean, dx, part, dscale, dbias, B,
+                     rows, C, values, lanes, masked, 0, blocks, eps, stream);
 }
-extern "C" int fm_ln_mean_bwd_bf16(const fm_io::bf16* x, const float* scale, const float* dm,
-                                   fm_io::bf16* dx, float* part, float* dscale, float* dbias,
-                                   int B, int rows, int C, int values, int lanes, int masked,
-                                   int blocks, float eps, cudaStream_t stream) {
-  return ln_mean_bwd(x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
-                     blocks, eps, stream);
+extern "C" int fm_ln_mean_bwd_bf16(const bf16* x, const void* scale, const float* dm,
+                                   const float* xmean, bf16* dx, float* part, float* dscale,
+                                   float* dbias, int B, int rows, int C, int values, int lanes,
+                                   int masked, int quads, int blocks, int params, float eps,
+                                   cudaStream_t stream) {
+  if (params) {
+    return ln_mean_bwd(x, static_cast<const bf16*>(scale), dm, xmean, dx, part, dscale, dbias,
+                       B, rows, C, values, lanes, masked, quads, blocks, eps, stream);
+  }
+  return ln_mean_bwd(x, static_cast<const float*>(scale), dm, xmean, dx, part, dscale, dbias, B,
+                     rows, C, values, lanes, masked, quads, blocks, eps, stream);
 }

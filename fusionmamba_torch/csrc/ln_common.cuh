@@ -10,8 +10,17 @@
 // are xor-shuffle butterflies inside a warp (every lane ends with the same
 // bits) and, for rows wider than a warp, one exchange through shared memory
 // summed in warp order.
+//
+// The bf16 designs (the LN backward's, the LN-mean forward's and backward's)
+// lay a row out in quads instead: a lane owns Q runs of 4 consecutive
+// channels, quad q being channels 4 (lane + q G) .. +3, so that every load
+// and store of a bf16 row moves 8 bytes a lane (load_quad, unpack below).
+// Their templates are FM_LN_BF16_TEMPLATES (layer_norm.py's BF16_TEMPLATES:
+// C / 12 lanes at the model's widths, masked variants for any other C that
+// is a multiple of 4).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace fm_ln {
@@ -59,6 +68,15 @@ __device__ __forceinline__ float2 group_sum(float2 v, float2* red) {
   return one[0];
 }
 
+// 4 consecutive bf16, 8 bytes on an 8-byte boundary, raw and as fp32
+__device__ __forceinline__ uint2 load_quad(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint2*>(p);
+}
+__device__ __forceinline__ float4 unpack(uint2 q) {
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
+}
+
 }  // namespace fm_ln
 
 // The templates (values a lane, lanes a row, masked) that the LN kernels
@@ -73,3 +91,16 @@ __device__ __forceinline__ float2 group_sum(float2 v, float2* red) {
   X(12, 32, true)          \
   X(12, 128, true)         \
   X(12, 512, true)
+
+// The bf16 templates on quads (quads a lane, lanes a row, masked):
+// layer_norm.py's BF16_QUADS, BF16_TEMPLATES and its masked variants.
+#define FM_LN_BF16_TEMPLATES(Q) \
+  Q(3, 2, false)                \
+  Q(3, 8, false)                \
+  Q(3, 16, false)               \
+  Q(3, 32, false)               \
+  Q(3, 64, false)               \
+  Q(3, 128, false)              \
+  Q(3, 32, true)                \
+  Q(3, 128, true)               \
+  Q(3, 512, true)

@@ -58,16 +58,17 @@ SIGNATURES = {
     # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
     # gate kind, values, lanes, masked, quads, blocks, eps, stream
     "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _P),
-    # x, scale, dm, dx, part, dscale, dbias, B, rows, C, values, lanes, masked,
-    # blocks, eps, stream
-    "fm_ln_mean_bwd": (_P,) * 7 + (_I,) * 7 + (_F, _P),
-    # x, scale, bias, out, B, rows, C, values, lanes, masked, cluster, eps,
-    # stream
-    "fm_ln_mean_fwd": (_P,) * 4 + (_I,) * 7 + (_F, _P),
+    # x, scale, dm, xmean, dx, part, dscale, dbias, B, rows, C, values, lanes,
+    # masked, quads, blocks, params, eps, stream
+    "fm_ln_mean_bwd": (_P,) * 8 + (_I,) * 9 + (_F, _P),
+    # x, scale, bias, out, xmean, B, rows, C, values, lanes, masked, quads,
+    # unroll, cluster, params, eps, stream
+    "fm_ln_mean_fwd": (_P,) * 5 + (_I,) * 10 + (_F, _P),
 }
 # every kernel also has a bf16-I/O variant, `<name>_bf16`, with the same
-# arguments: the tensors that its wrapper's check names bf16 are bf16 there,
-# and the math inside stays fp32
+# arguments: the tensors that its wrapper's check names bf16 are bf16 there
+# (the LN-mean's scale and bias also where `params` is 1), and the math
+# inside stays fp32
 SIGNATURES.update({name + "_bf16": args for name, args in list(SIGNATURES.items())})
 IO_DTYPES = (torch.float32, torch.bfloat16)
 

@@ -13,7 +13,9 @@ rsqrt(var + eps).
 Every kernel takes fp32 or bf16 I/O (`cuda_lib.entry`): x, the gate, dy, y,
 dx and dgate in the I/O dtype; scale, bias, their gradients, the LN-mean's
 (B, C) output and its cotangent fp32, as the JAX package's kernels take
-them (the ops cast scale and bias to fp32, as its wrappers do).
+them (the LN op casts scale and bias to fp32, as its wrappers do). The
+LN-mean's bf16 kernels also take bf16 scale and bias, widened as they are
+loaded, so that a bf16 step passes its parameters without a cast.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ TEMPLATES = {24: (3, 8), 96: (3, 32), 192: (6, 32), 384: (12, 32), 768: (12, 64)
              1536: (12, 128)}
 MASKED_VALUES = 12
 MASKED_LANES = (32, 128, 512)
-# The LN backward's bf16 design (FM_LN_BF16_TEMPLATES in csrc/layer_norm_bwd.cu):
+# The bf16 designs on quads (FM_LN_BF16_TEMPLATES in csrc/ln_common.cuh):
 # a lane holds BF16_QUADS runs of 4 consecutive channels (8-byte loads and
 # stores), BF16_TEMPLATES lanes a row at the model's widths (C / 12, all
 # busy), masked variants of MASKED_LANES lanes for any other C that is a
@@ -48,6 +50,19 @@ BF16_TEMPLATES = {24: 2, 96: 8, 192: 16, 384: 32, 768: 64, 1536: 128}
 # a block of the bf16 design walks at least this many row steps where the
 # grid keeps a block an SM, so that the row it loads ahead is there to load
 BF16_MIN_WALK = 3
+# The LN-mean's bf16 designs on the same quads. The forward
+# (csrc/ln_mean_fwd.cu::lnm_fwd_kernel_quads): a group loads FWD_QUAD_ROWS
+# rows at a time, fewer (2, 1) where a batch row has too few rows to fill its
+# cluster, which aims at BF16_FWD_BLOCKS_PER_SM blocks an SM; recording its
+# backward, it also writes the mean of xhat of each batch row. The backward
+# (csrc/layer_norm_bwd.cu::lnm_bwd_one_launch), one launch a call, dscale
+# from those means: blocks of ONE_BLOCK threads, BF16_LNM_BWD_BLOCKS_PER_SM
+# blocks an SM for the B batch rows together (both figures from
+# fusionmamba_torch/tools/lnm_bf16_ab.py --sweep, PERF.md).
+FWD_QUAD_ROWS = 4
+BF16_FWD_BLOCKS_PER_SM = 1.0
+ONE_BLOCK = 512
+BF16_LNM_BWD_BLOCKS_PER_SM = 2
 BWD_BLOCK = 256             # threads of a block whose rows take at most 256 lanes
 BWD_REDUCE_SLICES = 32      # the partials' reduce: interleaved slices summed in order
 # the LN-mean forward (csrc/ln_mean_fwd.cu): threads of a block whose rows take
@@ -67,6 +82,8 @@ bf16_layer_norm_bwd_launches = 0   # the launches of the bf16-I/O variants
 bf16_ln_mean_launches = 0
 bf16_ln_mean_bwd_launches = 0
 bf16_quads_launches = 0            # the LN backward's bf16 launches with the quads design
+bf16_lnm_quads_launches = 0        # the LN-mean forward's bf16 launches on the quads
+bf16_lnm_bwd_one_launch = 0        # the LN-mean backward's one-launch bf16 calls
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -87,7 +104,9 @@ class BwdPlan(NamedTuple):
     lanes, ... of lane l, or with `quads` (the LN backward's bf16 design)
     values // 4 runs of 4, channels 4 (l + q lanes) .. + 3; a block of
     `threads` takes `rows_per_step` rows at a time and walks the rows in a
-    grid-stride loop over `blocks` blocks, each writing one (2, C) partial."""
+    grid-stride loop over `blocks` blocks, each writing one (2, C) partial
+    (the LN-mean's one-launch bf16 design, `lnm_bwd_plan` with quads, writes
+    none)."""
     values: int
     lanes: int
     masked: bool
@@ -142,11 +161,33 @@ def bwd_plan(rows: int, C: int, sms: int = 132, io: torch.dtype = torch.float32,
     return BwdPlan(values, lanes, masked, threads, step, blocks, quads)
 
 
-def lnm_bwd_plan(B: int, rows: int, C: int, sms: int = 132) -> BwdPlan:
+def _quad_lanes(C: int) -> tuple[int, bool]:
+    """(lanes a row, masked) of the quads templates for C, a multiple of 4."""
+    if C in BF16_TEMPLATES:
+        return BF16_TEMPLATES[C], False
+    lanes = next((n for n in MASKED_LANES if n * 4 * BF16_QUADS >= C), None)
+    if lanes is None:
+        raise ValueError(f"ln_spatial_mean: C = {C} is wider than the card's kernel takes "
+                         f"({4 * BF16_QUADS * MASKED_LANES[-1]})")
+    return lanes, True
+
+
+def lnm_bwd_plan(B: int, rows: int, C: int, sms: int = 132, io: torch.dtype = torch.float32,
+                 aligned: bool = True) -> BwdPlan:
     """The LN-mean backward's template and grid for x (B, rows, C): the LN
     backward's templates; `blocks` is the blocks of each batch row, so that
     the B batch rows together take a few blocks an SM, never more blocks than
-    row steps."""
+    row steps. bf16 takes the one-launch design on quads where C is a
+    multiple of 4 and `aligned` (x and dx on an 8-byte boundary, and the
+    forward's means of xhat at hand): blocks of ONE_BLOCK threads,
+    BF16_LNM_BWD_BLOCKS_PER_SM blocks an SM together."""
+    if io == torch.bfloat16 and aligned and C % 4 == 0:
+        lanes, masked = _quad_lanes(C)
+        threads = max(ONE_BLOCK, lanes)
+        step = threads // lanes
+        blocks = max(1, min(math.ceil(rows / step),
+                            math.ceil(BF16_LNM_BWD_BLOCKS_PER_SM * sms / B)))
+        return BwdPlan(4 * BF16_QUADS, lanes, masked, threads, step, blocks, True)
     values, lanes, masked, threads, step, per_sm = _template(C, "ln_spatial_mean")
     return BwdPlan(values, lanes, masked, threads, step,
                    max(1, min(math.ceil(rows / step), per_sm * sms // B)))
@@ -157,7 +198,9 @@ class FwdPlan(NamedTuple):
     `values` channels (lanes past C masked when `masked`); a block of
     `threads` holds `groups` groups, each taking `unroll` rows at a time, so a
     block takes chunks of groups * unroll consecutive rows; `cluster` blocks
-    (one thread-block cluster) walk each batch row's chunks in turn."""
+    (one thread-block cluster) walk each batch row's chunks in turn. With
+    `quads` (the bf16 design) a lane's values are values // 4 runs of 4
+    consecutive channels, as in `BwdPlan`."""
     values: int
     lanes: int
     masked: bool
@@ -165,40 +208,75 @@ class FwdPlan(NamedTuple):
     groups: int
     unroll: int
     cluster: int
+    quads: bool = False
 
 
 @functools.lru_cache(maxsize=None)
-def lnm_fwd_plan(B: int, rows: int, C: int, sms: int = 132) -> FwdPlan:
+def lnm_fwd_plan(B: int, rows: int, C: int, sms: int = 132, io: torch.dtype = torch.float32,
+                 aligned: bool = True) -> FwdPlan:
     """The LN-mean forward's template and grid for x (B, rows, C) on a card
     with `sms` SMs: a cluster of blocks a batch row, the largest power of two
     that puts at most FWD_BLOCKS_PER_SM blocks on each SM, is at most the
-    batch row's chunks and at most FWD_MAX_CLUSTER."""
-    values, lanes, masked = _widths(C, "ln_spatial_mean")
+    batch row's chunks and at most FWD_MAX_CLUSTER. bf16 takes the quads
+    where C is a multiple of 4 and x is `aligned` (on an 8-byte boundary):
+    FWD_QUAD_ROWS rows a group at a time, halved (to 2, then 1) while a batch
+    row has fewer chunks than its cluster wants, and BF16_FWD_BLOCKS_PER_SM
+    blocks an SM."""
+    quads = io == torch.bfloat16 and aligned and C % 4 == 0
+    if quads:
+        lanes, masked = _quad_lanes(C)
+        values, unroll, per_sm = 4 * BF16_QUADS, FWD_QUAD_ROWS, BF16_FWD_BLOCKS_PER_SM
+    else:
+        values, lanes, masked = _widths(C, "ln_spatial_mean")
+        unroll, per_sm = max(1, FWD_ROW_VALUES // values), FWD_BLOCKS_PER_SM
     threads = max(FWD_BLOCK, lanes)
-    groups, unroll = threads // lanes, max(1, FWD_ROW_VALUES // values)
+    groups = threads // lanes
+    want = min(FWD_MAX_CLUSTER, math.ceil(per_sm * sms / B))
+    while quads and unroll > 1 and math.ceil(rows / (groups * unroll)) < want:
+        unroll //= 2
     chunks = math.ceil(rows / (groups * unroll))
-    most = max(1, min(FWD_MAX_CLUSTER, chunks, math.ceil(FWD_BLOCKS_PER_SM * sms / B)))
-    return FwdPlan(values, lanes, masked, threads, groups, unroll, 1 << (most.bit_length() - 1))
+    most = max(1, min(want, chunks))
+    return FwdPlan(values, lanes, masked, threads, groups, unroll, 1 << (most.bit_length() - 1),
+                   quads)
 
 
-def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None):
+def _param_dtype(io: torch.dtype, scale: torch.Tensor) -> torch.dtype:
+    """The dtype the LN-mean kernels read scale and bias in: bf16 where both x
+    and the parameters are bf16, else fp32 (which the check then asks for)."""
+    return torch.bfloat16 if io == torch.bfloat16 and scale.dtype == torch.bfloat16 \
+        else torch.float32
+
+
+def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
     """mean over positions of LN(x): (B, ..., C) -> (B, C) fp32, on the card,
-    one launch. `plan` overrides `lnm_fwd_plan`'s layout (to time others)."""
-    global ln_mean_launches, bf16_ln_mean_launches
+    one launch. scale and bias fp32, or bf16 with bf16 x. With `with_mean`,
+    (out, the (B, C) fp32 means of xhat over the positions, which the bf16
+    backward's one launch reads), the second None off the quads. `plan`
+    overrides `lnm_fwd_plan`'s layout (to time others)."""
+    global ln_mean_launches, bf16_ln_mean_launches, bf16_lnm_quads_launches
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean", x)
-    cuda_lib.check_cuda("ln_spatial_mean", io, x, fp32=[scale, bias])
+    params = _param_dtype(io, scale)
+    if params == io:
+        cuda_lib.check_cuda("ln_spatial_mean", io, x, scale, bias)
+    else:
+        cuda_lib.check_cuda("ln_spatial_mean", io, x, fp32=[scale, bias])
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
     rows = x.numel() // (B * C)
-    plan = plan or lnm_fwd_plan(B, rows, C, cuda_lib.sm_count(x.device))
+    plan = plan or lnm_fwd_plan(B, rows, C, cuda_lib.sm_count(x.device), io,
+                                x.data_ptr() % 8 == 0)
     out = torch.empty((B, C), device=x.device, dtype=torch.float32)
-    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_fwd", io), x.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                    out.data_ptr(), B, rows, C, plan.values, plan.lanes, int(plan.masked),
-                    plan.cluster, eps, device=x.device)
+    xmean = torch.empty_like(out) if with_mean and plan.quads else None
+    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_fwd", io), x.data_ptr(), scale.data_ptr(),
+                    bias.data_ptr(), out.data_ptr(), None if xmean is None else xmean.data_ptr(),
+                    B, rows, C, plan.values, plan.lanes, int(plan.masked), int(plan.quads),
+                    plan.unroll, plan.cluster, int(params == torch.bfloat16), eps,
+                    device=x.device)
     ln_mean_launches += 1
     bf16_ln_mean_launches += io == torch.bfloat16
-    return out
+    bf16_lnm_quads_launches += plan.quads
+    return (out, xmean) if with_mean else out
 
 
 def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
@@ -236,29 +314,48 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
     return dx, dg, ds, db
 
 
-def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None):
+def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None, xmean=None):
     """Gradients of the LN-mean for the cotangent dm (B, C) fp32, on the
-    card: (dx in x's dtype, dscale, dbias fp32). Two launches: the rows, then
-    the sums of the per-block partials into dscale and dbias. `plan`
-    overrides `lnm_bwd_plan`'s layout (to time others)."""
-    global ln_mean_bwd_launches, bf16_ln_mean_bwd_launches
+    card: (dx in x's dtype, dscale, dbias fp32). scale fp32, or bf16 with
+    bf16 x. fp32 (and bf16 off the quads) is two launches, the rows, then the
+    sums of the per-block partials into dscale and dbias; bf16 on the quads,
+    given the forward's means of xhat `xmean` (`ln_spatial_mean_fwd(...,
+    with_mean=True)`), one. `plan` overrides `lnm_bwd_plan`'s layout (to time
+    others)."""
+    global ln_mean_bwd_launches, bf16_ln_mean_bwd_launches, bf16_lnm_bwd_one_launch
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean backward", x)
-    cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[scale, dm])
+    params = _param_dtype(io, scale)
+    if params == io:
+        cuda_lib.check_cuda("ln_spatial_mean backward", io, x, scale, fp32=[dm])
+    else:
+        cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[scale, dm])
     if dm.shape != (B, C) or scale.shape != (C,):
         raise ValueError("ln_spatial_mean backward: dm must be (B, C) and scale (C,)")
     rows = x.numel() // (B * C)
-    plan = plan or lnm_bwd_plan(B, rows, C, cuda_lib.sm_count(x.device))
     dx = torch.empty_like(x)
-    part = torch.empty((B, plan.blocks, C), device=x.device, dtype=torch.float32)
+    plan = plan or lnm_bwd_plan(B, rows, C, cuda_lib.sm_count(x.device), io,
+                                x.data_ptr() % 8 == 0 and dx.data_ptr() % 8 == 0
+                                and xmean is not None)
+    if plan.quads:
+        if xmean is None:
+            raise ValueError("ln_spatial_mean backward: the one-launch bf16 design needs the "
+                             "forward's means of xhat (xmean)")
+        cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[xmean])
+        if xmean.shape != (B, C):
+            raise ValueError("ln_spatial_mean backward: xmean must be (B, C)")
+    part = None if plan.quads else torch.empty((B, plan.blocks, C), device=x.device,
+                                               dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
-    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_bwd", io), x.data_ptr(), scale.data_ptr(), dm.data_ptr(),
-                    dx.data_ptr(), part.data_ptr(), ds.data_ptr(), db.data_ptr(), B, rows, C,
-                    plan.values, plan.lanes, int(plan.masked), plan.blocks, eps,
-                    device=x.device)
+    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_bwd", io), x.data_ptr(), scale.data_ptr(),
+                    dm.data_ptr(), xmean.data_ptr() if plan.quads else None, dx.data_ptr(),
+                    None if part is None else part.data_ptr(), ds.data_ptr(), db.data_ptr(), B,
+                    rows, C, plan.values, plan.lanes, int(plan.masked), int(plan.quads),
+                    plan.blocks, int(params == torch.bfloat16), eps, device=x.device)
     ln_mean_bwd_launches += 1
     bf16_ln_mean_bwd_launches += io == torch.bfloat16
+    bf16_lnm_bwd_one_launch += plan.quads
     return dx, ds, db
 
 
@@ -301,17 +398,24 @@ class _LayerNormFn(torch.autograd.Function):
 
 
 class _LnMeanFn(torch.autograd.Function):
+    """Saves scale as it came (bf16 in a bf16 step) and, on the bf16 quads,
+    the forward's means of xhat, from which the backward's one launch takes
+    dscale; returns dscale and dbias in the parameters' dtype, one cast each
+    where that is bf16 (the casts that autograd made of a `.float()`
+    before)."""
+
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        ctx.save_for_backward(x, scale)
-        ctx.eps = eps
-        return ln_spatial_mean_fwd(x, scale, bias, eps)
+        out, xmean = ln_spatial_mean_fwd(x, scale, bias, eps, with_mean=True)
+        ctx.save_for_backward(x, scale, xmean)
+        ctx.eps, ctx.bias_dtype = eps, bias.dtype
+        return out
 
     @staticmethod
     def backward(ctx, dm):
-        x, scale = ctx.saved_tensors
-        dx, ds, db = ln_spatial_mean_bwd(x, scale, dm.contiguous(), ctx.eps)
-        return dx, ds, db, None
+        x, scale, xmean = ctx.saved_tensors
+        dx, ds, db = ln_spatial_mean_bwd(x, scale, dm.contiguous(), ctx.eps, xmean=xmean)
+        return dx, ds.to(scale.dtype), db.to(ctx.bias_dtype), None
 
 
 def layer_norm_fused(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
@@ -338,13 +442,15 @@ def ln_spatial_mean(x, scale, bias, eps=1e-5):
     """Mean over all positions of LayerNorm(x): x (B, ..., C) -> (B, C) fp32,
     without LN(x) ever being written. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the CUDA forward kernel and,
-    when a gradient is needed, the CUDA backward kernel. x may be bf16;
-    scale and bias enter as fp32."""
+    when a gradient is needed, the CUDA backward kernel. x may be bf16; scale
+    and bias enter in their own dtype where x is bf16 (fp32 or bf16, no
+    cast), else as fp32."""
     if x.device.type == "cpu":
         return ln_spatial_mean_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_spatial_mean: no implementation for {x.device}")
-    scale, bias = scale.float(), bias.float()
+    if x.dtype != torch.bfloat16:
+        scale, bias = scale.float(), bias.float()
     if needs_grad(x, scale, bias):
         return _LnMeanFn.apply(x, scale, bias, eps)
     return ln_spatial_mean_fwd(x, scale, bias, eps)

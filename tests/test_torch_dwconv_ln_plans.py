@@ -285,7 +285,7 @@ def test_layer_norm_bwd_replay_matches_autograd_and_pallas(gate_act, rows, C, sm
 
 BF = torch.bfloat16
 _LN_BF16_VARIANTS = {(int(q), int(g), m == "true") for q, g, m in re.findall(
-    r"Q\((\d+), (\d+), (true|false)\)", (CSRC / "layer_norm_bwd.cu").read_text())}
+    r"Q\((\d+), (\d+), (true|false)\)", (CSRC / "ln_common.cuh").read_text())}
 _LN_BF16_RAGGED = [(1, 24), (5, 40), (1, 1000), (300, 1000), (3, 1536), (37, 100), (2, 6144),
                    (9, 4)]
 STATIC_SMEM = 48 * 1024           # a block's static shared memory at most

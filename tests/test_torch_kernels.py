@@ -703,6 +703,147 @@ def test_ln_spatial_mean_kernels_bf16(dev, B, rows, C):
         _bf16_close(gk, w)
 
 
+# the bf16 LN-mean designs: every model width (C = 24 ... 1536: 2 to 128
+# lanes a row), C outside the quads templates (40, 100, 1000: masked quads),
+# rows that leave a block's groups idle (5, 37), one row, the fusion step's
+# shapes at batch 12 and 6 and the serving encoder's largest (16, 4096, 96)
+_LNM_BF16_SHAPES = [(1, 1, 24), (3, 37, 96), (2, 300, 24), (12, 4096, 96), (6, 1024, 192),
+                    (12, 256, 384), (6, 256, 384), (6, 64, 768), (2, 16, 1536), (5, 37, 40),
+                    (2, 5, 100), (2, 300, 1000), (16, 4096, 96)]
+
+
+def _lnm_bf16_case(seed, B, rows, C, params, dev, offset=0):
+    """bf16 x (`offset` elements past an 8-byte boundary), scale and bias of
+    dtype `params`, an fp32 cotangent of the (B, C) mean."""
+    g = torch.Generator().manual_seed(seed)
+    n = B * rows * C
+    x = _rand(g, n + offset, scale=2.0, shift=0.5).to(dev, BF16)[offset:].view(B, rows, C)
+    s, b = _rand(g, C, scale=0.2, shift=1.0).to(dev, params), _rand(g, C, scale=0.2).to(dev, params)
+    return x, s, b, _rand(g, B, C).to(dev)
+
+
+def _lnm(x, s, b):
+    return layer_norm.ln_spatial_mean(x, s, b, 1e-5)
+
+
+def _lnm_plain(x, s, b):
+    return layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5)
+
+
+@pytest.mark.parametrize("params", [BF16, torch.float32])
+@pytest.mark.parametrize("B,rows,C", _LNM_BF16_SHAPES)
+def test_ln_spatial_mean_bf16_quads(dev, B, rows, C, params):
+    """The LN-mean pair's bf16 designs, with bf16 and with fp32 parameters:
+    the fp32 mean against the plain version at 1e-4 (no bf16 rounding), dx,
+    dscale and dbias at the bf16 gate, each gradient in its input's dtype;
+    bit-identical over two launches; every forward on the quads and every
+    backward in one launch."""
+    x, s, b, dm = _lnm_bf16_case(B * rows + C, B, rows, C, params, dev)
+    assert layer_norm.lnm_fwd_plan(B, rows, C, io=BF16).quads
+    assert layer_norm.lnm_bwd_plan(B, rows, C, io=BF16).quads
+    before = (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch)
+    y, got = _grads(_lnm, [x, s, b], dm)
+    y2, again = _grads(_lnm, [x, s, b], dm)
+    yw, want = _grads(_lnm_plain, [x, s, b], dm)
+    torch.cuda.synchronize()
+    assert (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch) == \
+        (before[0] + 2, before[1] + 2)
+    assert y.dtype == torch.float32 and torch.equal(y, y2)
+    torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
+    for t, gk, ga, w in zip((x, s, b), got, again, want):
+        assert gk.dtype == t.dtype and torch.equal(gk, ga)
+        _bf16_close(gk, w)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("B,rows,C", [(3, 37, 96), (6, 256, 384), (2, 9, 40)])
+def test_ln_spatial_mean_bf16_misaligned(dev, B, rows, C, offset):
+    """x `offset` elements (2 or 4 bytes) off an 8-byte boundary: both plans
+    take the strided templates (the backward two launches), and their results
+    agree with the quads' on an aligned copy of the same values, with bf16
+    parameters."""
+    x, s, b, dm = _lnm_bf16_case(B + rows + C + offset, B, rows, C, BF16, dev, offset)
+    assert not layer_norm.lnm_fwd_plan(B, rows, C, io=BF16, aligned=False).quads
+    assert not layer_norm.lnm_bwd_plan(B, rows, C, io=BF16, aligned=False).quads
+    quads, one = layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch
+    y, xmean = layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, with_mean=True)
+    assert xmean is None
+    got = [y, *layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5)]
+    assert (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch) == (quads, one)
+    copy = x.clone()
+    assert copy.data_ptr() % 8 == 0
+    y, xmean = layer_norm.ln_spatial_mean_fwd(copy, s, b, 1e-5, with_mean=True)
+    want = [y, *layer_norm.ln_spatial_mean_bwd(copy, s, dm, 1e-5, xmean=xmean)]
+    assert layer_norm.bf16_lnm_bwd_one_launch == one + 1
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
+    for a, w in zip(got[1:], want[1:]):
+        _bf16_close(a, w)
+
+
+# the one-launch backward's grids at (6, 256, 384): blocks that walk 16, 4
+# and 1 row steps of their batch row, and more blocks than row steps
+@pytest.mark.parametrize("blocks", [1, 4, 16, 40])
+def test_ln_spatial_mean_bwd_bf16_grids(dev, blocks):
+    """Each grid against the plain version at the bf16 gate, bit-identical
+    over two launches, in one launch; without the forward's means the
+    one-launch plan is refused."""
+    B, rows, C = 6, 256, 384
+    x, s, b, dm = _lnm_bf16_case(blocks, B, rows, C, BF16, dev)
+    _, xmean = layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, with_mean=True)
+    plan = layer_norm.lnm_bwd_plan(B, rows, C, io=BF16)._replace(blocks=blocks)
+    got = layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, plan, xmean=xmean)
+    again = layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, plan, xmean=xmean)
+    _, want = _grads(_lnm_plain, [x, s, b], dm)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        _bf16_close(g.to(w.dtype), w)
+    assert len(_kernel_launches(
+        lambda: layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, plan, xmean=xmean))) == 1
+    with pytest.raises(ValueError, match="xmean"):
+        layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, plan)
+
+
+def _kernel_launches(run, captures=3):
+    """The kernels `run` launches on the card, by the profiler (memsets and
+    copies excluded), once `run` has been called before: the most that any
+    of `captures` captures of one call recorded (a capture sometimes misses
+    a kernel, never adds one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    best = []
+    for _ in range(captures):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "memset" not in e.name.lower() and "memcpy" not in e.name.lower()]
+        best = max(best, names, key=len)
+    return best
+
+
+@pytest.mark.parametrize("params", [BF16, torch.float32])
+@pytest.mark.parametrize("B,rows,C,offset", [(6, 256, 384, 0), (12, 4096, 96, 0),
+                                             (2, 5, 100, 0), (3, 37, 96, 1), (2, 9, 30, 0)])
+def test_ln_spatial_mean_bf16_launches(dev, B, rows, C, offset, params):
+    """The launches of a call, counted by the profiler: one for every
+    forward as BiAttn calls it (no cast of the parameters), one for a
+    backward on the quads and two off them (misaligned x, C = 30), as the
+    plans say."""
+    x, s, b, dm = _lnm_bf16_case(rows + C, B, rows, C, params, dev, offset)
+    aligned = x.data_ptr() % 8 == 0
+    with torch.no_grad():
+        assert len(_kernel_launches(lambda: _lnm(x, s, b))) == 1
+    _, xmean = layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, with_mean=True)
+    plan = layer_norm.lnm_bwd_plan(B, rows, C, io=BF16, aligned=aligned)
+    assert plan.quads == (aligned and C % 4 == 0) == (xmean is not None)
+    names = _kernel_launches(lambda: layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, xmean=xmean))
+    assert len(names) == (1 if plan.quads else 2), names
+
+
 # the backward's bf16 design: blocks that walk one tile and several (12, 64,
 # 64, 192 walks five tiles a block), grids of fewer blocks than SMs at the
 # small images (2, 8, 8, 1536 and 4, 16, 16, 768), a ragged image and C (40),

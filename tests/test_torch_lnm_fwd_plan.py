@@ -66,7 +66,8 @@ def test_plan_constants_are_the_source_s():
     src = (CSRC / "ln_mean_fwd.cu").read_text()
     consts = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
     assert consts == {"kFwdBlock": layer_norm.FWD_BLOCK, "kRowValues": layer_norm.FWD_ROW_VALUES,
-                      "kMaxCluster": layer_norm.FWD_MAX_CLUSTER}
+                      "kMaxCluster": layer_norm.FWD_MAX_CLUSTER,
+                      "kQuadRows": layer_norm.FWD_QUAD_ROWS}
 
 
 @pytest.mark.parametrize("B,rows,C", _shapes() + _RAGGED)
