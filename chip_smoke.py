@@ -9,7 +9,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                nvcc's register and shared-memory report and the entries
                that ptxas reports spilling; `build_lnm_bf16` lists the
                registers and spills of the bf16 LN-mean designs' instances
-               and fails on a spill in any bf16 instance of #5 or #6.
+               and fails on a spill in any bf16 instance of #5 or #6;
+               `build_scan_bf16` does the same for every bf16 instance of
+               the scans, #1 and #2.
   3. kernel  - each of the five forward kernels against its plain PyTorch
                version at every shape of the serving path (full config, 8
                pairs of 256^2; the encoder runs both modalities as 16): max
@@ -2416,6 +2418,16 @@ def main() -> None:
     emit({"phase": "build_lnm_bf16", "instances": lnm, "bf16_spills": lnm_spills})
     if not lnm or lnm_spills:
         fail(f"the bf16 LN-mean instances: {len(lnm)} built, spills {lnm_spills}")
+    # every bf16 instance of the scans (the forward's, the backward's local
+    # and main passes): registers and spills of each
+    scan16 = {e: lns for e, lns in _instances(ptxas, ("selective_scan",)).items()
+              if "bfloat16" in e}
+    scan16_spills = {**_bf16_spills("scan", spills), **_bf16_spills("scan_bwd", spills)}
+    emit({"phase": "build_scan_bf16", "instances": scan16, "bf16_spills": scan16_spills})
+    kinds = ("selective_scan_fwd_kernel", "selective_scan_bwd_local_bf16_kernel",
+             "selective_scan_bwd_bf16_kernel")
+    if not all(any(k in e for e in scan16) for k in kinds) or scan16_spills:
+        fail(f"the bf16 scan instances: {len(scan16)} built, spills {scan16_spills}")
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)

@@ -16,6 +16,21 @@
 // channel tid / 4 and states 4 * (tid % 4) .. +3. Sums over the states are
 // two xor-shuffles. States n >= N are zeros that stay zeros.
 //
+// The bf16 variants (the bf16_path section below; the fp32 instances use none
+// of it and compile as they did). dt and W are bf16 there, and a product of
+// two bf16 values is exact in fp32, so the low-rank expansion
+// x = sum_r dt[t][r] W[d][r] runs on the tensor cores: warp-level
+// mma.sync.m16n8k16 with bf16 operands and fp32 accumulation, which gives the
+// fp32 sum with its adds in the tensor core's order. One warp multiplies the
+// tile of its own 8 channels (16 or 8 steps by 8 channels, k = R padded to a
+// multiple of 16 with zeros) in one to three instructions, taking its
+// operands straight from the staged bf16 tiles: `wgmma` wants 64-row tiles
+// and a warpgroup, far more than this product holds, and mma.sync needs no
+// descriptor, fence or barrier. A warp then reads only delta of its own
+// channels, so the expansion needs a __syncwarp where the fp32 variant's
+// needs a block barrier. The softplus and its slope take their MUFU form
+// (`softplus_mufu`).
+//
 // Chunks and carries. The recurrence h_l = e_l h_{l-1} + x_l is linear and
 // diagonal, so a chunk of steps maps its start state to
 //   h_end = P h_start + h_local,   P = exp(A * sum of delta over the chunk),
@@ -26,6 +41,8 @@
 // state. The adjoint recurrence g_l = C_l dy_l + e_{l+1} g_{l+1} is linear in
 // the same factors, and the same kernel walks it in reverse.
 #pragma once
+#include <type_traits>
+
 #include "io_types.cuh"
 
 namespace fm_scan {
@@ -182,12 +199,157 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// ---------------------------------------------------------------------------
+// bf16_path: the pieces of the bf16 variants.
+
+__device__ __forceinline__ float lg2_approx(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// softplus(x) = max(x, 0) + log1p(e), e = exp(-|x|) in (0, 1], in MUFU form:
+// e = ex2.approx(-|x| log2 e), which flushes results below 2^-126 to 0 (at
+// |x| > 87.3 the softplus is then max(x, 0) and the slope 0 or 1: off by
+// less than 1.2e-38). With u = 1 + e,
+//   e >= 1/16:  log1p(e) = lg2.approx(u) ln 2. lg2.approx's absolute error
+//               (about 2^-22) is under 2.7e-6 of log2(u) >= 0.087 there, and
+//               u's own rounding (at most 2^-24) under 1e-6 of log(u) >= 0.06;
+//   e <  1/16:  log1p(e) = e (1 - e/2 + e^2/3 - e^3/4 + e^4/5), whose
+//               truncation is under e^5/6 < 1.6e-7 of log1p(e). Near u = 1
+//               lg2.approx would be no good: its absolute error is about 1e-4
+//               of log2(u) at e = 2^-10.
+// The exponent's rounding moves e by up to |x| 2^-24 ln 2 relatively (4.8e-6
+// at |x| = 80). In all, within 1e-5 of log1pf(expf(-|x|)) at every x, two
+// special-function calls and a dozen fp32 instructions. The slope,
+// sigmoid(x) = 1/u for x >= 0 and e/u below, takes one rcp.approx of the same
+// u. tests/test_torch_scan_bf16_plans.py holds the formula against
+// jax.nn.softplus and jax.nn.sigmoid over x in [-80, 80].
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kSoftplusCut = 0.0625f;
+__device__ __forceinline__ float log1p_of_exp(float e, float u) {
+  float p = fmaf(e, 0.2f, -0.25f);
+  p = fmaf(e, p, 0.333333343f);
+  p = fmaf(e, p, -0.5f);
+  p = fmaf(e, p, 1.f);
+  return e < kSoftplusCut ? e * p : lg2_approx(u) * kLn2;
+}
+// delta = softplus(x) (x where `softplus` is 0) and its slope
+__device__ __forceinline__ void softplus_slope(float x, int softplus, float& delta, float& slope) {
+  delta = x;
+  slope = 1.f;
+  if (softplus) {
+    const float e = exp2_approx(-kLog2e * fabsf(x)), u = 1.f + e;
+    delta = fmaxf(x, 0.f) + log1p_of_exp(e, u);
+    const float inv = rcp_approx(u);
+    slope = x >= 0.f ? inv : e * inv;
+  }
+}
+__device__ __forceinline__ float softplus_mufu(float x, int softplus) {
+  if (!softplus) return x;
+  const float e = exp2_approx(-kLog2e * fabsf(x));
+  return fmaxf(x, 0.f) + log1p_of_exp(e, 1.f + e);
+}
+
+// One warp's D += A B on the tensor cores: A 16 x 16 (row), B 16 x 8 (col),
+// bf16 operands, fp32 sums. Lane (g, q) = (lane / 4, lane % 4) holds
+//   A: a0 = (row g, k 2q and 2q+1), a1 = (row g+8, k 2q..), a2 = (row g,
+//      k 2q+8..), a3 = (row g+8, k 2q+8..), the lower half the smaller k;
+//   B: b0 = (k 2q and 2q+1, column g), b1 = (k 2q+8.., column g);
+//   D: d[0], d[1] = (row g, columns 2q, 2q+1), d[2], d[3] = (row g+8, ..).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t bits(fm_io::bf16 v) { return __bfloat16_as_ushort(v); }
+__device__ __forceinline__ uint32_t pack2(fm_io::bf16 lo, fm_io::bf16 hi) {
+  return bits(lo) | (bits(hi) << 16);
+}
+// elements k and k+1 of a row of n bf16 values as one operand, zeros past n.
+// A row of even n starts 4-byte aligned in its staged tile (every R the
+// model uses is even: a dt row at R = 6 is 12 bytes), so the pair is one
+// 32-bit load; an odd n takes two 16-bit loads.
+__device__ __forceinline__ uint32_t pair_of(const fm_io::bf16* row, int k, int n) {
+  if (k >= n) return 0u;
+  if ((n & 1) == 0) return *reinterpret_cast<const uint32_t*>(row + k);
+  return k + 1 < n ? pack2(row[k], row[k + 1]) : bits(row[k]);
+}
+// Two fp32 values as two bf16 pairs, hi = bf16(v) and lo = bf16(v - hi):
+// for a bf16 B, hi B + lo B is v B with about 16 of v's bits (a relative
+// error near 2^-17), where one bf16 product would keep 8.
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Row stride of the bf16 W tile [channel][r] that the delta products read
+// (R rounded up to 16, plus 8: 4 words past a multiple of 8, so that the 8
+// channels' rows of one load fall in distinct banks).
+__host__ __device__ inline int w16_ld(int R) { return (R + 15) / 16 * 16 + 8; }
+// This block's W as bf16 [DB][w16_ld(R)], zeros past R and past `dim`.
+template <int DB>
+__device__ __forceinline__ void load_w16(const fm_io::bf16* W, fm_io::bf16* w16_s, int k, int d0,
+                                         int dim, int R, int tid, int nthreads) {
+  const int ld = w16_ld(R);
+  for (int i = tid; i < DB * ld; i += nthreads) {
+    const int dl = i / ld, r = i - dl * ld;
+    w16_s[i] = (r < R && d0 + dl < dim) ? W[((size_t)k * dim + d0 + dl) * R + r]
+                                        : __float2bfloat16_rn(0.f);
+  }
+}
+template <int DB>
+__device__ __forceinline__ void load_bias(const float* bias, float* bias_s, int k, int d0, int dim,
+                                          int tid, int nthreads) {
+  for (int i = tid; i < DB; i += nthreads) {
+    bias_s[i] = (bias && d0 + i < dim) ? bias[(size_t)k * dim + d0 + i] : 0.f;
+  }
+}
+
+// x = sum_r dt[t][r] W[c][r] on the tensor cores for the 8 channels c0 ..
+// c0+7 of a warp and the first ROWS (16 or 8) steps of a staged dt tile
+// ([t][R]): lane (g, q) gets x[g][c0 + 2q + j] in x[j] and, where ROWS is
+// 16, x[g + 8][c0 + 2q + j] in x[2 + j]. Products of bf16 values are exact
+// in fp32, so this is the fp32 sum in another order. Rows past the tile's
+// steps hold whatever their staged values give; nothing reads them.
+template <int ROWS>
+__device__ __forceinline__ void delta_products(const fm_io::bf16* dt_s, int R,
+                                               const fm_io::bf16* w16_s, int c0, int lane,
+                                               float (&x)[4]) {
+  const int g = lane >> 2, q = lane & 3;
+  x[0] = x[1] = x[2] = x[3] = 0.f;
+  const fm_io::bf16* a_lo = dt_s + g * R;
+  const fm_io::bf16* a_hi = dt_s + (g + 8) * R;
+  const fm_io::bf16* b = w16_s + (c0 + g) * w16_ld(R) + 2 * q;
+  for (int k0 = 0; k0 < R; k0 += 16) {
+    const int k = k0 + 2 * q;
+    const uint32_t a1 = ROWS == 16 ? pair_of(a_hi, k, R) : 0u;
+    const uint32_t a3 = ROWS == 16 ? pair_of(a_hi, k + 8, R) : 0u;
+    mma_bf16(x, pair_of(a_lo, k, R), a1, pair_of(a_lo, k + 8, R), a3,
+             *reinterpret_cast<const uint32_t*>(b + k0),
+             *reinterpret_cast<const uint32_t*>(b + k0 + 8));
+  }
+}
+// ---------------------------------------------------------------------------
+
 // delta (and, where dsp_s is given, the softplus' slope) of a staged tile of
 // Tc steps x DB channels, threads laid over (t, d) so that no lane repeats
 // another's exp and log:
 //   x = sum_r dt[t][r] W[d][r] + bias[d]      (x = dt[t][d] + bias[d] when R == 0)
 //   delta = max(x, 0) + log1p(exp(-|x|)),  slope = sigmoid(x).
 // dt_s is [t][R] (or [t][DB] when R == 0), w_s [r][DB + 1], bias_s [DB].
+// The bf16 variants call it only at R == 0 (the full-rank dt), with the
+// softplus in its MUFU form; at R > 0 they take `delta_products`.
 template <int DB, class IO>
 __device__ __forceinline__ void delta_phase(const IO* dt_s, const float* w_s,
                                             const float* bias_s, float* del_s, float* dsp_s,
@@ -203,7 +365,13 @@ __device__ __forceinline__ void delta_phase(const IO* dt_s, const float* w_s,
     }
     x += bias_s[dl];
     float delta = x, dsp = 1.f;
-    if (softplus) {
+    if constexpr (std::is_same<IO, fm_io::bf16>::value) {  // the MUFU form
+      if (dsp_s) {
+        softplus_slope(x, softplus, delta, dsp);
+      } else {
+        delta = softplus_mufu(x, softplus);
+      }
+    } else if (softplus) {
       const float e = expf(-fabsf(x));
       delta = fmaxf(x, 0.f) + log1pf(e);
       if (dsp_s) {  // sigmoid(x) through one reciprocal of a number in (1, 2]

@@ -27,7 +27,11 @@
 //    leaves its part of y in shared memory and the parts are summed when the
 //    tile is stored. No exp is computed twice within a pass: delta is
 //    expanded for a tile of 16 steps x 32 channels with threads laid over
-//    (t, d) before the serial loop reads it.
+//    (t, d) before the serial loop reads it. In the bf16 variant at R > 0
+//    each warp expands its own 8 channels' 16 steps on the tensor cores
+//    (`delta_products`, scan_common.cuh) and takes the softplus in its MUFU
+//    form, so the expansion needs no block barrier; the fp32 instances are
+//    unchanged.
 //  * Nothing in the serial loop touches device memory. Tiles of 16 steps of
 //    u, dt, B and C arrive through a two-stage cp.async ring, one tile ahead
 //    of use; y leaves as whole tiles, 16 bytes a thread.
@@ -60,9 +64,15 @@ __host__ __device__ inline int stage_elems(int N, int R) {
   return kTile * kDB + (R > 0 ? kTile * R : kTile * kDB) + 2 * kTile * N;
 }
 __host__ __device__ inline int w_floats(int R) { return (R * (kDB + 1) + 3) & ~3; }
+// floats before the bias: fp32 W [r][kDB + 1]; bf16 W [kDB][w16_ld(R)] as bf16
+template <class IO>
+__host__ __device__ inline int w_region_floats(int R) {
+  if constexpr (std::is_same<IO, fm_io::bf16>::value) return R > 0 ? kDB * w16_ld(R) / 2 : 0;
+  return w_floats(R);
+}
 template <class IO>
 __host__ __device__ inline size_t smem_bytes(int N, int R) {
-  return sizeof(float) * ((size_t)w_floats(R) + kDB + kTile * kDB + kTile * kThreads) +
+  return sizeof(float) * ((size_t)w_region_floats<IO>(R) + kDB + kTile * kDB + kTile * kThreads) +
          sizeof(IO) * 2 * (size_t)stage_elems(N, R);
 }
 
@@ -105,9 +115,10 @@ selective_scan_fwd_kernel(const IO* __restrict__ u, const IO* __restrict__ dt,
                           float* __restrict__ carry, float* __restrict__ sdel, int K, int L,
                           int dim, int N, int R, int softplus, int save_every, int chunk_len,
                           int n_chunk) {
+  constexpr bool kBf16 = std::is_same<IO, fm_io::bf16>::value;
   extern __shared__ __align__(16) float smem[];
-  float* w_s = smem;                       // [R][kDB + 1]
-  float* bias_s = w_s + w_floats(R);       // [kDB]
+  float* w_s = smem;                       // [R][kDB + 1]; bf16: [kDB][w16_ld(R)] of bf16
+  float* bias_s = w_s + w_region_floats<IO>(R);  // [kDB]
   float* del_s = bias_s + kDB;             // [kTile][kDB]
   float* y_s = del_s + kTile * kDB;        // [kTile][kThreads]: each lane's part of y
   IO* ring = reinterpret_cast<IO*>(y_s + kTile * kThreads);  // 2 stages of u, dt, B, C tiles
@@ -127,7 +138,12 @@ selective_scan_fwd_kernel(const IO* __restrict__ u, const IO* __restrict__ dt,
   if (cols < kDB) {  // the columns past `dim` are never copied: they read as 0
     for (int i = tid; i < 2 * stage_sz; i += kThreads) ring[i] = from_f<IO>(0.f);
   }
-  load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
+  if constexpr (kBf16) {
+    if (R > 0) load_w16<kDB>(W, reinterpret_cast<IO*>(w_s), k, d0, dim, R, tid, kThreads);
+    load_bias<kDB>(bias, bias_s, k, d0, dim, tid, kThreads);
+  } else {
+    load_w_bias<kDB>(W, bias, w_s, bias_s, k, d0, dim, R, tid, kThreads);
+  }
 
   float a[kPer], h[kPer];
 #pragma unroll
@@ -172,8 +188,26 @@ selective_scan_fwd_kernel(const IO* __restrict__ u, const IO* __restrict__ dt,
     const IO* b_s = dt_s + dt_sz;
     const IO* c_s = b_s + kTile * N;
     const int l0 = l_begin + i * kTile, Tc = min(kTile, l_end - l0);
-    delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
-    __syncthreads();
+    if constexpr (kBf16) {
+      if (R > 0) {  // on the tensor cores; a warp's loop reads its own channels' delta
+        const int lane = tid & 31, c0 = tid / 32 * 8;
+        float x[4];
+        delta_products<kTile>(dt_s, R, reinterpret_cast<const IO*>(w_s), c0, lane, x);
+        const int t = lane >> 2, cl = c0 + 2 * (lane & 3);
+        const float b0 = bias_s[cl], b1 = bias_s[cl + 1];
+        *reinterpret_cast<float2*>(del_s + t * kDB + cl) =
+            make_float2(softplus_mufu(x[0] + b0, softplus), softplus_mufu(x[1] + b1, softplus));
+        *reinterpret_cast<float2*>(del_s + (t + 8) * kDB + cl) =
+            make_float2(softplus_mufu(x[2] + b0, softplus), softplus_mufu(x[3] + b1, softplus));
+        __syncwarp();
+      } else {
+        delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
+        __syncthreads();
+      }
+    } else {
+      delta_phase<kDB>(dt_s, w_s, bias_s, del_s, nullptr, Tc, R, softplus, tid, kThreads);
+      __syncthreads();
+    }
 
     // the serial loop, in runs of `run` steps with no branch inside, so that
     // the compiler overlaps the steps' loads and exps; states are saved

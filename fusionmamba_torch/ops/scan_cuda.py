@@ -15,12 +15,16 @@ recomputes each tile of states. See the sources for the designs.
 Both take fp32 or bf16 I/O (`cuda_lib.entry`): u, dt, its low-rank weight,
 B, C, y and their gradients in the I/O dtype, A, D, the dt bias, the saved
 states and their gradients fp32, as the JAX package's kernels take them;
-the math inside is fp32 either way.
+the math inside is fp32 either way. The bf16 variants form the low-rank
+products on the bf16 tensor cores (exact products, fp32 sums), take the
+softplus in MUFU form, and have shared-memory layouts of their own
+(`fwd_smem_bytes`, `bwd_smem_bytes` take the I/O dtype).
 """
 from __future__ import annotations
 
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_lib
 
@@ -90,20 +94,41 @@ def _round4(x):
     return (x + 3) & ~3
 
 
-def fwd_smem_bytes(N, R):
-    """Dynamic shared memory of a forward block (`smem_floats` in the source)."""
+def _round(x, m):
+    return -(-x // m) * m
+
+
+def w16_ld(R):
+    """Row stride of the bf16 variants' W tile [channel][r] (`w16_ld` in
+    `csrc/scan_common.cuh`): R rounded up to 16, plus 8."""
+    return _round(R, 16) + 8
+
+
+def fwd_smem_bytes(N, R, io=torch.float32):
+    """Dynamic shared memory of a forward block (`smem_bytes` in the
+    source): W (fp32 [R][33], or bf16 [32][w16_ld(R)] in the bf16 variant),
+    the bias, delta, the lanes' parts of y and two ring stages of I/O tiles."""
     stage = TILE * _FWD_BLOCK + (TILE * R if R else TILE * _FWD_BLOCK) + 2 * TILE * N
-    return 4 * (_round4(R * (_FWD_BLOCK + 1)) + _FWD_BLOCK + TILE * _FWD_BLOCK * (1 + _LANES)
-                + 2 * stage)
+    rest = 4 * (_FWD_BLOCK + TILE * _FWD_BLOCK * (1 + _LANES))
+    if io == torch.bfloat16:
+        return (2 * _FWD_BLOCK * w16_ld(R) if R else 0) + rest + 2 * 2 * stage
+    return 4 * _round4(R * (_FWD_BLOCK + 1)) + rest + 4 * 2 * stage
 
 
-def bwd_smem_bytes(N, R):
-    """Dynamic shared memory of a block of the backward's main pass."""
+def bwd_smem_bytes(N, R, io=torch.float32):
+    """Dynamic shared memory of a block of the backward's main pass (fp32:
+    `smem_bytes` in the source; bf16: `Bf16Layout`)."""
     DB, T = _BWD_BLOCK, SAVE_EVERY
+    h = 4 * (T + 1) * (DB * MAX_STATE + 16)
+    if io == torch.bfloat16:
+        stage = (2 * (2 * T * DB + (_round(T * R, 8) if R else T * DB) + 2 * T * MAX_STATE)
+                 + 4 * DB * MAX_STATE)   # B and C with room for 16 states
+        w16 = 2 * DB * w16_ld(R) if R else 0
+        wt, dw = 2 * _round(R, 8) * (DB + 8), 16 * -(-R // 16) * _LANES * DB
+        return w16 + wt + dw + 4 * DB + 2 * 4 * T * DB + h + 2 * stage
     stage = (2 * T * DB + (_round4(T * R) if R else T * DB) + 2 * _round4(T * N)
              + DB * MAX_STATE)
-    return 4 * (2 * _round4(R * (DB + 1)) + DB + 2 * T * DB
-                + (T + 1) * (DB * MAX_STATE + 16) + 2 * stage)
+    return 4 * (2 * _round4(R * (DB + 1)) + DB + 2 * T * DB + 2 * stage) + h
 
 
 def _pick_chunk(chunk, batch, K, L, dim, device, warps_per_sm):
@@ -132,7 +157,7 @@ def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
     global launches, bf16_launches
     batch, K, L, dim, N, R, io = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
                                         dt_lowrank_weight)
-    if fwd_smem_bytes(N, R) > _SMEM_LIMIT:
+    if fwd_smem_bytes(N, R, io) > _SMEM_LIMIT:
         raise ValueError(f"selective_scan: dt rank {R} too large for the kernel")
     dev = u.device
     out = torch.empty_like(u)
@@ -181,7 +206,16 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
     if (tuple(hsave.shape) != (batch * K, -(-L // SAVE_EVERY), dim, N)
             or dy.shape != u.shape):
         raise ValueError("selective_scan backward: inconsistent shapes")
-    if bwd_smem_bytes(N, R) > _SMEM_LIMIT:
+    if io == torch.bfloat16 and N < MAX_STATE:
+        # the bf16 kernel runs 16 states a channel: A, B, C and the saved
+        # states padded with zeros keep the states past N at zero
+        pad = (0, MAX_STATE - N)
+        du, ddt, dA, dB, dC, dD, dbias, dW = selective_scan_bwd(
+            u, delta, F.pad(A, pad), F.pad(Bmat, pad), F.pad(Cmat, pad), D, delta_bias,
+            dt_lowrank_weight, F.pad(hsave, pad), dy, delta_softplus, chunk)
+        return (du, ddt, dA[..., :N].contiguous(), dB[..., :N].contiguous(),
+                dC[..., :N].contiguous(), dD, dbias, dW)
+    if bwd_smem_bytes(N, R, io) > _SMEM_LIMIT:
         raise ValueError(f"selective_scan backward: dt rank {R} too large for the kernel")
     chunk = _pick_chunk(chunk, batch, K, L, dim, dev, BWD_WARPS_PER_SM)
     n_chunk = -(-L // chunk)

@@ -621,6 +621,102 @@ def test_scan_kernels_bf16(dev, batch, L, D, N, R, chunk):
                 _bf16_close(a, b)
 
 
+# the bf16 scans' tensor-core and MUFU designs: every training shape of the
+# fusion step (batch 6, the encoder's 12; K = 4), explicit chunks (one and
+# several, also at R = 0), ragged D with slow decay, and a dt view that
+# starts 2 bytes past an aligned address
+_BF16_TRAIN_SCANS = [(b, L, D, R) for b in (6, 12)
+                     for L, D, R in ((1024, 192, 6), (256, 384, 12), (64, 768, 24),
+                                     (16, 1536, 48))]
+
+
+def _bf16_scan_args(dev, seed, batch, L, D, N, R, shift=-1.0, a_scale=1.0, dt_offset=0):
+    case = _scan_case(seed, batch, L, D, N, R, shift=shift, a_scale=a_scale)
+    io = {0, 1, 3, 4, 7}
+    args = [None if t is None else (t.to(BF16) if i in io else t).to(dev)
+            for i, t in enumerate(case)]
+    if dt_offset:
+        store = torch.empty(args[1].numel() + dt_offset, device=dev, dtype=BF16)
+        view = store[dt_offset:].view(args[1].shape)
+        view.copy_(args[1])
+        args[1] = view
+    return args
+
+
+def _bf16_scan_plain(*a):
+    return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
+
+
+def _bf16_chunked_check(args, dy, chunk):
+    """The kernels with L cut into `chunk`-step chunks against the plain
+    version (the output, every gradient), two launches bit-identical."""
+    with torch.no_grad():
+        y, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True,
+                                                chunk=chunk)
+        again = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], chunk=chunk)
+        got = scan_cuda.selective_scan_bwd(*args, hsave, dy, True, chunk=chunk)
+        got2 = scan_cuda.selective_scan_bwd(*args, hsave, dy, True, chunk=chunk)
+    torch.cuda.synchronize()
+    yw, want = _grads(_bf16_scan_plain, args, dy)
+    _bf16_close(y, yw)
+    assert torch.equal(y, again)
+    for g, w, g2 in zip([g for g in got if g is not None], want,
+                        [g for g in got2 if g is not None]):
+        _bf16_close(g, w)
+        assert torch.equal(g, g2)
+
+
+@pytest.mark.parametrize("batch,L,D,R", _BF16_TRAIN_SCANS)
+def test_scan_kernels_bf16_training_shapes(dev, batch, L, D, R):
+    """The fusion step's bf16 scans through the op (forward and, through its
+    autograd Function, the backward) against the plain version."""
+    args = _bf16_scan_args(dev, L + D + batch, batch, L, D, 16, R)
+    dy = torch.randn(batch, 4, L, D, generator=torch.Generator().manual_seed(L)).to(dev, BF16)
+
+    def kernel(u, dt, A, Bm, Cm, Dp, bias, W):
+        return selective_scan(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True,
+                              dt_lowrank_weight=W)
+
+    _check_bf16(kernel, _bf16_scan_plain, args, None, [(scan_cuda, "bf16_launches")])
+    _check_bf16(kernel, _bf16_scan_plain, args, dy, [(scan_cuda, "bf16_bwd_launches")])
+
+
+@pytest.mark.parametrize("batch,L,D,R,chunk", [
+    (2, 256, 384, 12, 64), (2, 256, 384, 12, 256), (6, 1024, 192, 6, 128),
+    (6, 1024, 192, 6, 1024), (2, 64, 768, 24, 16), (2, 63, 40, 0, 32), (2, 64, 96, 0, 64),
+    (1, 97, 33, 5, 32)])
+def test_scan_kernels_bf16_chunks(dev, batch, L, D, R, chunk):
+    """One chunk and several (the forward's local and carry passes, the
+    backward's adjoint carries), R = 0 (the full dt: the block-wide delta
+    phase) and an odd R (16-bit operand loads)."""
+    args = _bf16_scan_args(dev, L * 3 + D, batch, L, D, 16, R)
+    dy = torch.randn(batch, 4, L, D, generator=torch.Generator().manual_seed(D)).to(dev, BF16)
+    _bf16_chunked_check(args, dy, chunk)
+
+
+@pytest.mark.parametrize("L,D,R,chunk", [(96, 40, 6, 32), (96, 70, 0, 32), (256, 32, 2, 64),
+                                         (100, 130, 6, 48)])
+def test_scan_backward_kernel_bf16_ragged_d_slow_decay(dev, L, D, R, chunk):
+    """The bf16 twin of test_scan_backward_kernel_ragged_d_slow_decay: D not a
+    multiple of the blocks' channels, several chunks, |A| near 0.01, so that
+    whatever a lane past D carried would reach the sums over the block's
+    channels (dB, dC, d(dt), dW) at full size."""
+    args = _bf16_scan_args(dev, L + D, 2, L, D, 16, R, shift=0.0, a_scale=0.01)
+    dy = torch.randn(2, 4, L, D, generator=torch.Generator().manual_seed(L * D)).to(dev, BF16)
+    _bf16_chunked_check(args, dy, chunk)
+
+
+@pytest.mark.parametrize("R", [6, 5])
+def test_scan_kernels_bf16_misaligned_dt(dev, R):
+    """dt a view 2 bytes past an aligned address (its tiles staged a value
+    at a time), at an even and an odd R."""
+    args = _bf16_scan_args(dev, 11 + R, 2, 80, 96, 16, R, dt_offset=1)
+    assert args[1].data_ptr() % 4 == 2
+    dy = torch.randn(2, 4, 80, 96, generator=torch.Generator().manual_seed(R)).to(dev, BF16)
+    _bf16_chunked_check(args, dy, 32)
+    _bf16_chunked_check(args, dy, 80 + 16)
+
+
 # the backward's bf16 design: every model width (C = 24 ... 1536, two to
 # 128 lanes a row), C outside its templates (40, 100: masked quads; 30 and
 # 3: not a multiple of 4, the strided templates), rows that leave groups of
