@@ -809,11 +809,12 @@ selective_scan_bwd_bf16_kernel(const fm_io::bf16* __restrict__ u, const fm_io::b
     store_rows<kDB>(du + (row0 + l0) * dim + d0, dim, u_s, Tc, cols, tid, kThreads);
     if (R > 0) {
       // d(dt)[t][r] = sum over the block's 64 channels of dx[t][d] W[d][r]:
-      // warp j takes the columns 8j .. 8j+7, rows t = the tile's 8 steps
-      if (c0 < R) {
+      // warp j takes the column groups 8j, 8j + 64, ... (8 columns each)
+      // below R, rows t = the tile's 8 steps
+      for (int cg = c0; cg < R; cg += 8 * kWarps) {
         float cacc[4] = {0.f, 0.f, 0.f, 0.f};
         const float* xrow = dx_s + fg * kDB + 2 * fq;
-        const IO* wrow = wt_s + (c0 + fg) * kWtLd + 2 * fq;
+        const IO* wrow = wt_s + (cg + fg) * kWtLd + 2 * fq;
 #pragma unroll
         for (int k0 = 0; k0 < kDB; k0 += 16) {
           const float2 v0 = *reinterpret_cast<const float2*>(xrow + k0);
@@ -826,7 +827,7 @@ selective_scan_bwd_bf16_kernel(const fm_io::bf16* __restrict__ u, const fm_io::b
           mma_bf16(cacc, h0, 0u, h1, 0u, b0, b1);
           mma_bf16(cacc, lo0, 0u, lo1, 0u, b0, b1);
         }
-        const int r = c0 + 2 * fq;
+        const int r = cg + 2 * fq;
         if (fg < Tc) {
           if (r < R) ddt_p[(prow + fg) * R + r] = cacc[0];
           if (r + 1 < R) ddt_p[(prow + fg) * R + r + 1] = cacc[1];

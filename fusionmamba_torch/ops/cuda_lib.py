@@ -8,7 +8,9 @@ on the stream it is given and returns `cudaGetLastError()`.
 The build happens at first use, into `build/fusionmamba_torch/<hash>/` beside
 the package, where `<hash>` covers the sources and the flags: an edited source
 gets a fresh build and a finished build is reused. Nothing is compiled when a
-module is imported, so the CPU path needs no CUDA toolkit.
+module is imported, so the CPU path needs no CUDA toolkit. A process whose
+environment sets FM_CUDA_SOURCES (a comma-separated subset of SOURCES) builds
+and loads only those sources: a timing tool need not wait for the others.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfusionmamba_kernels.so"
+SOURCES_ENV = "FM_CUDA_SOURCES"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -86,8 +89,20 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def sources() -> tuple[str, ...]:
+    """The sources this process builds: SOURCES, or the subset of them that
+    FM_CUDA_SOURCES names."""
+    names = os.environ.get(SOURCES_ENV)
+    if not names:
+        return SOURCES
+    unknown = set(names.split(",")) - set(SOURCES)
+    if unknown:
+        raise ValueError(f"{SOURCES_ENV}: no such source {sorted(unknown)}")
+    return tuple(s for s in SOURCES if s in names.split(","))
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, "|", *srcs)).encode())
     for name in sorted(p.name for p in CSRC.iterdir()):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
@@ -107,7 +122,8 @@ def _run_all(cmds):
 def build() -> tuple[Path, str]:
     """Compile the kernels if this source set has no library yet. Returns the
     library's path and the compiler's output (empty when it was built before)."""
-    out_dir = BUILD_ROOT / _digest()
+    srcs = sources()
+    out_dir = BUILD_ROOT / _digest(srcs)
     lib_path = out_dir / LIB_NAME
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / "lock", "w") as lock:
@@ -115,9 +131,9 @@ def build() -> tuple[Path, str]:
         if lib_path.exists():
             return lib_path, ""
         nvcc = _nvcc()
-        objs = [out_dir / (s + ".o") for s in SOURCES]
+        objs = [out_dir / (s + ".o") for s in srcs]
         log = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)]
-                        for s, o in zip(SOURCES, objs)])
+                        for s, o in zip(srcs, objs)])
         tmp = out_dir / (LIB_NAME + ".tmp")
         log += _run_all([[nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
                           "-o", str(tmp), *map(str, objs)]])
@@ -130,7 +146,10 @@ def lib() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         handle = ctypes.CDLL(str(build()[0]))
+        subset = sources() != SOURCES
         for name, argtypes in SIGNATURES.items():
+            if subset and not hasattr(handle, name):
+                continue  # an entry of a source left out of this build
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -9,9 +9,10 @@ Run from the root of a checkout (it reads the shapes from `chip_smoke.py`).
 Each TREE is a directory that holds a `fusionmamba_torch` package (another
 commit unpacked with `git archive`); each round runs every tree in a process
 of its own, in the given order in even rounds and the reverse order in odd
-ones. A process builds its tree's kernels, makes the same seeded inputs (x
-bf16; scale and bias bf16, as a bf16 step hands them to BiAttn; dm fp32) and
-takes at each shape the device time a call (torch.profiler: the median of 3
+ones (`_ab.compare`). A process builds its tree's kernels, makes the same
+seeded inputs (x bf16; scale and bias bf16, as a bf16 step hands them to
+BiAttn; dm fp32) and
+takes at each shape the device time a call (`_ab.device_ms`: the median of 3
 captures of 20 calls, every kernel and memset of the call) of
   fwd_op:     `ln_spatial_mean(x, scale, bias)` as BiAttn calls it without a
               gradient (a tree whose op casts the parameters times the casts);
@@ -26,9 +27,9 @@ their plans' blocks an SM (`BF16_FWD_BLOCKS_PER_SM`,
 
 Prints first the device time of a one-element fill (the least any launch
 costs: one cast launch), then one JSON line a tree, round and shape, then the
-card's name and power limit, and last one JSON object: for each tree the
-device ms a step (a serving forward; a training step of each batch) of each
-of the three, in each round, the largest difference of its bf16 outputs from
+card's name and power limit, and last one JSON object: for each tree and
+step (a serving forward; a training step of each batch) the device ms of
+each of the three, in each round, the largest difference of its bf16 outputs from
 the first tree's over the largest entry, and the largest absolute difference
 of its fp32 outputs (forward and backward on fp32 x and parameters) from the
 first tree's; with --sweep the sweep's step sums.
@@ -38,45 +39,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
-import tempfile
 
-CAPTURES, REPS = 3, 20
+REPS = 20
 FWD_PER_SM = (0.5, 1, 1.5, 2, 4)
 BWD_PER_SM = (0.5, 1, 2, 3, 4)
-
-
-def _device_ms(fn, by_kernel=None):
-    """The median over CAPTURES of the device time a call of `fn`; with a
-    dict `by_kernel`, each kernel's device time a call (the median
-    capture's) goes into it by name."""
-    import collections
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    times = []
-    for _ in range(CAPTURES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
-        names = collections.Counter()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                names[e.name.split("(")[0].split("<")[0]] += e.time_range.end - e.time_range.start
-        if names:
-            times.append((sum(names.values()) / 1e3 / REPS, names))
-    times.sort(key=lambda t: t[0])
-    if not times:
-        return None
-    total, names = times[len(times) // 2]
-    if by_kernel is not None:
-        by_kernel.update({k: v / 1e3 / REPS for k, v in names.items()})
-    return total
 
 
 def _inputs(i, shape, dev):
@@ -90,12 +57,15 @@ def _inputs(i, shape, dev):
     return x, s, b, torch.randn(B, C, device=dev, generator=gen)
 
 
-def _child(spec: dict) -> None:
+def child(spec: dict, ab) -> None:
     """In a tree's process: time its LN-mean pair at each shape (and sweep
     its plans), save its outputs."""
     import torch
 
     from fusionmamba_torch.ops import cuda_lib, layer_norm
+
+    def ms(fn, by_kernel=None):
+        return ab.device_ms(fn, REPS, by_kernel)
 
     dev = torch.device("cuda")
     cuda_lib.build()
@@ -119,7 +89,7 @@ def _child(spec: dict) -> None:
                 layer_norm.ln_spatial_mean_fwd(x32, s32, b32, 1e-5).cpu(),
                 *(t.cpu() for t in layer_norm.ln_spatial_mean_bwd(x32, s32, dm, 1e-5))]
             kernels = {}
-            line = {"shape": list(shape), **{k: _device_ms(f, kernels if k == "bwd" else None)
+            line = {"shape": list(shape), **{k: ms(f, kernels if k == "bwd" else None)
                                              for k, f in runs.items()}, "bwd_kernels": kernels}
             if spec.get("sweep"):
                 line["fwd_per_sm"], line["bwd_per_sm"] = {}, {}
@@ -129,12 +99,12 @@ def _child(spec: dict) -> None:
                     layer_norm.lnm_fwd_plan.cache_clear()
                     p = layer_norm.lnm_fwd_plan(*shape, sms, torch.bfloat16)
                     line["fwd_per_sm"][f] = {
-                        "cluster": p.cluster, "unroll": p.unroll, "ms": _device_ms(
+                        "cluster": p.cluster, "unroll": p.unroll, "ms": ms(
                             lambda p=p: layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, p))}
                 for f in BWD_PER_SM:
                     layer_norm.BF16_LNM_BWD_BLOCKS_PER_SM = f
                     p = layer_norm.lnm_bwd_plan(*shape, sms, torch.bfloat16)
-                    line["bwd_per_sm"][f] = {"blocks": p.blocks, "ms": _device_ms(
+                    line["bwd_per_sm"][f] = {"blocks": p.blocks, "ms": ms(
                         lambda p=p: layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5, p, **kw))}
                 layer_norm.BF16_FWD_BLOCKS_PER_SM, layer_norm.BF16_LNM_BWD_BLOCKS_PER_SM = kept
                 layer_norm.lnm_fwd_plan.cache_clear()
@@ -143,22 +113,12 @@ def _child(spec: dict) -> None:
         torch.save(outs, spec["save"])
 
 
-def _run_tree(tree: str, spec: dict) -> dict:
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", json.dumps(spec)],
-                          cwd=tree, env=env, capture_output=True, text=True)
-    if proc.returncode != 0:
-        sys.exit(f"{tree}: exit {proc.returncode}\n{proc.stderr[-4000:]}")
-    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
-    return {str(ln["shape"]): ln for ln in lines}
-
-
 def _sweep_sums(lines, calls):
     """Device ms a step (each batch's forwards and backwards) under each
     figure of the plans' blocks an SM, from the sweep's times."""
     out = {}
-    for kind, key in (("fwd", "fwd_per_sm"), ("bwd", "bwd_per_sm")):
-        figures = FWD_PER_SM if kind == "fwd" else BWD_PER_SM
+    for kind, key in (("fwd_op", "fwd_per_sm"), ("bwd", "bwd_per_sm")):
+        figures = FWD_PER_SM if kind == "fwd_op" else BWD_PER_SM
         out[key] = {f: {name: sum(n * lines[str(list(s))][key][str(f)]["ms"]
                                   for s, n in c[kind].items())
                         for name, c in calls.items() if c[kind]} for f in figures}
@@ -170,17 +130,14 @@ def main(argv=None) -> None:
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.child:
-        _child(json.loads(args.child))
-        return
     if not args.trees:
         ap.error("name at least one tree")
+    from fusionmamba_torch.tools import _ab
+
+    _ab.needs_card("lnm_bf16_ab")
     import torch
 
-    if not torch.cuda.is_available():
-        sys.exit("lnm_bf16_ab: no CUDA device")
     sys.path.insert(0, os.getcwd())
     from chip_smoke import SEG_PAIRS, SIZE, device_ms, main_path_calls, train_calls
 
@@ -190,49 +147,23 @@ def main(argv=None) -> None:
     print(json.dumps({"one_element_fill_device_ms": device_ms(lambda: one.fill_(1.0), reps=10)}),
           flush=True)
     cfg = full_config()
-    calls = {"serve 8": {"fwd": main_path_calls(cfg, 8, SIZE)["ln_mean"], "bwd": {}}}
+    serve = main_path_calls(cfg, 8, SIZE)["ln_mean"]
+    calls = {"serve 8": {"fwd_op": serve, "fwd_kernel": serve, "bwd": {}}}
     for p in (6, *SEG_PAIRS):
         t = train_calls(cfg, p, SIZE)
-        calls[f"train {p}"] = {"fwd": t["ln_mean"], "bwd": t["ln_mean_bwd"]}
-    shapes = sorted({s for c in calls.values() for s in c["fwd"]})
-    kinds = ("fwd_op", "fwd_kernel", "bwd")
-    step_ms = {t: {k: {name: [] for name in calls} for k in kinds} for t in args.trees}
-    sweep = None
-    with tempfile.TemporaryDirectory() as tmp:
-        saved = {t: os.path.join(tmp, f"{i}.pt") for i, t in enumerate(args.trees)}
-        for r in range(args.rounds):
-            for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):
-                spec = {"shapes": [list(s) for s in shapes], "save": saved[tree] if r == 0 else None}
-                got = _run_tree(tree, spec)
-                for s in shapes:
-                    print(json.dumps({"tree": tree, "round": r, **got[str(list(s))]}), flush=True)
-                for k in kinds:
-                    for name, c in calls.items():
-                        if k == "bwd" and not c["bwd"]:
-                            continue
-                        step_ms[tree][k][name].append(
-                            sum(n * got[str(list(s))][k] for s, n in c[k[:3]].items()))
-        if args.sweep:
-            got = _run_tree(args.trees[0], {"shapes": [list(s) for s in shapes], "sweep": True})
-            for s in shapes:
-                print(json.dumps({"tree": args.trees[0], "sweep": True, **got[str(list(s))]}),
-                      flush=True)
-            sweep = _sweep_sums(got, calls)
-        ref = torch.load(saved[args.trees[0]])
-        diff, diff32 = {}, {}
-        for tree in args.trees:
-            outs = torch.load(saved[tree])
-            diff[tree] = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
-                             for k in ref if not k.startswith("fp32")
-                             for a, b in zip(outs[k], ref[k]))
-            diff32[tree] = max(float((a - b).abs().max()) for k in ref if k.startswith("fp32")
-                               for a, b in zip(outs[k], ref[k]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(smi)
-    print(json.dumps({"step_device_ms": step_ms, "max_rel_diff_vs_first": diff,
-                      "fp32_max_abs_diff_vs_first": diff32,
-                      **({"sweep_step_device_ms": sweep} if sweep else {})}))
+        calls[f"train {p}"] = {"fwd_op": t["ln_mean"], "fwd_kernel": t["ln_mean"],
+                               "bwd": t["ln_mean_bwd"]}
+    shapes = sorted({s for c in calls.values() for s in c["fwd_op"]})
+    result = _ab.compare("lnm_bf16_ab", args.trees, shapes, calls, args.rounds, {})
+    if args.sweep:
+        first = args.trees[0]
+        got = _ab.by_shape(_ab.lines(first, _ab.spawn(
+            "lnm_bf16_ab", first, {"shapes": [list(s) for s in shapes], "sweep": True})))
+        for s in shapes:
+            print(json.dumps({"tree": first, "sweep": True, **got[str(list(s))]}), flush=True)
+        result["sweep_step_device_ms"] = _sweep_sums(got, calls)
+    print(_ab.smi())
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

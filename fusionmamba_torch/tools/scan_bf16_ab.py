@@ -5,27 +5,30 @@ training steps: the fusion step's batch of 6 pairs and the segmentation
 steps' batches of 2 and 4.
 
     python3 -m fusionmamba_torch.tools.scan_bf16_ab [--rounds 2] [--train-only]
-        [--fp32] [--sass] [--chunks] TREE [TREE ...]
+        [--more] [--fp32] [--sass] [--chunks] TREE [TREE ...]
 
 Run from the root of a checkout (it reads the shapes from `chip_smoke.py`).
 Each TREE is a directory that holds a `fusionmamba_torch` package (another
 commit unpacked with `git archive`, or a copy with a kernel changed). Every
-tree's scan kernels are built first, all trees at once, each into its own
-`build/scan_ab/`; then each round runs every tree in a process of its own,
-in the given order in even rounds and the reverse order in odd ones. A
-process makes the same seeded inputs at each shape (bf16 u, dt, W, B, C and
-dy; fp32 A, D and bias, as a bf16 training step hands them to the scan) and
-takes the device time a call (torch.profiler: the median of 3 captures of
-10 calls, every kernel of the call) of
+tree's scan kernels are built first, all trees at once (only the scan
+sources, where the tree's `cuda_lib` reads FM_CUDA_SOURCES); then each round
+runs every tree in a process of its own, in the given order in even rounds
+and the reverse order in odd ones (`_ab.compare`). A process makes the same
+seeded inputs at each shape (bf16 u, dt, W, B, C and dy; fp32 A, D and bias,
+as a bf16 training step hands them to the scan) and takes the device time a
+call (`_ab.device_ms`: the median of 3 captures of 10 calls, every kernel of
+the call) of
   fwd: `selective_scan_fwd(..., save_states=True)`, as a training step calls it;
   bwd: `selective_scan_bwd` on the states that forward saved;
 with each kernel's share of both (`fwd_kernels`, `bwd_kernels`).
---train-only keeps the fusion step's 8 shapes.
+--train-only keeps the fusion step's 8 shapes; --more adds a data-parallel
+rank's batch of 3 (the fusion step under `--mesh 2,1`) and one call of each
+full-resolution scan (SS2D(scan_variant="fullres") at batch 2, L up to 4096).
 
 Prints one JSON line a tree, round and shape, then the card's name and power
-limit, and last one JSON object: for each tree the device ms a step of the
-forwards and of the backwards of each training step (calls a step times ms a
-call, summed over the shapes), in each round, and the largest difference of
+limit, and last one JSON object: for each tree and step the device ms of
+its forwards and of its backwards (calls a step times ms a call, summed over
+the shapes), in each round, and the largest difference of
 its bf16 outputs (y, the saved states and every gradient) from the first
 tree's over the largest entry.
   --fp32   also runs every tree's fp32 kernels on the fp32 casts of the same
@@ -36,8 +39,9 @@ tree's over the largest entry.
            prints, for every kernel instance, its instruction count and its
            tensor-core (HMMA), special-function (MUFU), barrier (BAR) and
            shared-memory (LDS, STS) instructions.
-  --chunks the first tree once more: the bf16 forward and backward at L =
-           1024 (batch 6 and 12) with L cut into 1, 2, 4, 8 and 16 chunks.
+  --chunks the last tree once more: the bf16 forward and backward at each
+           shape with L = 1024 with L cut into 1, 2, 4, 8 and 16 chunks,
+           beside the chunks the wrapper's rule picks (`picked`).
 """
 from __future__ import annotations
 
@@ -48,43 +52,10 @@ import os
 import re
 import subprocess
 import sys
-import tempfile
 
-CAPTURES, REPS = 3, 10
 CHUNK_CUTS = (1, 2, 4, 8, 16)
+SCAN_SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
 SASS_GROUPS = ("HMMA", "MUFU", "BAR", "LDS", "STS", "SHFL")
-
-
-def _device_ms(fn, by_kernel=None):
-    """The median over CAPTURES of the device time a call of `fn`; with a
-    dict `by_kernel`, each kernel's device time a call (the median
-    capture's) goes into it by name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    times = []
-    for _ in range(CAPTURES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                fn()
-            torch.cuda.synchronize()
-        names = collections.Counter()
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                name = e.name.replace("(anonymous namespace)::", "")
-                name = name.split("(")[0].split("<")[0].split(" ")[-1]
-                names[name] += e.time_range.end - e.time_range.start
-        if names:
-            times.append((sum(names.values()) / 1e3 / REPS, names))
-    if not times:
-        return None
-    times.sort(key=lambda t: t[0])
-    total, names = times[len(times) // 2]
-    if by_kernel is not None:
-        by_kernel.update({k: v / 1e3 / REPS for k, v in names.items()})
-    return total
 
 
 def _inputs(i, shape, dev):
@@ -108,19 +79,6 @@ def _inputs(i, shape, dev):
     return [u, dt, A, Bm, Cm, Dp, bias, W], rnd(B, K, L, D).to(bf)
 
 
-def _use_scan_sources_only():
-    """Build only the scan kernels, into the tree's `build/scan_ab/`, so that
-    a tree's build neither waits for the other kernels nor meets the full
-    library of the same sources."""
-    from fusionmamba_torch.ops import cuda_lib
-
-    cuda_lib.SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
-    cuda_lib.SIGNATURES = {k: v for k, v in cuda_lib.SIGNATURES.items()
-                           if k.startswith("fm_selective_scan")}
-    cuda_lib.BUILD_ROOT = cuda_lib.BUILD_ROOT.parent / "scan_ab"
-    return cuda_lib
-
-
 def _sass(cuda_lib):
     """{kernel instance: {"instructions": n, HMMA: n, ...}} of the tree's
     scan objects."""
@@ -128,7 +86,7 @@ def _sass(cuda_lib):
     cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
     line = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)")
     out = {}
-    for src in cuda_lib.SOURCES:
+    for src in SCAN_SOURCES:
         sass = subprocess.run([cuobjdump, "-sass", str(lib_path.parent / (src + ".o"))],
                               capture_output=True, text=True, check=True).stdout
         for chunk in sass.split("Function : ")[1:]:
@@ -139,10 +97,11 @@ def _sass(cuda_lib):
     return out
 
 
-def _child(spec: dict) -> None:
+def child(spec: dict, ab) -> None:
     """In a tree's process: build its scan kernels; unless only building,
     time them at each shape and save the outputs."""
-    cuda_lib = _use_scan_sources_only()
+    from fusionmamba_torch.ops import cuda_lib
+
     _, log = cuda_lib.build()
     if spec.get("build_only"):
         print(json.dumps({"ptxas": [ln.strip() for ln in log.splitlines()
@@ -169,18 +128,21 @@ def _child(spec: dict) -> None:
                 return scan_cuda.selective_scan_bwd(*t, hsave, dy, True)
 
             fk, bk = {}, {}
-            line = {"shape": list(shape), "fwd": _device_ms(fwd, fk), "fwd_kernels": fk,
-                    "bwd": _device_ms(bwd, bk), "bwd_kernels": bk}
+            line = {"shape": list(shape), "fwd": ab.device_ms(fwd, by_kernel=fk),
+                    "fwd_kernels": fk, "bwd": ab.device_ms(bwd, by_kernel=bk), "bwd_kernels": bk}
             if spec.get("chunks"):
                 B, K, L, D, R = shape
+                line["picked"] = {
+                    k: scan_cuda._pick_chunk(None, B, K, L, D, dev, rule) for k, rule in
+                    (("fwd", scan_cuda.FWD_WARPS_PER_SM), ("bwd", scan_cuda.BWD_WARPS_PER_SM))}
                 line["chunks"] = {}
                 for n in CHUNK_CUTS:
                     c = -(-L // n // scan_cuda.TILE) * scan_cuda.TILE
                     line["chunks"][n] = {
                         "chunk": c,
-                        "fwd": _device_ms(lambda c=c: scan_cuda.selective_scan_fwd(
+                        "fwd": ab.device_ms(lambda c=c: scan_cuda.selective_scan_fwd(
                             *t[:7], True, t[7], save_states=True, chunk=c)),
-                        "bwd": _device_ms(lambda c=c: scan_cuda.selective_scan_bwd(
+                        "bwd": ab.device_ms(lambda c=c: scan_cuda.selective_scan_bwd(
                             *t, hsave, dy, True, chunk=c))}
             if spec.get("save"):
                 y, hs = fwd()
@@ -198,94 +160,52 @@ def _child(spec: dict) -> None:
         torch.save(outs, spec["save"])
 
 
-def _run_tree(tree: str, spec: dict):
-    env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    return subprocess.Popen([sys.executable, os.path.abspath(__file__), "--child",
-                             json.dumps(spec)], cwd=tree, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
-
-
-def _lines(tree, proc):
-    out, err = proc.communicate()
-    if proc.returncode != 0:
-        sys.exit(f"{tree}: exit {proc.returncode}\n{err[-4000:]}")
-    return [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--rounds", type=int, default=2, help="0: build (and --sass) only")
     ap.add_argument("--train-only", action="store_true")
+    ap.add_argument("--more", action="store_true")
     ap.add_argument("--fp32", action="store_true")
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--chunks", action="store_true")
-    ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.child:
-        _child(json.loads(args.child))
-        return
     if not args.trees:
         ap.error("name at least one tree")
-    import torch
+    from fusionmamba_torch.tools import _ab
 
-    if not torch.cuda.is_available():
-        sys.exit("scan_bf16_ab: no CUDA device")
+    _ab.needs_card("scan_bf16_ab")
     sys.path.insert(0, os.getcwd())
-    from chip_smoke import SEG_PAIRS, SIZE, TRAIN_PAIRS, train_calls
+    from chip_smoke import SEG_PAIRS, SIZE, TRAIN_PAIRS, fullres_scan_shapes, train_calls
 
     from fusionmamba_torch.config import full_config
 
     cfg = full_config()
     calls = {}
-    for p in (TRAIN_PAIRS,) + (() if args.train_only else SEG_PAIRS):
+    pairs = (TRAIN_PAIRS,) + (() if args.train_only else SEG_PAIRS)
+    for p in pairs + ((TRAIN_PAIRS // 2,) if args.more else ()):
         t = train_calls(cfg, p, SIZE)
         calls[f"train {p}"] = {"fwd": t["scan"], "bwd": t["scan_bwd"]}
+    if args.more:
+        full = {s: 1 for s in fullres_scan_shapes(cfg, 2, SIZE)}
+        calls["fullres 2"] = {"fwd": full, "bwd": full}
     shapes = sorted({s for c in calls.values() for s in c["fwd"]})
 
-    builds = {tree: _run_tree(tree, {"build_only": True, "sass": args.sass})
-              for tree in args.trees}
+    builds = {tree: _ab.spawn("scan_bf16_ab", tree, {"build_only": True, "sass": args.sass},
+                              SCAN_SOURCES) for tree in args.trees}
     for tree, proc in builds.items():
-        for ln in _lines(tree, proc):
+        for ln in _ab.lines(tree, proc):
             print(json.dumps({"tree": tree, **ln}), flush=True)
-
-    step_ms = {t: {k: {name: [] for name in calls} for k in ("fwd", "bwd")} for t in args.trees}
-    with tempfile.TemporaryDirectory() as tmp:
-        saved = {t: os.path.join(tmp, f"{i}.pt") for i, t in enumerate(args.trees)}
-        for r in range(args.rounds):
-            for tree in (args.trees if r % 2 == 0 else args.trees[::-1]):
-                spec = {"shapes": [list(s) for s in shapes],
-                        "save": saved[tree] if r == 0 else None, "fp32": args.fp32}
-                got = {str(ln["shape"]): ln for ln in _lines(tree, _run_tree(tree, spec))}
-                for s in shapes:
-                    print(json.dumps({"tree": tree, "round": r, **got[str(list(s))]}),
-                          flush=True)
-                for k in ("fwd", "bwd"):
-                    for name, c in calls.items():
-                        step_ms[tree][k][name].append(
-                            sum(n * got[str(list(s))][k] for s, n in c[k].items()))
-        if args.chunks:
-            spec = {"shapes": [list(s) for s in shapes if s[2] == 1024], "chunks": True}
-            for ln in _lines(args.trees[0], _run_tree(args.trees[0], spec)):
-                print(json.dumps({"tree": args.trees[0], "chunk_sweep": True, **ln}),
-                      flush=True)
-        diff, diff32 = {}, {}
-        for tree in args.trees if args.rounds else ():
-            ref = torch.load(saved[args.trees[0]])
-            outs = torch.load(saved[tree])
-            diff[tree] = max(float((a.float() - b.float()).abs().max()
-                                   / b.float().abs().max().clamp_min(1e-30))
-                             for k in ref if not k.startswith("fp32")
-                             for a, b in zip(outs[k], ref[k]))
-            if args.fp32:
-                diff32[tree] = max(float((a - b).abs().max()) for k in ref
-                                   if k.startswith("fp32") for a, b in zip(outs[k], ref[k]))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(smi)
-    print(json.dumps({"step_device_ms": step_ms, "max_rel_diff_vs_first": diff,
-                      **({"fp32_max_abs_diff_vs_first": diff32} if args.fp32 else {})}))
-    if args.fp32 and any(v != 0.0 for v in diff32.values()):
+    result = _ab.compare("scan_bf16_ab", args.trees, shapes, calls, args.rounds,
+                         {"fp32": args.fp32}, SCAN_SOURCES)
+    if args.chunks:
+        last = args.trees[-1]
+        spec = {"shapes": [list(s) for s in shapes if s[2] == 1024], "chunks": True}
+        for ln in _ab.lines(last, _ab.spawn("scan_bf16_ab", last, spec, SCAN_SOURCES)):
+            print(json.dumps({"tree": last, "chunk_sweep": True, **ln}), flush=True)
+    print(_ab.smi())
+    print(json.dumps(result))
+    if any(v != 0.0 for v in result.get("fp32_max_abs_diff_vs_first", {}).values()):
         sys.exit("scan_bf16_ab: fp32 outputs differ from the first tree's")
 
 

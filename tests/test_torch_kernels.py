@@ -706,6 +706,17 @@ def test_scan_backward_kernel_bf16_ragged_d_slow_decay(dev, L, D, R, chunk):
     _bf16_chunked_check(args, dy, chunk)
 
 
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("R", [72, 128, 200])
+def test_scan_kernels_bf16_wide_rank(dev, R, chunk):
+    """A dt rank past the backward's 8 warps x 8 columns of d(dt) (SS2D's
+    ceil(d_model / 16) at d_model > 1024): warps take a second and third
+    column group, the last one ragged at R = 200; several chunks and one."""
+    args = _bf16_scan_args(dev, R + chunk, 2, 64, 130, 16, R)
+    dy = torch.randn(2, 4, 64, 130, generator=torch.Generator().manual_seed(R)).to(dev, BF16)
+    _bf16_chunked_check(args, dy, chunk)
+
+
 @pytest.mark.parametrize("R", [6, 5])
 def test_scan_kernels_bf16_misaligned_dt(dev, R):
     """dt a view 2 bytes past an aligned address (its tiles staged a value

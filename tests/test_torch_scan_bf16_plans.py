@@ -34,6 +34,7 @@ from fusionmamba_tpu.ops.selective_scan import selective_scan as jax_selective_s
 
 LOG2E, LN2, CUT = 1.4426950408889634, 0.6931471805599453, 0.0625
 FWD_DB, BWD_DB, T_FWD, T_BWD = 32, 64, 16, 8   # channels a block, steps a tile
+BWD_WARPS = 8                                  # warps of a backward block
 SMEM_PER_SM, RESERVED_PER_BLOCK = 228 * 1024, 1024   # an H100 SM's shared memory
 
 
@@ -179,27 +180,35 @@ def dw_products(dt_tile, R, dx, Tc, c0):
     return out[:R]
 
 
-def ddt_products(dx, wt, R, warp):
-    """The backward's d(dt) step for warp `warp` (columns r = 8 warp ..):
-    d(dt)[t][r] = sum over the block's 64 channels of dx[t][d] W[d][r],
-    rows t of the 8-step tile."""
-    c0 = 8 * warp
-    d = [[0.0] * 4 for _ in range(32)]
-    for k0 in range(0, BWD_DB, 16):
-        a = [[dx[l >> 2, k0 + 2 * (l & 3):k0 + 2 * (l & 3) + 2], [0, 0],
-              dx[l >> 2, k0 + 8 + 2 * (l & 3):k0 + 10 + 2 * (l & 3)], [0, 0]]
-             for l in range(32)]
-        b = [[wt[c0 + (l >> 2), k0 + 2 * (l & 3):k0 + 2 * (l & 3) + 2],
-              wt[c0 + (l >> 2), k0 + 8 + 2 * (l & 3):k0 + 10 + 2 * (l & 3)]] for l in range(32)]
-        d = mma_m16n8k16(a, b, d)
-    out = np.zeros((8, 8))
-    for lane in range(32):
-        g, q = lane >> 2, lane & 3
-        out[g, 2 * q:2 * q + 2] = d[lane][:2]
-    return out[:, :max(0, min(8, R - c0))]
+def ddt_products(dx, wt, R):
+    """The backward's d(dt) step for one tile: d(dt)[t][r] = sum over the
+    block's 64 channels of dx[t][d] W[d][r], rows t of the 8-step tile. As in
+    the kernel, warp j of the block's BWD_WARPS takes the column groups
+    8j, 8j + 64, ... below R; every (t, r) must be written exactly once."""
+    out = np.zeros((8, R))
+    written = np.zeros((8, R), int)
+    for warp in range(BWD_WARPS):
+        for cg in range(8 * warp, R, 8 * BWD_WARPS):
+            d = [[0.0] * 4 for _ in range(32)]
+            for k0 in range(0, BWD_DB, 16):
+                a = [[dx[l >> 2, k0 + 2 * (l & 3):k0 + 2 * (l & 3) + 2], [0, 0],
+                      dx[l >> 2, k0 + 8 + 2 * (l & 3):k0 + 10 + 2 * (l & 3)], [0, 0]]
+                     for l in range(32)]
+                b = [[wt[cg + (l >> 2), k0 + 2 * (l & 3):k0 + 2 * (l & 3) + 2],
+                      wt[cg + (l >> 2), k0 + 8 + 2 * (l & 3):k0 + 10 + 2 * (l & 3)]]
+                     for l in range(32)]
+                d = mma_m16n8k16(a, b, d)
+            for lane in range(32):
+                g, q = lane >> 2, lane & 3
+                for j in range(2):
+                    if cg + 2 * q + j < R:
+                        out[g, cg + 2 * q + j] = d[lane][j]
+                        written[g, cg + 2 * q + j] += 1
+    assert (written == 1).all(), written
+    return out
 
 
-@pytest.mark.parametrize("R", [0, 5, 6, 12, 24, 48])
+@pytest.mark.parametrize("R", [0, 5, 6, 12, 24, 48, 72, 128])
 @pytest.mark.parametrize("dim", [64, 40])
 def test_mma_tiling_covers_every_product_once(R, dim):
     """Integer inputs, so every sum is exact: the fragments of the forward's
@@ -237,7 +246,7 @@ def test_mma_tiling_covers_every_product_once(R, dim):
                                       dt[:Tc].T @ dx[:Tc, c0:c0 + 8])
     wt = np.zeros((-(-R // 8) * 8, BWD_DB + 8))
     wt[:R, :min(dim, BWD_DB)] = W[:BWD_DB].T
-    got = np.concatenate([ddt_products(dx, wt, R, w) for w in range(-(-R // 8))], axis=1)
+    got = ddt_products(dx, wt, R)
     np.testing.assert_array_equal(got[:Tc], dx[:Tc] @ wt[:R, :BWD_DB].T)
 
 
@@ -348,3 +357,52 @@ def test_bf16_shared_memory_fits_its_blocks(N, R):
     assert scan_cuda.fwd_smem_bytes(N, R, torch.bfloat16) <= 48 * 1024
     need = scan_cuda.bwd_smem_bytes(N, R, torch.bfloat16) + RESERVED_PER_BLOCK
     assert 2 * need <= SMEM_PER_SM
+
+
+# ---------------------------------------------------------------------------
+# the A/B tool and the subset build it asks for
+
+def test_scan_bf16_ab_needs_trees_and_a_card():
+    """The A/B timing tool asks for at least one checkout, and without a
+    card exits before it starts any process."""
+    from fusionmamba_torch.tools import scan_bf16_ab
+
+    with pytest.raises(SystemExit):
+        scan_bf16_ab.main([])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        scan_bf16_ab.main(["."])
+
+
+def test_cuda_lib_builds_the_sources_the_environment_names(monkeypatch):
+    """FM_CUDA_SOURCES picks a subset of the sources, in their own order,
+    into a build directory of its own; a name that is no source raises."""
+    from fusionmamba_torch.ops import cuda_lib
+
+    monkeypatch.delenv(cuda_lib.SOURCES_ENV, raising=False)
+    assert cuda_lib.sources() == cuda_lib.SOURCES
+    full = cuda_lib._digest(cuda_lib.sources())
+    monkeypatch.setenv(cuda_lib.SOURCES_ENV, "selective_scan_bwd.cu,selective_scan_fwd.cu")
+    assert cuda_lib.sources() == ("selective_scan_fwd.cu", "selective_scan_bwd.cu")
+    assert cuda_lib._digest(cuda_lib.sources()) != full
+    monkeypatch.setenv(cuda_lib.SOURCES_ENV, "selective_scan_fwd.cu,nothing.cu")
+    with pytest.raises(ValueError, match="nothing.cu"):
+        cuda_lib.sources()
+
+
+def test_ab_step_sums_and_diffs(tmp_path):
+    """A step's device ms is its calls a shape times the ms a call, for each
+    kind it calls; the diffs are each tree's against the first: relative
+    over the largest entry, and absolute for the fp32 outputs."""
+    from fusionmamba_torch.tools import _ab
+
+    got = {"[1, 2]": {"fwd": 0.5, "bwd": 2.0}, "[3, 4]": {"fwd": 0.25, "bwd": 1.0}}
+    calls = {"train 6": {"fwd": {(1, 2): 2, (3, 4): 4}, "bwd": {(1, 2): 1}},
+             "serve 8": {"fwd": {(3, 4): 3}, "bwd": {}}}
+    assert _ab.step_sums(got, calls) == {"train 6": {"fwd": 2.0, "bwd": 2.0},
+                                         "serve 8": {"fwd": 0.75}}
+    ref = {"[1]": [torch.tensor([4.0, -2.0])], "fp32 [1]": [torch.tensor([1.0, 2.0])]}
+    other = {"[1]": [torch.tensor([4.0, -1.0])], "fp32 [1]": [torch.tensor([1.0, 2.5])]}
+    torch.save(ref, tmp_path / "a.pt")
+    torch.save(other, tmp_path / "b.pt")
+    rel, abs32 = _ab.diffs({"a": tmp_path / "a.pt", "b": tmp_path / "b.pt"})
+    assert rel == {"a": 0.0, "b": 0.25} and abs32 == {"a": 0.0, "b": 0.5}
