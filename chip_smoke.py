@@ -314,8 +314,10 @@ TRAIN_BF16_STEPS = 4
 TRAIN_BF16_LOSS_RTOL = 1e-2
 
 OPS = ("scan", "layer_norm", "ln_mean", "dwconv", "mlp")
-# the forwards whose bf16 times kernel_bf16 also takes with the parameters cast
-# to fp32 before the timed call (the kernel alone, without the op's casts)
+# the forwards whose bf16 times kernel_bf16 also takes on the parameters'
+# fp32 casts, made before the timed call: the kernel's fp32-parameter route,
+# the yardstick of reading the bf16 parameters as they are (which the ops
+# once cast to fp32 on every call)
 CAST_FREE_OPS = ("layer_norm", "ln_mean", "dwconv")
 KERNELS = {
     "scan": ("cuda", "fusionmamba_torch/csrc/selective_scan_fwd.cu",
@@ -527,12 +529,11 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
     call of the backward kernel's wrapper that is timed. With dtype bf16 the
     inputs are the bf16 casts that a bf16 training step hands the ops (the
     parameters included; the scan's A, D and bias stay fp32, as SS2D passes
-    them), and the backward passes what its kernel reads as fp32 as fp32, as
-    the ops do (`.float()` is the identity on an fp32 tensor), cast before
-    the call: the ops' autograd Functions save the fp32 casts, so a training
-    step's backward makes none. The LN-mean's kernels read bf16 parameters as
-    they are, and its op passes them so (with the forward's means of xhat,
-    `_lnm_backward`)."""
+    them). The LN's, the LN-mean's and the dwconv's kernels read bf16
+    parameters as they are, and their ops' autograd Functions save them so
+    (the LN-mean's with the forward's means of xhat, `_lnm_backward`). The
+    dwconv's weight is a (3, 3, C) view of a (C, 3, 3) tensor, as SS2D
+    passes its Conv2d weight (the kernels' layout, so no copy)."""
     def rnd(*s, scale=1.0, shift=0.0):
         return torch.randn(*s, device=dev, generator=gen) * scale + shift
 
@@ -565,8 +566,7 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
         inputs = [t.to(dtype) for t in inputs]
 
         def backward(t, dy):
-            scale, bias = t[1].float(), t[2].float()
-            return lambda: layer_norm.layer_norm_bwd(t[0], scale, bias,
+            return lambda: layer_norm.layer_norm_bwd(t[0], t[1], t[2],
                                                      t[3] if len(t) > 3 else None, dy, 1e-6,
                                                      gate_act)
 
@@ -584,14 +584,15 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
                 _lnm_backward)
     if kernel == "dwconv":
         B, H, W, C = shape
-        return ([t.to(dtype) for t in (rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3),
-                                       rnd(C, scale=1 / 3))],
+        x = rnd(B, H, W, C)
+        w = rnd(C, 3, 3, scale=1 / 3).permute(1, 2, 0)
+        return ([t.to(dtype) for t in (x, w, rnd(C, scale=1 / 3))],
                 lambda *t: dwconv.depthwise_conv3x3(*t, "silu"),
                 lambda *t: dwconv.depthwise_conv3x3_plain(*t, "silu"),
                 lambda x, w, b: F.silu(F.conv2d(x.permute(0, 3, 1, 2), w.permute(2, 0, 1)[:, None],
                                                 b, padding=1, groups=C)).permute(0, 2, 3, 1),
-                lambda t, dy: functools.partial(dwconv.dwconv_bwd, t[0], t[1].float(),
-                                                t[2].float(), dy, "silu"))
+                lambda t, dy: functools.partial(dwconv.dwconv_bwd, t[0], t[1], t[2], dy,
+                                                "silu"))
     M, C, H = shape
     # nn.Linear's (out, in) weights, passed as `.t()` views as Mlp.forward does
     return ([t.to(dtype) for t in (rnd(M, C), rnd(H, C, scale=0.02), torch.zeros(H, device=dev),
@@ -1309,7 +1310,8 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
     LN backward also the device time of its strided design (the earlier bf16
     kernel, which the plan keeps for misaligned tensors), and likewise for
     the LN-mean forward and backward; for the forwards of CAST_FREE_OPS the
-    device time with the parameters cast to fp32 before the timed call.
+    device time of their fp32-parameter route (the parameters cast to fp32
+    before the timed call).
     Returns the per-step sums of each kernel."""
     gen = torch.Generator(device=dev).manual_seed(7)
     sms = cuda_lib.sm_count(dev)
@@ -1347,8 +1349,8 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                             old_dev_ms = device_ms(lambda: layer_norm.ln_spatial_mean_fwd(
                                 *inputs, 1e-5, plan=strided))
                         if op in CAST_FREE_OPS:
-                            # the parameters cast to fp32 before the timed call,
-                            # so that only the kernel is timed
+                            # the fp32-parameter route: the parameters cast to
+                            # fp32 before the timed call
                             cast = [t.float() if i in (1, 2) else t
                                     for i, t in enumerate(inputs)]
                             cast_free_dev_ms = device_ms(lambda: fn(*cast))
@@ -1386,10 +1388,10 @@ def phase_kernel_bf16(tcalls, dev, checked, smi, spills):
                             # plan keeps for misaligned tensors, on the same inputs
                             strided = layer_norm.bwd_plan(shape[0], shape[1], sms,
                                                           io=torch.bfloat16, aligned=False)
-                            sc, bi = inputs[1].float(), inputs[2].float()
                             old_dev_ms = device_ms(lambda: layer_norm.layer_norm_bwd(
-                                inputs[0], sc, bi, inputs[3] if len(inputs) > 3 else None, dy,
-                                1e-6, shape[2], plan=strided))
+                                inputs[0], inputs[1], inputs[2],
+                                inputs[3] if len(inputs) > 3 else None, dy, 1e-6, shape[2],
+                                plan=strided))
                     if library is not None:
                         out_l = library(*live)
 
@@ -1836,7 +1838,7 @@ def phase_lm_score(model, dev, smi):
             "logits_finite": finite, "first_forward_s": first_s, "forward_ms": ms,
             "tokens_per_s": LM_SCORE_BATCH * LM_SCORE_LEN / (ms / 1e3), "card": smi}
     if got is not None:
-        window, busy, by_kernel = got
+        window, busy, by_kernel, _ = got
         scan_ms = (by_kernel["scan"] + by_kernel["scan_carry"]) / 1e3
         bound = LM_LAYERS * max(_bound("scan", (LM_SCORE_BATCH, 1, LM_SCORE_LEN,
                                                 2 * LM_WIDTH, 0))[:3])
@@ -2280,7 +2282,12 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
 
 def _trace(run, reps: int):
     """torch.profiler over `reps` calls of `run` (warm): (window ms, device busy
-    ms, device ms by kernel group), or None without device events."""
+    ms, device ms by kernel group, counts), or None without device events.
+    counts: the device events ("launches": kernels, copies and fills), those
+    of dtype casts and copies ("cast_and_copy_launches", by kernel name:
+    PyTorch's copy kernels, which also cast, and memory copies) and their
+    device ms, and the device ms of PyTorch's elementwise kernels (casts
+    included), each summed over the `reps` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2301,13 +2308,20 @@ def _trace(run, reps: int):
         else:
             cur_e = max(cur_e, en)
     busy += cur_e - cur_s
-    by_kernel = collections.Counter()
+    by_kernel, counts = collections.Counter(), collections.Counter()
     for e in events:
         name = e.name.lower()
         group = next((k for k, frags in _TRACE_NAMES.items()
                       if any(f.lower() in name for f in frags)), "other")
-        by_kernel[group] += e.time_range.end - e.time_range.start
-    return window_us / 1e3, busy / 1e3, by_kernel
+        us = e.time_range.end - e.time_range.start
+        by_kernel[group] += us
+        counts["launches"] += 1
+        if "copy" in name:
+            counts["cast_and_copy_launches"] += 1
+            counts["cast_and_copy_device_ms"] += us / 1e3
+        if "elementwise_kernel" in name:
+            counts["elementwise_device_ms"] += us / 1e3
+    return window_us / 1e3, busy / 1e3, by_kernel, counts
 
 
 def phase_trace(dev, forwards: int = 3):
@@ -2323,7 +2337,7 @@ def phase_trace(dev, forwards: int = 3):
     if got is None:
         emit({"phase": "trace", "device_time": "not measured (no device events)"})
         return
-    window, busy, by_kernel = got
+    window, busy, by_kernel, _ = got
     emit({"phase": "trace", "forwards": forwards, "pairs_per_forward": PAIRS,
           "window_ms": window, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window,
           "device_ms_per_forward": {k: v / 1e3 / forwards for k, v in by_kernel.most_common()}})
@@ -2332,7 +2346,9 @@ def phase_trace(dev, forwards: int = 3):
 def phase_trace_train(dev, steps: int = 3, precision: str = "fp32"):
     """The same over `steps` warm training steps of the training path's
     batch (full config, 6 pairs of 256^2, DropPath on), at `precision`
-    (phase `trace_train`, and `trace_train_bf16` for bf16)."""
+    (phase `trace_train`, and `trace_train_bf16` for bf16), with a step's
+    device events, its cast and copy launches and their device ms, and its
+    elementwise kernels' device ms (`_trace`'s counts)."""
     phase = "trace_train" if precision == "fp32" else "trace_train_" + precision
     dtype = train.resolve_compute_dtype(precision)
     gc.collect()
@@ -2351,10 +2367,11 @@ def phase_trace_train(dev, steps: int = 3, precision: str = "fp32"):
     if got is None:
         emit({"phase": phase, "device_time": "not measured (no device events)"})
         return
-    window, busy, by_kernel = got
+    window, busy, by_kernel, counts = got
     emit({"phase": phase, "steps": steps, "pairs_per_step": TRAIN_PAIRS,
           "window_ms": window, "device_busy_ms": busy, "device_idle_share": 1.0 - busy / window,
-          "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()}})
+          "device_ms_per_step": {k: v / 1e3 / steps for k, v in by_kernel.most_common()},
+          **{k + "_per_step": v / steps for k, v in sorted(counts.items())}})
 
 
 def _instances(ptxas, frags):
@@ -2428,6 +2445,12 @@ def main() -> None:
              "selective_scan_bwd_bf16_kernel")
     if not all(any(k in e for e in scan16) for k in kinds) or scan16_spills:
         fail(f"the bf16 scan instances: {len(scan16)} built, spills {scan16_spills}")
+    # every instance of the bf16 dwconv forward: registers and spills of each
+    dw16 = _instances(ptxas, ("dwconv3x3_fwd_kernel_bf16",))
+    dw16_spills = {e: ln for e, ln in spills.items() if "dwconv3x3_fwd_kernel_bf16" in e}
+    emit({"phase": "build_dwconv_bf16", "instances": dw16, "bf16_spills": dw16_spills})
+    if not dw16 or dw16_spills:
+        fail(f"the bf16 dwconv forward instances: {len(dw16)} built, spills {dw16_spills}")
 
     calls = main_path_calls(full_config(), PAIRS, SIZE)
     tcalls = train_calls(full_config(), TRAIN_PAIRS, SIZE)

@@ -1,6 +1,7 @@
 // Depthwise 3x3 SAME convolution + bias (+ SiLU) backward for Hopper (sm_90a), NHWC,
-// fp32 or bf16 x, dy and dx (the weight, the bias, dw, dbias and every sum
-// fp32 either way).
+// fp32 or bf16 x, dy and dx (dw, dbias and every sum fp32 either way; the
+// weight and the bias fp32, or in the bf16 entry bf16 where `params` is 1,
+// widened as they are loaded).
 //
 // Replaces fusionmamba_tpu/ops/dwconv_pallas.py::_bwd_kernel (built by
 // _bwd_pallas). The forward (dwconv3x3_fwd.cu) is
@@ -47,11 +48,15 @@
 // to fp32 as they are read from shared memory. dz stays fp32, as the plain
 // version computes it, in a tile of its own (the staged dy is bf16). The
 // sums, dw and dbias stay fp32, and dx is rounded to bf16 as it is stored.
+// The weight and the bias may be bf16 (a bf16 step's casts, read without a
+// cast of their own): widened as they are loaded, exactly, so the results
+// are those of their fp32 casts.
 #include "io_types.cuh"
 
 namespace {
 
 using fm_io::from_f;
+using fm_io::param;
 
 constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 227 * 1024;  // the most a block can opt in to on the H100
@@ -354,11 +359,13 @@ __device__ __forceinline__ void stage_col_bf16(uint2* dst, int ld, const fm_io::
 
 // The bf16 backward (see the header): a thread a quad of channels, as in the
 // fp32 kernel. Shared memory: the fp32 dz tile, then the bf16 tiles of x
-// (halo 2) and dy (halo 1).
-template <int CQ, bool VEC>
+// (halo 2) and dy (halo 1). BP: the weight and the bias are bf16 (else
+// fp32); a template parameter, so that their loads issue together (a
+// runtime branch at each load cost 3% of the call: PERF.md, section 6).
+template <int CQ, bool VEC, bool BP>
 __global__ void __launch_bounds__(kMaxThreads, 4)
-dwconv3x3_bwd_kernel_bf16(const fm_io::bf16* __restrict__ x, const float* __restrict__ w,
-                          const float* __restrict__ bias, const fm_io::bf16* __restrict__ dy,
+dwconv3x3_bwd_kernel_bf16(const fm_io::bf16* __restrict__ x, const void* __restrict__ w,
+                          const void* __restrict__ bias, const fm_io::bf16* __restrict__ dy,
                           fm_io::bf16* __restrict__ dx, float* __restrict__ part, int B, int H,
                           int W, int C, int TW, int TH, int act_silu) {
   extern __shared__ float4 smem[];
@@ -376,29 +383,28 @@ dwconv3x3_bwd_kernel_bf16(const fm_io::bf16* __restrict__ x, const float* __rest
   float4 wt[9];  // wt[i * 3 + j]: the tap (i, j) of the 4 channels
 #pragma unroll
   for (int t = 0; t < 9; ++t) wt[t] = zero;
-  const float* wc = w + c * 9;
   if (c < C) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wt[t].x = wc[t];
+    for (int t = 0; t < 9; ++t) wt[t].x = param(w, c * 9 + t, BP);
   }
   if (c + 1 < C) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wt[t].y = wc[9 + t];
+    for (int t = 0; t < 9; ++t) wt[t].y = param(w, c * 9 + 9 + t, BP);
   }
   if (c + 2 < C) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wt[t].z = wc[18 + t];
+    for (int t = 0; t < 9; ++t) wt[t].z = param(w, c * 9 + 18 + t, BP);
   }
   if (c + 3 < C) {
 #pragma unroll
-    for (int t = 0; t < 9; ++t) wt[t].w = wc[27 + t];
+    for (int t = 0; t < 9; ++t) wt[t].w = param(w, c * 9 + 27 + t, BP);
   }
   float4 bv = zero;
   if (bias) {
-    if (c < C) bv.x = bias[c];
-    if (c + 1 < C) bv.y = bias[c + 1];
-    if (c + 2 < C) bv.z = bias[c + 2];
-    if (c + 3 < C) bv.w = bias[c + 3];
+    if (c < C) bv.x = param(bias, c, BP);
+    if (c + 1 < C) bv.y = param(bias, c + 1, BP);
+    if (c + 2 < C) bv.z = param(bias, c + 2, BP);
+    if (c + 3 < C) bv.w = param(bias, c + 3, BP);
   }
   float4 dw[9], db = zero;  // dw[i * 3 + j]
 #pragma unroll
@@ -586,23 +592,28 @@ int opt_in(Kernel kernel, int smem, bool& opted) {
 
 template <int CQ>
 int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const float* x,
-           const float* w, const float* bias, const float* dy, float* dx, float* part, int B,
+           const void* w, const void* bias, int, const float* dy, float* dx, float* part, int B,
            int H, int W, int C, int tw, int th, int act_silu) {
   static bool opted[2] = {false, false};
   auto kernel = vec ? dwconv3x3_bwd_kernel<CQ, true> : dwconv3x3_bwd_kernel<CQ, false>;
   if (const int err = opt_in(kernel, smem, opted[vec])) return err;
-  kernel<<<grid, threads, smem, stream>>>(x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu);
+  kernel<<<grid, threads, smem, stream>>>(x, static_cast<const float*>(w),
+                                          static_cast<const float*>(bias), dy, dx, part, B, H, W,
+                                          C, tw, th, act_silu);
   return (int)cudaGetLastError();
 }
 
 template <int CQ>
 int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream,
-           const fm_io::bf16* x, const float* w, const float* bias, const fm_io::bf16* dy,
-           fm_io::bf16* dx, float* part, int B, int H, int W, int C, int tw, int th,
-           int act_silu) {
-  static bool opted[2] = {false, false};
-  auto kernel = vec ? dwconv3x3_bwd_kernel_bf16<CQ, true> : dwconv3x3_bwd_kernel_bf16<CQ, false>;
-  if (const int err = opt_in(kernel, smem, opted[vec])) return err;
+           const fm_io::bf16* x, const void* w, const void* bias, int params,
+           const fm_io::bf16* dy, fm_io::bf16* dx, float* part, int B, int H, int W, int C, int tw,
+           int th, int act_silu) {
+  static bool opted[4] = {false, false, false, false};
+  auto kernel = vec ? (params ? dwconv3x3_bwd_kernel_bf16<CQ, true, true>
+                              : dwconv3x3_bwd_kernel_bf16<CQ, true, false>)
+                    : (params ? dwconv3x3_bwd_kernel_bf16<CQ, false, true>
+                              : dwconv3x3_bwd_kernel_bf16<CQ, false, false>);
+  if (const int err = opt_in(kernel, smem, opted[2 * vec + (params != 0)])) return err;
   kernel<<<grid, threads, smem, stream>>>(x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu);
   return (int)cudaGetLastError();
 }
@@ -621,9 +632,9 @@ inline int smem_bytes(const fm_io::bf16*, int cq, int tw, int th) {
 }
 
 template <class IO>
-int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, IO* dx,
-                  float* part, float* out, int B, int H, int W, int C, int act_silu, int cq,
-                  int tw, int th, int grid_x, int grid_y, cudaStream_t stream) {
+int dwconv3x3_bwd(const IO* x, const void* w, const void* bias, int params, const IO* dy,
+                  IO* dx, float* part, float* out, int B, int H, int W, int C, int act_silu,
+                  int cq, int tw, int th, int grid_x, int grid_y, cudaStream_t stream) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || (long long)B * H * W * C >= (1ll << 31) || tw < 1 ||
       th < 1 || cq * tw > kMaxThreads) {
     return (int)cudaErrorInvalidValue;
@@ -642,11 +653,11 @@ int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, 
   const int threads = cq * tw;
   int err;
   switch (cq) {
-    case 1: err = launch<1>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 2: err = launch<2>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 4: err = launch<4>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 8: err = launch<8>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
-    case 16: err = launch<16>(vec, grid, threads, smem, stream, x, w, bias, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 1: err = launch<1>(vec, grid, threads, smem, stream, x, w, bias, params, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 2: err = launch<2>(vec, grid, threads, smem, stream, x, w, bias, params, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 4: err = launch<4>(vec, grid, threads, smem, stream, x, w, bias, params, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 8: err = launch<8>(vec, grid, threads, smem, stream, x, w, bias, params, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
+    case 16: err = launch<16>(vec, grid, threads, smem, stream, x, w, bias, params, dy, dx, part, B, H, W, C, tw, th, act_silu); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err != 0) return err;
@@ -663,19 +674,21 @@ int dwconv3x3_bwd(const IO* x, const float* w, const float* bias, const IO* dy, 
 // block's tiles, each writing one (10, C) partial into part (grid_y, 10, C);
 // out (10, C): rows 0..8 dw's taps i*3+j, row 9 dbias. The dynamic shared
 // memory follows from the tile (dwconv.py::bwd_plan reckons it alike). The
-// _bf16 entry takes x, dy and dx as bf16.
+// _bf16 entry takes x, dy and dx as bf16, and w and bias as bf16 where
+// params is 1 (the fp32 entry takes only 0).
 extern "C" int fm_dwconv3x3_bwd(const float* x, const float* w, const float* bias,
                                 const float* dy, float* dx, float* part, float* out, int B, int H,
                                 int W, int C, int act_silu, int cq, int tw, int th, int grid_x,
-                                int grid_y, cudaStream_t stream) {
-  return dwconv3x3_bwd(x, w, bias, dy, dx, part, out, B, H, W, C, act_silu, cq, tw, th, grid_x,
-                       grid_y, stream);
+                                int grid_y, int params, cudaStream_t stream) {
+  if (params) return (int)cudaErrorInvalidValue;
+  return dwconv3x3_bwd(x, w, bias, 0, dy, dx, part, out, B, H, W, C, act_silu, cq, tw, th,
+                       grid_x, grid_y, stream);
 }
-extern "C" int fm_dwconv3x3_bwd_bf16(const fm_io::bf16* x, const float* w, const float* bias,
+extern "C" int fm_dwconv3x3_bwd_bf16(const fm_io::bf16* x, const void* w, const void* bias,
                                      const fm_io::bf16* dy, fm_io::bf16* dx, float* part,
                                      float* out, int B, int H, int W, int C, int act_silu, int cq,
-                                     int tw, int th, int grid_x, int grid_y,
+                                     int tw, int th, int grid_x, int grid_y, int params,
                                      cudaStream_t stream) {
-  return dwconv3x3_bwd(x, w, bias, dy, dx, part, out, B, H, W, C, act_silu, cq, tw, th, grid_x,
-                       grid_y, stream);
+  return dwconv3x3_bwd(x, w, bias, params != 0, dy, dx, part, out, B, H, W, C, act_silu, cq, tw,
+                       th, grid_x, grid_y, stream);
 }

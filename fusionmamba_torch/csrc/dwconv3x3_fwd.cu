@@ -1,5 +1,6 @@
 // Depthwise 3x3 SAME convolution + bias (+ SiLU) for Hopper (sm_90a), NHWC, fp32
-// or bf16 x and output (weight, bias and every sum fp32 either way).
+// or bf16 x and output (every sum fp32 either way; the weight and the bias
+// fp32, or in the bf16 entry bf16 where `params` is 1).
 //
 // Replaces fusionmamba_tpu/ops/dwconv_pallas.py::_fwd_kernel (built by
 // _fwd_pallas): out[b,h,w,c] = act(sum_{i,j} x[b,h+i-1,w+j-1,c] * w[c,i,j] + bias[c])
@@ -30,17 +31,33 @@
 // tolerance. The tile sizes and the grid come from the Python wrapper
 // (fusionmamba_torch/ops/dwconv.py::fwd_plan); this file checks them.
 // C not a multiple of 4, or an x or out not aligned to 4 elements, takes the
-// same kernel with scalar, masked loads and stores (VEC = false). With bf16
-// I/O a thread's 4 channels are 8 bytes: the tile is staged as fp32 (each
-// value converted as it is loaded, by plain loads, since cp.async cannot
-// convert), so everything after the staging is the fp32 kernel's, and the
-// output is rounded to bf16 as it is stored.
+// same kernel with scalar, masked loads and stores (VEC = false).
+//
+// bf16 I/O has a kernel of its own (dwconv3x3_fwd_kernel_bf16): the same
+// tile and walk, but the tile is staged as bf16, by 8-byte cp.async (a quad
+// of channels) straight from device memory, every row of a thread's column
+// in flight before one commit and one wait, while the weights load. The
+// tile takes half the shared memory of fp32's, which lets the plan take
+// taller tiles (less halo), and each staged row is widened to fp32 as it is
+// read from shared memory (3 loads of 8 bytes). After the staging the walk
+// and the arithmetic are the fp32 kernel's (the tap order, the fused
+// multiply-adds, the bias, the SiLU) on the same fp32 values, so the output,
+// rounded to bf16 as it is stored, has the bits of the fp32-staged design it
+// replaced. The weight and the bias may be bf16 (a
+// bf16 step's casts, passed without a cast of their own), widened as they
+// are loaded: exactly, so the output is that of their fp32 casts. C not a
+// multiple of 4, or an x or out off an 8-byte boundary, takes masked scalar
+// staging and stores (VEC = false). (Timed and dropped, PERF.md section 6: 8
+// channels a thread by 16-byte copies across half as many threads, 41-66%
+// slower at the training step's shapes; a walk that skips the halo rows'
+// unstored taps and loads the next row ahead, 9% slower.)
 #include "io_types.cuh"
 
 namespace {
 
+using fm_io::bf16;
 using fm_io::from_f;
-using fm_io::to_f;
+using fm_io::param;
 
 constexpr int kMaxThreads = 128;
 constexpr int kMaxSmem = 48 * 1024;
@@ -59,17 +76,22 @@ __device__ __forceinline__ void taps(float4& acc, const float4& v0, const float4
   acc.w = fmaf(v2.w, w[2].w, fmaf(v1.w, w[1].w, fmaf(v0.w, w[0].w, acc.w)));
 }
 
+// 4 bf16 (two 32-bit words of two each) as fp32
+__device__ __forceinline__ float4 unpack(uint32_t lo, uint32_t hi) {
+  return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u),
+                     __uint_as_float(hi << 16), __uint_as_float(hi & 0xffff0000u));
+}
+
 __device__ __forceinline__ float epilogue(float v, float b, int act_silu) {
   v += b;
   return act_silu ? __fdividef(v, 1.f + __expf(-v)) : v;
 }
 
-template <class IO, int CQ, bool VEC>
+template <int CQ, bool VEC>
 __global__ void __launch_bounds__(kMaxThreads)
-dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ bias, IO* __restrict__ out, int H, int W,
+dwconv3x3_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ out, int H, int W,
                      int C, int TW, int TH, int h_tiles, int act_silu) {
-  constexpr bool kFloatIO = sizeof(IO) == sizeof(float);
   extern __shared__ float4 tile[];  // [TH + 2][TW + 2][CQ]
   const int tid = threadIdx.x;
   const int q = tid % CQ, tw = tid / CQ;
@@ -86,22 +108,20 @@ dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
   // stage x column `col` (all TH + 2 rows) into tile column j
   auto stage = [&](int j, int col) {
     const bool col_ok = col >= 0 && col < W && c < C;
-    const IO* src = x + img + (h0 - 1) * row + col * C + c;
+    const float* src = x + img + (h0 - 1) * row + col * C + c;
     float4* dst = tile + j * CQ + q;
     for (int k = 0; k < TH + 2; ++k, src += row, dst += ld) {
       const int hh = h0 - 1 + k;
       if (!col_ok || hh < 0 || hh >= H) {
         *dst = zero;
-      } else if (VEC && kFloatIO) {
-        cp_async_16(dst, reinterpret_cast<const float*>(src));
       } else if (VEC) {
-        *dst = fm_io::load4(src);
+        cp_async_16(dst, src);
       } else {
         float4 v;
-        v.x = to_f(src[0]);
-        v.y = c + 1 < C ? to_f(src[1]) : 0.f;
-        v.z = c + 2 < C ? to_f(src[2]) : 0.f;
-        v.w = c + 3 < C ? to_f(src[3]) : 0.f;
+        v.x = src[0];
+        v.y = c + 1 < C ? src[1] : 0.f;
+        v.z = c + 2 < C ? src[2] : 0.f;
+        v.w = c + 3 < C ? src[3] : 0.f;
         *dst = v;
       }
     }
@@ -109,7 +129,7 @@ dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
   stage(tw + 1, wi);
   if (tw == 0) stage(0, w0 - 1);
   if (tw == TW - 1) stage(TW + 1, w0 + TW);
-  if (VEC && kFloatIO) {
+  if (VEC) {
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   }
@@ -145,7 +165,7 @@ dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
   // (row 2); a0, a1, a2 hold the sums of outputs k - 2, k - 1, k
   float4 a0 = zero, a1 = zero;
   const float4* src = tile + tw * CQ + q;
-  IO* dst = out + img + (h0 - 2) * row + wi * C + c;
+  float* dst = out + img + (h0 - 2) * row + wi * C + c;
   for (int k = 0; k < TH + 2; ++k, src += ld, dst += row) {
     const float4 v0 = src[0], v1 = src[CQ], v2 = src[2 * CQ];
     float4 a2 = zero;
@@ -158,10 +178,10 @@ dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
       if (VEC) {
         fm_io::store4(dst, r);
       } else {
-        dst[0] = from_f<IO>(r.x);
-        if (c + 1 < C) dst[1] = from_f<IO>(r.y);
-        if (c + 2 < C) dst[2] = from_f<IO>(r.z);
-        if (c + 3 < C) dst[3] = from_f<IO>(r.w);
+        dst[0] = r.x;
+        if (c + 1 < C) dst[1] = r.y;
+        if (c + 2 < C) dst[2] = r.z;
+        if (c + 3 < C) dst[3] = r.w;
       }
     }
     a0 = a1;
@@ -169,47 +189,157 @@ dwconv3x3_fwd_kernel(const IO* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <class IO, int CQ>
-int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const IO* x,
-           const float* w, const float* bias, IO* out, int H, int W, int C, int tw, int th,
+// copy the 4 bf16 channels at src (8 bytes) into shared memory, through L1
+__device__ __forceinline__ void cp_async_8(uint2* dst, const bf16* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src));
+}
+
+// the 4 bf16 channels at src as a staged word, zeros from channel n on
+__device__ __forceinline__ uint2 load_masked(const bf16* src, int n) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(src);
+  const uint32_t e0 = u[0], e1 = n > 1 ? u[1] : 0u, e2 = n > 2 ? u[2] : 0u, e3 = n > 3 ? u[3] : 0u;
+  return make_uint2(e0 | e1 << 16, e2 | e3 << 16);
+}
+
+// BP: the weight and the bias are bf16 (else fp32); a template parameter,
+// so that their 40 loads issue together (a runtime branch at each load cost
+// the bf16 #8, which loads them alike, 3%: PERF.md, section 6)
+template <int CQ, bool VEC, bool BP>
+__global__ void __launch_bounds__(kMaxThreads)
+dwconv3x3_fwd_kernel_bf16(const bf16* __restrict__ x, const void* __restrict__ w,
+                          const void* __restrict__ bias, bf16* __restrict__ out, int H, int W,
+                          int C, int TW, int TH, int h_tiles, int act_silu) {
+  extern __shared__ uint2 staged[];  // [TH + 2][TW + 2][CQ] quads of bf16 channels
+  const int tid = threadIdx.x;
+  const int q = tid % CQ, tw = tid / CQ;
+  const int c = (blockIdx.x * CQ + q) * 4;
+  const int w0 = blockIdx.y * TW;
+  const int b = blockIdx.z / h_tiles;
+  const int h0 = (blockIdx.z - b * h_tiles) * TH;
+  const int wi = w0 + tw;
+  const int row = W * C;            // elements from one image row to the next
+  const int img = b * H * row;      // this image's first element
+  const int ld = (TW + 2) * CQ;     // quads from one staged row to the next
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  // stage x column `col` (all TH + 2 rows) into tile column j
+  auto stage = [&](int j, int col) {
+    const bool col_ok = col >= 0 && col < W && c < C;
+    const bf16* src = x + img + (h0 - 1) * row + col * C + c;
+    uint2* dst = staged + j * CQ + q;
+    for (int k = 0; k < TH + 2; ++k, src += row, dst += ld) {
+      const int hh = h0 - 1 + k;
+      if (!col_ok || hh < 0 || hh >= H) {
+        *dst = make_uint2(0u, 0u);
+      } else if (VEC) {
+        cp_async_8(dst, src);
+      } else {
+        *dst = load_masked(src, C - c);
+      }
+    }
+  };
+  stage(tw + 1, wi);
+  if (tw == 0) stage(0, w0 - 1);
+  if (tw == TW - 1) stage(TW + 1, w0 + TW);
+  if (VEC) asm volatile("cp.async.commit_group;\n" ::);
+
+  // the weights and the bias load while the copies are in flight
+  float4 wt[9], bv = zero;  // wt[i * 3 + j]: the tap (i, j) of the 4 channels
+#pragma unroll
+  for (int t = 0; t < 9; ++t) wt[t] = zero;
+  if (c < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].x = param(w, c * 9 + t, BP);
+    if (bias) bv.x = param(bias, c, BP);
+  }
+  if (c + 1 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].y = param(w, c * 9 + 9 + t, BP);
+    if (bias) bv.y = param(bias, c + 1, BP);
+  }
+  if (c + 2 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].z = param(w, c * 9 + 18 + t, BP);
+    if (bias) bv.z = param(bias, c + 2, BP);
+  }
+  if (c + 3 < C) {
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t].w = param(w, c * 9 + 27 + t, BP);
+    if (bias) bv.w = param(bias, c + 3, BP);
+  }
+  if (VEC) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (wi >= W || c >= C) return;
+
+  // the fp32 kernel's walk, each staged row widened as it is read
+  float4 a0 = zero, a1 = zero;
+  const uint2* src = staged + tw * CQ + q;
+  bf16* dst = out + img + (h0 - 2) * row + wi * C + c;
+  for (int k = 0; k < TH + 2; ++k, src += ld, dst += row) {
+    const uint2 p0 = src[0], p1 = src[CQ], p2 = src[2 * CQ];
+    const float4 v0 = unpack(p0.x, p0.y), v1 = unpack(p1.x, p1.y), v2 = unpack(p2.x, p2.y);
+    float4 a2 = zero;
+    taps(a2, v0, v1, v2, wt);
+    taps(a1, v0, v1, v2, wt + 3);
+    taps(a0, v0, v1, v2, wt + 6);
+    if (k >= 2 && h0 + k - 2 < H) {
+      const float4 r = make_float4(epilogue(a0.x, bv.x, act_silu), epilogue(a0.y, bv.y, act_silu),
+                                   epilogue(a0.z, bv.z, act_silu), epilogue(a0.w, bv.w, act_silu));
+      if (VEC) {
+        fm_io::store4(dst, r);
+      } else {
+        dst[0] = from_f<bf16>(r.x);
+        if (c + 1 < C) dst[1] = from_f<bf16>(r.y);
+        if (c + 2 < C) dst[2] = from_f<bf16>(r.z);
+        if (c + 3 < C) dst[3] = from_f<bf16>(r.w);
+      }
+    }
+    a0 = a1;
+    a1 = a2;
+  }
+}
+
+template <int CQ>
+int launch(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const float* x,
+           const float* w, const float* bias, float* out, int H, int W, int C, int tw, int th,
            int h_tiles, int act_silu) {
   if (vec) {
-    dwconv3x3_fwd_kernel<IO, CQ, true><<<grid, threads, smem, stream>>>(
+    dwconv3x3_fwd_kernel<CQ, true><<<grid, threads, smem, stream>>>(
         x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
   } else {
-    dwconv3x3_fwd_kernel<IO, CQ, false><<<grid, threads, smem, stream>>>(
+    dwconv3x3_fwd_kernel<CQ, false><<<grid, threads, smem, stream>>>(
         x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
   }
   return (int)cudaGetLastError();
 }
 
-template <class IO>
-int dwconv3x3_fwd(const IO* x, const float* w, const float* bias, IO* out, int B, int H, int W,
-                  int C, int act_silu, int cq, int tw, int th, int grid_x, int grid_y,
-                  int grid_z, cudaStream_t stream) {
+template <int CQ>
+int launch_bf16(bool vec, dim3 grid, int threads, int smem, cudaStream_t stream, const bf16* x,
+                const void* w, const void* bias, bf16* out, int H, int W, int C, int tw, int th,
+                int h_tiles, int act_silu, int params) {
+  auto kernel = vec ? (params ? dwconv3x3_fwd_kernel_bf16<CQ, true, true>
+                              : dwconv3x3_fwd_kernel_bf16<CQ, true, false>)
+                    : (params ? dwconv3x3_fwd_kernel_bf16<CQ, false, true>
+                              : dwconv3x3_fwd_kernel_bf16<CQ, false, false>);
+  kernel<<<grid, threads, smem, stream>>>(x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+  return (int)cudaGetLastError();
+}
+
+// Whether the tile (4 * cq channels, tw columns, th rows of `quad_bytes` a
+// staged quad of channels) and the grid are those dwconv.py::fwd_plan lays
+// out for the shape; h_tiles, smem: the row tiles of an image and the
+// shared memory of a block.
+bool plan_ok(int B, int H, int W, int C, int cq, int quad_bytes, int tw, int th, int grid_x,
+             int grid_y, int grid_z, int& h_tiles, int& smem) {
   if (B < 1 || H < 1 || W < 1 || C < 1 || (long long)B * H * W * C >= (1ll << 31) || tw < 1 ||
       th < 1 || cq * tw > kMaxThreads) {
-    return (int)cudaErrorInvalidValue;
+    return false;
   }
-  const int h_tiles = (H + th - 1) / th;
-  const int smem = (th + 2) * (tw + 2) * cq * (int)sizeof(float4);
-  if (grid_x != (C + 4 * cq - 1) / (4 * cq) || grid_y != (W + tw - 1) / tw ||
-      grid_z != B * h_tiles || grid_z > 65535 || smem > kMaxSmem) {
-    return (int)cudaErrorInvalidValue;
-  }
-  // 4 elements a thread: 16 bytes in fp32, 8 in bf16
-  const uintptr_t align = 4 * sizeof(IO) - 1;
-  const bool vec = C % 4 == 0 && ((uintptr_t)x & align) == 0 && ((uintptr_t)out & align) == 0;
-  const dim3 grid(grid_x, grid_y, grid_z);
-  const int threads = cq * tw;
-  switch (cq) {
-    case 1: return launch<IO, 1>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
-    case 2: return launch<IO, 2>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
-    case 4: return launch<IO, 4>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
-    case 8: return launch<IO, 8>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
-    case 16: return launch<IO, 16>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  h_tiles = (H + th - 1) / th;
+  smem = (th + 2) * (tw + 2) * cq * quad_bytes;
+  return grid_x == (C + 4 * cq - 1) / (4 * cq) && grid_y == (W + tw - 1) / tw &&
+         grid_z == B * h_tiles && grid_z <= 65535 && smem <= kMaxSmem;
 }
 
 }  // namespace
@@ -217,17 +347,48 @@ int dwconv3x3_fwd(const IO* x, const float* w, const float* bias, IO* out, int B
 // cq, tw, th: the tile (4*cq channels, tw columns, th rows); grid_*: the
 // grid, which must cover the output exactly as dwconv.py::fwd_plan lays it
 // out: (channel blocks, column tiles, B x row tiles). The _bf16 entry takes
-// x and out as bf16.
+// x and out as bf16, and w and bias as bf16 where params is 1 (the fp32
+// entry takes only 0).
 extern "C" int fm_dwconv3x3_fwd(const float* x, const float* w, const float* bias, float* out,
                                 int B, int H, int W, int C, int act_silu, int cq, int tw, int th,
-                                int grid_x, int grid_y, int grid_z, cudaStream_t stream) {
-  return dwconv3x3_fwd(x, w, bias, out, B, H, W, C, act_silu, cq, tw, th, grid_x, grid_y, grid_z,
-                       stream);
+                                int grid_x, int grid_y, int grid_z, int params,
+                                cudaStream_t stream) {
+  int h_tiles, smem;
+  if (params || !plan_ok(B, H, W, C, cq, (int)sizeof(float4), tw, th, grid_x, grid_y, grid_z,
+                         h_tiles, smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const bool vec = C % 4 == 0 && ((uintptr_t)x & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  const dim3 grid(grid_x, grid_y, grid_z);
+  const int threads = cq * tw;
+  switch (cq) {
+    case 1: return launch<1>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+    case 2: return launch<2>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+    case 4: return launch<4>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+    case 8: return launch<8>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+    case 16: return launch<16>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
-extern "C" int fm_dwconv3x3_fwd_bf16(const fm_io::bf16* x, const float* w, const float* bias,
-                                     fm_io::bf16* out, int B, int H, int W, int C, int act_silu,
-                                     int cq, int tw, int th, int grid_x, int grid_y, int grid_z,
+extern "C" int fm_dwconv3x3_fwd_bf16(const bf16* x, const void* w, const void* bias, bf16* out,
+                                     int B, int H, int W, int C, int act_silu, int cq, int tw,
+                                     int th, int grid_x, int grid_y, int grid_z, int params,
                                      cudaStream_t stream) {
-  return dwconv3x3_fwd(x, w, bias, out, B, H, W, C, act_silu, cq, tw, th, grid_x, grid_y, grid_z,
-                       stream);
+  int h_tiles, smem;
+  if (!plan_ok(B, H, W, C, cq, (int)sizeof(uint2), tw, th, grid_x, grid_y, grid_z, h_tiles,
+               smem)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // 4 channels a thread: 8 bytes
+  const bool vec = C % 4 == 0 && ((uintptr_t)x & 7) == 0 && ((uintptr_t)out & 7) == 0;
+  const dim3 grid(grid_x, grid_y, grid_z);
+  const int threads = cq * tw;
+  switch (cq) {
+    case 1: return launch_bf16<1>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu, params);
+    case 2: return launch_bf16<2>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu, params);
+    case 4: return launch_bf16<4>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu, params);
+    case 8: return launch_bf16<8>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu, params);
+    case 16: return launch_bf16<16>(vec, grid, threads, smem, stream, x, w, bias, out, H, W, C, tw, th, h_tiles, act_silu, params);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

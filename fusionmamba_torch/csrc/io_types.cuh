@@ -32,6 +32,14 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
+// element i of a parameter (a weight, a bias, a scale) as fp32: bf16 where
+// `bf16_params` is nonzero (a bf16 step's cast, read as it is and widened
+// exactly), else fp32
+__device__ __forceinline__ float param(const void* p, int i, int bf16_params) {
+  return bf16_params ? __bfloat162float(static_cast<const bf16*>(p)[i])
+                     : static_cast<const float*>(p)[i];
+}
+
 // 4 consecutive elements (8 or 16 bytes, aligned to their size) as fp32
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);

@@ -1,7 +1,8 @@
 // LayerNorm (+ gate) backward and LN-spatial-mean backward for Hopper (sm_90a),
-// fp32 or bf16 I/O (x, the gate, dy, dx and dgate in the I/O type; scale,
-// bias, dm, the partials, dscale and dbias fp32, but for the LN-mean's scale,
-// which the bf16 entry also takes as bf16; the math fp32 either way).
+// fp32 or bf16 I/O (x, the gate, dy, dx and dgate in the I/O type; dm, the
+// partials, dscale and dbias fp32; scale and bias fp32, or in the bf16
+// entries bf16 where `params` is 1 (a bf16 step's casts, widened as they are
+// loaded); the math fp32 either way).
 //
 // 1. The LN backward: dx, dgate, dscale, dbias. Replaces
 // fusionmamba_tpu/ops/ln_pallas.py::_ln_bwd_kernel (built by _bwd_pallas).
@@ -74,8 +75,7 @@
 // loads are in flight, and every block computes dx on quads as in 3 (8-byte
 // loads of x and stores of dx, the next row's quads loaded while the current
 // one is summed). No partials, no scratch, no atomics: two launches give the
-// same bits. scale may be bf16 (the _bf16 entry's `params`), as may the
-// strided templates' in bf16.
+// same bits.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,15 +98,23 @@ constexpr int kOneBlock = 512;       // threads of a block of the one-launch LN-
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + __expf(-v)); }
 
+// element i of the LN backward's scale or bias: fp32, or with bf16 I/O bf16
+// where `params` is 1 (fm_io::param; the fp32 instances read fp32 only)
+template <class IO>
+__device__ __forceinline__ float param(const void* p, int i, int params) {
+  if constexpr (sizeof(IO) == sizeof(bf16)) return fm_io::param(p, i, params);
+  return static_cast<const float*>(p)[i];
+}
+
 // At least two blocks of 256 threads an SM (the plan's grid for 12 values a
 // lane): it caps registers at 128, under which ptxas keeps every template
 // free of spills (left to itself it spilled one of them at 80).
 template <class IO, int V, int G, int GATE, bool MASK>
 __global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
 ln_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ gate,
-              const float* __restrict__ scale, const float* __restrict__ bias,
+              const void* __restrict__ scale, const void* __restrict__ bias,
               const IO* __restrict__ dy, IO* __restrict__ dx, IO* __restrict__ dg,
-              float* __restrict__ part, int rows, int C, float eps) {
+              float* __restrict__ part, int rows, int C, int params, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   constexpr int GPB = T / G;  // groups (rows at a time) of a block
   // the two rounds of row sums each take their own slots, so one barrier a
@@ -120,8 +128,8 @@ ln_bwd_kernel(const IO* __restrict__ x, const IO* __restrict__ gate,
   for (int v = 0; v < V; ++v) {
     const int c = lane + v * G;
     const bool ok = !MASK || c < C;
-    sc[v] = ok ? scale[c] : 0.f;
-    bi[v] = GATE && ok ? bias[c] : 0.f;
+    sc[v] = ok ? param<IO>(scale, c, params) : 0.f;
+    bi[v] = GATE && ok ? param<IO>(bias, c, params) : 0.f;
     ds[v] = 0.f;
     db[v] = 0.f;
   }
@@ -241,9 +249,9 @@ ln_bwd_reduce(const float* __restrict__ part, int P, int C, float* __restrict__ 
 template <int Q, int G, int GATE, bool MASK>
 __global__ void __launch_bounds__(G > kBlock ? G : kBlock, G > kBlock ? 1 : 2)
 ln_bwd_kernel_quads(const bf16* __restrict__ x, const bf16* __restrict__ gate,
-                    const float* __restrict__ scale, const float* __restrict__ bias,
+                    const void* __restrict__ scale, const void* __restrict__ bias,
                     const bf16* __restrict__ dy, bf16* __restrict__ dx, bf16* __restrict__ dg,
-                    float* __restrict__ part, int rows, int C, float eps) {
+                    float* __restrict__ part, int rows, int C, int params, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   constexpr int GPB = T / G;  // groups (rows at a time) of a block
   constexpr int V = 4 * Q;
@@ -259,8 +267,8 @@ ln_bwd_kernel_quads(const bf16* __restrict__ x, const bf16* __restrict__ gate,
     has[q] = !MASK || c < C;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      sc[4 * q + j] = has[q] ? scale[c + j] : 0.f;
-      bi[4 * q + j] = GATE && has[q] ? bias[c + j] : 0.f;
+      sc[4 * q + j] = has[q] ? param<bf16>(scale, c + j, params) : 0.f;
+      bi[4 * q + j] = GATE && has[q] ? param<bf16>(bias, c + j, params) : 0.f;
       ds[4 * q + j] = 0.f;
       db[4 * q + j] = 0.f;
     }
@@ -663,64 +671,64 @@ int launch_lnm_one(int B, int blocks, cudaStream_t stream, const bf16* x, const 
 
 template <class IO, int V, int G, bool MASK>
 int launch(int gate_kind, int blocks, cudaStream_t stream, const IO* x, const IO* gate,
-           const float* scale, const float* bias, const IO* dy, IO* dx, IO* dg, float* part,
-           int rows, int C, float eps) {
+           const void* scale, const void* bias, const IO* dy, IO* dx, IO* dg, float* part,
+           int rows, int C, int params, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   switch (gate_kind) {
     case 0:
       ln_bwd_kernel<IO, V, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                                 part, rows, C, eps);
+                                                                 part, rows, C, params, eps);
       break;
     case 1:
       ln_bwd_kernel<IO, V, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                                 part, rows, C, eps);
+                                                                 part, rows, C, params, eps);
       break;
     case 3:
       ln_bwd_kernel<IO, V, G, 3, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                                 part, rows, C, eps);
+                                                                 part, rows, C, params, eps);
       break;
     default:
       ln_bwd_kernel<IO, V, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx, dg,
-                                                                 part, rows, C, eps);
+                                                                 part, rows, C, params, eps);
   }
   return (int)cudaGetLastError();
 }
 
 template <int Q, int G, bool MASK>
 int launch_quads(int gate_kind, int blocks, cudaStream_t stream, const bf16* x, const bf16* gate,
-                 const float* scale, const float* bias, const bf16* dy, bf16* dx, bf16* dg,
-                 float* part, int rows, int C, float eps) {
+                 const void* scale, const void* bias, const bf16* dy, bf16* dx, bf16* dg,
+                 float* part, int rows, int C, int params, float eps) {
   constexpr int T = G > kBlock ? G : kBlock;
   switch (gate_kind) {
     case 0:
       ln_bwd_kernel_quads<Q, G, 0, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
-                                                                   dg, part, rows, C, eps);
+                                                                   dg, part, rows, C, params, eps);
       break;
     case 1:
       ln_bwd_kernel_quads<Q, G, 1, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
-                                                                   dg, part, rows, C, eps);
+                                                                   dg, part, rows, C, params, eps);
       break;
     case 3:
       ln_bwd_kernel_quads<Q, G, 3, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
-                                                                   dg, part, rows, C, eps);
+                                                                   dg, part, rows, C, params, eps);
       break;
     default:
       ln_bwd_kernel_quads<Q, G, 2, MASK><<<blocks, T, 0, stream>>>(x, gate, scale, bias, dy, dx,
-                                                                   dg, part, rows, C, eps);
+                                                                   dg, part, rows, C, params, eps);
   }
   return (int)cudaGetLastError();
 }
 
 // the quads templates for bf16 I/O; none for fp32
 inline int rows_quads(int, int, int, int, int, cudaStream_t, const float*, const float*,
-                      const float*, const float*, const float*, float*, float*, float*, int, int,
-                      float) {
+                      const void*, const void*, const float*, float*, float*, float*, int, int,
+                      int, float) {
   return (int)cudaErrorInvalidValue;
 }
 inline int rows_quads(int values, int lanes, int masked, int gate_kind, int blocks,
-                      cudaStream_t stream, const bf16* x, const bf16* gate, const float* scale,
-                      const float* bias, const bf16* dy, bf16* dx, bf16* dg, float* part, int rows,
-                      int C, float eps) {
+                      cudaStream_t stream, const bf16* x, const bf16* gate, const void* scale,
+                      const void* bias, const bf16* dy, bf16* dx, bf16* dg, float* part, int rows,
+                      int C, int params, float eps) {
   const uintptr_t ptrs = (uintptr_t)x | (uintptr_t)gate | (uintptr_t)dy | (uintptr_t)dx |
                          (uintptr_t)dg;
   if (C % 4 != 0 || (ptrs & 7) != 0) return (int)cudaErrorInvalidValue;
@@ -728,17 +736,17 @@ inline int rows_quads(int values, int lanes, int masked, int gate_kind, int bloc
 #define FM_LN_BWD_QUADS(Q, G, MASK)                                                           \
   if (values == 4 * Q && lanes == G && (masked != 0) == MASK)                                 \
     err = launch_quads<Q, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, \
-                                   part, rows, C, eps);
+                                   part, rows, C, params, eps);
   FM_LN_BF16_TEMPLATES(FM_LN_BWD_QUADS)
 #undef FM_LN_BWD_QUADS
   return err;
 }
 
 template <class IO>
-int layer_norm_bwd(const IO* x, const IO* gate, const float* scale, const float* bias,
+int layer_norm_bwd(const IO* x, const IO* gate, const void* scale, const void* bias,
                    const IO* dy, IO* dx, IO* dg, float* part, float* dscale, float* dbias,
                    int rows, int C, int gate_kind, int values, int lanes, int masked, int quads,
-                   int blocks, float eps, cudaStream_t stream) {
+                   int blocks, int params, float eps, cudaStream_t stream) {
   if (rows < 1 || C < 1 || (long long)rows * C >= (1ll << 31) || blocks < 1 ||
       (long long)blocks * 2 * C >= (1ll << 31) || gate_kind < 0 || gate_kind > 3 ||
       (gate_kind && (!gate || !dg)) || (masked ? values * lanes < C : values * lanes != C)) {
@@ -747,12 +755,12 @@ int layer_norm_bwd(const IO* x, const IO* gate, const float* scale, const float*
   int err = (int)cudaErrorInvalidValue;
   if (quads) {
     err = rows_quads(values, lanes, masked, gate_kind, blocks, stream, x, gate, scale, bias, dy,
-                     dx, dg, part, rows, C, eps);
+                     dx, dg, part, rows, C, params, eps);
   }
 #define FM_LN_BWD(V, G, MASK)                                                                 \
   if (!quads && values == V && lanes == G && (masked != 0) == MASK)                           \
     err = launch<IO, V, G, MASK>(gate_kind, blocks, stream, x, gate, scale, bias, dy, dx, dg, \
-                                 part, rows, C, eps);
+                                 part, rows, C, params, eps);
   FM_LN_TEMPLATES(FM_LN_BWD)
 #undef FM_LN_BWD
   if (err != 0) return err;
@@ -813,25 +821,29 @@ int ln_mean_bwd(const IO* x, const PT* scale, const float* dm, const float* xmea
 }  // namespace
 
 // x, dy, dx (and gate, dg when gate_kind is 1 (silu), 2 (silu_sum) or 3 (raw)):
-// (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). values,
-// lanes, masked, quads: the template (bwd_plan; quads, the bf16 design's
-// quads a lane, only in the _bf16 entry); blocks: the grid of the first
-// kernel. The _bf16 entry takes x, gate, dy, dx and dg as bf16.
+// (rows, C); part: (blocks, 2, C) scratch; dscale, dbias: (C,). scale,
+// bias: fp32, or in the _bf16 entry bf16 where params is 1. values, lanes,
+// masked, quads: the template (bwd_plan; quads, the bf16 design's quads a
+// lane, only in the _bf16 entry); blocks: the grid of the first kernel. The
+// _bf16 entry takes x, gate, dy, dx and dg as bf16.
 extern "C" int fm_layer_norm_bwd(const float* x, const float* gate, const float* scale,
                                  const float* bias, const float* dy, float* dx, float* dg,
                                  float* part, float* dscale, float* dbias, int rows, int C,
                                  int gate_kind, int values, int lanes, int masked, int quads,
-                                 int blocks, float eps, cudaStream_t stream) {
+                                 int blocks, int params, float eps, cudaStream_t stream) {
+  if (params) return (int)cudaErrorInvalidValue;
   return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
-                        gate_kind, values, lanes, masked, quads, blocks, eps, stream);
+                        gate_kind, values, lanes, masked, quads, blocks, 0, eps, stream);
 }
-extern "C" int fm_layer_norm_bwd_bf16(const bf16* x, const bf16* gate, const float* scale,
-                                      const float* bias, const bf16* dy, bf16* dx, bf16* dg,
+extern "C" int fm_layer_norm_bwd_bf16(const bf16* x, const bf16* gate, const void* scale,
+                                      const void* bias, const bf16* dy, bf16* dx, bf16* dg,
                                       float* part, float* dscale, float* dbias, int rows, int C,
                                       int gate_kind, int values, int lanes, int masked,
-                                      int quads, int blocks, float eps, cudaStream_t stream) {
+                                      int quads, int blocks, int params, float eps,
+                                      cudaStream_t stream) {
   return layer_norm_bwd(x, gate, scale, bias, dy, dx, dg, part, dscale, dbias, rows, C,
-                        gate_kind, values, lanes, masked, quads, blocks, eps, stream);
+                        gate_kind, values, lanes, masked, quads, blocks, params != 0, eps,
+                        stream);
 }
 
 // x, dx: (B, rows, C); dm: (B, C); xmean: with quads the forward's (B, C)

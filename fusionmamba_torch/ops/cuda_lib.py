@@ -47,11 +47,11 @@ SIGNATURES = {
     # scratch, batch, K, L, dim, N, R, T, softplus, chunk_len, stream
     "fm_selective_scan_bwd": (_P,) * 19 + (_I,) * 9 + (_P,),
     # x, w (C,9), bias, out, B, H, W, C, act_silu, cq, tw, th, grid x, y, z,
-    # stream
-    "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 11 + (_P,),
+    # params, stream
+    "fm_dwconv3x3_fwd": (_P,) * 4 + (_I,) * 12 + (_P,),
     # x, w (C,9), bias, dy, dx, part, out (10,C), B, H, W, C, act_silu, cq, tw,
-    # th, grid x, y, stream
-    "fm_dwconv3x3_bwd": (_P,) * 7 + (_I,) * 10 + (_P,),
+    # th, grid x, y, params, stream
+    "fm_dwconv3x3_bwd": (_P,) * 7 + (_I,) * 11 + (_P,),
     # x, w1 (H,C), b1, w2 (C_out,H), b2, y, hidden (or null), partial (or
     # null), M, C, H, C_out, slice_h, stream
     "fm_fused_mlp_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
@@ -59,8 +59,8 @@ SIGNATURES = {
     # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, stream
     "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
     # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
-    # gate kind, values, lanes, masked, quads, blocks, eps, stream
-    "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 8 + (_F, _P),
+    # gate kind, values, lanes, masked, quads, blocks, params, eps, stream
+    "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 9 + (_F, _P),
     # x, scale, dm, xmean, dx, part, dscale, dbias, B, rows, C, values, lanes,
     # masked, quads, blocks, params, eps, stream
     "fm_ln_mean_bwd": (_P,) * 8 + (_I,) * 9 + (_F, _P),
@@ -70,8 +70,8 @@ SIGNATURES = {
 }
 # every kernel also has a bf16-I/O variant, `<name>_bf16`, with the same
 # arguments: the tensors that its wrapper's check names bf16 are bf16 there
-# (the LN-mean's scale and bias also where `params` is 1), and the math
-# inside stays fp32
+# (the LN's, LN-mean's and dwconv's parameters also where `params` is 1; the
+# fp32 entries take only 0), and the math inside stays fp32
 SIGNATURES.update({name + "_bf16": args for name, args in list(SIGNATURES.items())})
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -197,13 +197,27 @@ def io_dtype(name: str, t: torch.Tensor) -> torch.dtype:
     return t.dtype
 
 
-def check_cuda(name: str, io: torch.dtype, *tensors: torch.Tensor, fp32=()) -> None:
+def param_dtype(io: torch.dtype, *params) -> torch.dtype:
+    """The dtype in which the LN, LN-mean and dwconv kernels read their
+    parameters (scale, bias, the conv's weight; None skipped) beside
+    activations of I/O dtype `io`: bf16 where `io` and every parameter is
+    bf16 (a bf16 step's casts, read as they are and widened as they are
+    loaded), else fp32 (the ops cast to it)."""
+    bf16 = io == torch.bfloat16 and all(p is None or p.dtype == torch.bfloat16 for p in params)
+    return torch.bfloat16 if bf16 else torch.float32
+
+
+def check_cuda(name: str, io: torch.dtype, *tensors: torch.Tensor, fp32=(),
+               params=()) -> torch.dtype:
     """Reject what the kernels do not take: tensors on the CPU, on different
     cards or not contiguous, `tensors` whose dtype is not `io` (the I/O
-    dtype, float32 or bfloat16) and `fp32` ones (what the kernels read as
-    fp32 whatever the I/O dtype) whose dtype is not float32."""
-    dev = (tensors or fp32)[0].device
-    for want, group in ((io, tensors), (torch.float32, fp32)):
+    dtype, float32 or bfloat16), `fp32` ones (what the kernels read as fp32
+    whatever the I/O dtype) whose dtype is not float32, and `params` (None
+    skipped) not all of `param_dtype(io, *params)`, which is returned."""
+    params = [p for p in params if p is not None]
+    pdt = param_dtype(io, *params)
+    dev = (tensors or fp32 or params)[0].device
+    for want, group in ((io, tensors), (torch.float32, fp32), (pdt, params)):
         for t in group:
             if t.device != dev or t.device.type != "cuda":
                 raise ValueError(f"{name}: all tensors must be on one CUDA device")
@@ -211,3 +225,4 @@ def check_cuda(name: str, io: torch.dtype, *tensors: torch.Tensor, fp32=()) -> N
                 raise TypeError(f"{name}: expected {want}, got {t.dtype}")
             if not t.is_contiguous():
                 raise ValueError(f"{name}: expected contiguous tensors")
+    return pdt

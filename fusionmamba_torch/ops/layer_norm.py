@@ -11,11 +11,11 @@ fast variance E[x^2] - E[x]^2 (not F.layer_norm's two-pass form), then
 rsqrt(var + eps).
 
 Every kernel takes fp32 or bf16 I/O (`cuda_lib.entry`): x, the gate, dy, y,
-dx and dgate in the I/O dtype; scale, bias, their gradients, the LN-mean's
-(B, C) output and its cotangent fp32, as the JAX package's kernels take
-them (the LN op casts scale and bias to fp32, as its wrappers do). The
-LN-mean's bf16 kernels also take bf16 scale and bias, widened as they are
-loaded, so that a bf16 step passes its parameters without a cast.
+dx and dgate in the I/O dtype; dscale, dbias, the LN-mean's (B, C) output
+and its cotangent fp32, as the JAX package's kernels take them. Scale and
+bias are fp32, or bf16 beside bf16 x (`cuda_lib.param_dtype`: a bf16 step's
+casts, passed without a cast and widened as they are loaded); the ops cast
+any other parameters to fp32, as the JAX package's wrappers do.
 """
 from __future__ import annotations
 
@@ -240,13 +240,6 @@ def lnm_fwd_plan(B: int, rows: int, C: int, sms: int = 132, io: torch.dtype = to
                    quads)
 
 
-def _param_dtype(io: torch.dtype, scale: torch.Tensor) -> torch.dtype:
-    """The dtype the LN-mean kernels read scale and bias in: bf16 where both x
-    and the parameters are bf16, else fp32 (which the check then asks for)."""
-    return torch.bfloat16 if io == torch.bfloat16 and scale.dtype == torch.bfloat16 \
-        else torch.float32
-
-
 def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
     """mean over positions of LN(x): (B, ..., C) -> (B, C) fp32, on the card,
     one launch. scale and bias fp32, or bf16 with bf16 x. With `with_mean`,
@@ -256,11 +249,7 @@ def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
     global ln_mean_launches, bf16_ln_mean_launches, bf16_lnm_quads_launches
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean", x)
-    params = _param_dtype(io, scale)
-    if params == io:
-        cuda_lib.check_cuda("ln_spatial_mean", io, x, scale, bias)
-    else:
-        cuda_lib.check_cuda("ln_spatial_mean", io, x, fp32=[scale, bias])
+    params = cuda_lib.check_cuda("ln_spatial_mean", io, x, params=[scale, bias])
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("ln_spatial_mean: scale and bias must be (C,)")
     rows = x.numel() // (B * C)
@@ -282,14 +271,14 @@ def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
 def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
     """Gradients of the fused LN for the cotangent dy, on the card: (dx,
     dgate or None, dscale, dbias), dx and dgate in x's dtype, dscale and
-    dbias fp32. Two launches: the rows, then the sum of the per-block
-    partials of dscale and dbias. `plan` overrides `bwd_plan`'s layout (to
-    time others)."""
+    dbias fp32. scale and bias fp32, or bf16 with bf16 x. Two launches: the
+    rows, then the sum of the per-block partials of dscale and dbias. `plan`
+    overrides `bwd_plan`'s layout (to time others)."""
     global layer_norm_bwd_launches, bf16_layer_norm_bwd_launches, bf16_quads_launches
     C = x.shape[-1]
     io = cuda_lib.io_dtype("layer_norm_fused backward", x)
-    cuda_lib.check_cuda("layer_norm_fused backward", io, x, dy,
-                        *([] if gate is None else [gate]), fp32=[scale, bias])
+    params = cuda_lib.check_cuda("layer_norm_fused backward", io, x, dy,
+                                 *([] if gate is None else [gate]), params=[scale, bias])
     if dy.shape != x.shape or (gate is not None and gate.shape != x.shape):
         raise ValueError("layer_norm_fused backward: dy and the gate must have x's shape")
     if scale.shape != (C,) or bias.shape != (C,):
@@ -306,8 +295,8 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
                     scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
                     db.data_ptr(), rows, C, 0 if gate is None else ln_triton.GATE_CODES[gate_act],
-                    plan.values, plan.lanes, int(plan.masked), int(plan.quads), plan.blocks, eps,
-                    device=x.device)
+                    plan.values, plan.lanes, int(plan.masked), int(plan.quads), plan.blocks,
+                    int(params == torch.bfloat16), eps, device=x.device)
     layer_norm_bwd_launches += 1
     bf16_layer_norm_bwd_launches += io == torch.bfloat16
     bf16_quads_launches += plan.quads
@@ -325,11 +314,7 @@ def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None, xmean=None):
     global ln_mean_bwd_launches, bf16_ln_mean_bwd_launches, bf16_lnm_bwd_one_launch
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean backward", x)
-    params = _param_dtype(io, scale)
-    if params == io:
-        cuda_lib.check_cuda("ln_spatial_mean backward", io, x, scale, fp32=[dm])
-    else:
-        cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[scale, dm])
+    params = cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[dm], params=[scale])
     if dm.shape != (B, C) or scale.shape != (C,):
         raise ValueError("ln_spatial_mean backward: dm must be (B, C) and scale (C,)")
     rows = x.numel() // (B * C)
@@ -383,6 +368,10 @@ def ln_spatial_mean_plain(x, scale, bias, eps=1e-5):
 
 
 class _LayerNormFn(torch.autograd.Function):
+    """Saves scale and bias as they came (bf16 in a bf16 step) and returns
+    dscale and dbias in their dtype, one cast each where that is bf16 (the
+    casts that autograd made of a `.float()` before)."""
+
     @staticmethod
     def forward(ctx, x, scale, bias, gate, eps, gate_act):
         ctx.save_for_backward(x, scale, bias, gate)
@@ -394,15 +383,13 @@ class _LayerNormFn(torch.autograd.Function):
         x, scale, bias, gate = ctx.saved_tensors
         dx, dg, ds, db = layer_norm_bwd(x, scale, bias, gate, dy.contiguous(), ctx.eps,
                                         ctx.gate_act)
-        return dx, ds, db, dg, None, None
+        return dx, ds.to(scale.dtype), db.to(bias.dtype), dg, None, None
 
 
 class _LnMeanFn(torch.autograd.Function):
-    """Saves scale as it came (bf16 in a bf16 step) and, on the bf16 quads,
-    the forward's means of xhat, from which the backward's one launch takes
-    dscale; returns dscale and dbias in the parameters' dtype, one cast each
-    where that is bf16 (the casts that autograd made of a `.float()`
-    before)."""
+    """Saves scale as it came and, on the bf16 quads, the forward's means of
+    xhat, from which the backward's one launch takes dscale; returns dscale
+    and dbias in the parameters' dtype, as `_LayerNormFn` does."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
@@ -424,15 +411,17 @@ def layer_norm_fused(x, scale, bias, gate=None, eps=1e-6, gate_act="none"):
     differentiated by autograd; CUDA tensors the Triton kernel and, when a
     gradient is needed, the CUDA backward kernel. gate_act "none" with a gate
     multiplies by the raw gate. The output has x's dtype (the gate must have
-    it too); scale and bias enter as fp32 (their gradients return in their
-    own dtype)."""
+    it too); scale and bias enter as they are where `cuda_lib.param_dtype`
+    allows (bf16 with bf16 x), else as fp32; their gradients return in
+    their own dtype."""
     if gate_act not in GATE_ACTS:
         raise ValueError(f"unknown gate_act {gate_act!r}")
     if x.device.type == "cpu":
         return layer_norm_plain(x, scale, bias, gate, eps, gate_act)
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm_fused: no implementation for {x.device}")
-    scale, bias = scale.float(), bias.float()
+    if cuda_lib.param_dtype(x.dtype, scale, bias) == torch.float32:
+        scale, bias = scale.float(), bias.float()
     if needs_grad(x, scale, bias, gate):
         return _LayerNormFn.apply(x, scale, bias, gate, eps, gate_act)
     return ln_triton.layer_norm_fwd(x, scale, bias, gate, eps, gate_act)
@@ -443,13 +432,12 @@ def ln_spatial_mean(x, scale, bias, eps=1e-5):
     without LN(x) ever being written. CPU tensors take the plain version,
     differentiated by autograd; CUDA tensors the CUDA forward kernel and,
     when a gradient is needed, the CUDA backward kernel. x may be bf16; scale
-    and bias enter in their own dtype where x is bf16 (fp32 or bf16, no
-    cast), else as fp32."""
+    and bias enter as `layer_norm_fused`'s do."""
     if x.device.type == "cpu":
         return ln_spatial_mean_plain(x, scale, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_spatial_mean: no implementation for {x.device}")
-    if x.dtype != torch.bfloat16:
+    if cuda_lib.param_dtype(x.dtype, scale, bias) == torch.float32:
         scale, bias = scale.float(), bias.float()
     if needs_grad(x, scale, bias):
         return _LnMeanFn.apply(x, scale, bias, eps)

@@ -9,7 +9,8 @@ and writes y once. One program owns whole rows, `BLOCK_C` being C rounded up
 to a power of two and masked, and the statistics are the fast variance
 E[x^2] - E[x]^2 in fp32, as on the TPU. x, the gate and y are fp32 or bf16
 (the pointers' element type picks the compiled variant), every value is
-taken to fp32 on load, and scale and bias are fp32.
+taken to fp32 on load; scale and bias are fp32, or bf16 beside bf16 x
+(`cuda_lib.param_dtype`), widened as they are loaded.
 
 `triton` is imported inside the launching functions: the module imports (and
 the CPU path runs) where Triton is absent.
@@ -50,8 +51,8 @@ def _kernels():
         mask = (r < rows) & (c < C)
         offs = r.to(tl.int64) * C + c
         x = tl.load(X + offs, mask=mask, other=0.0).to(tl.float32)
-        s = tl.load(S + c, mask=c < C, other=0.0)
-        b = tl.load(Bi + c, mask=c < C, other=0.0)
+        s = tl.load(S + c, mask=c < C, other=0.0).to(tl.float32)
+        b = tl.load(Bi + c, mask=c < C, other=0.0).to(tl.float32)
         mu = tl.sum(x, axis=1) / C
         rs = tl.rsqrt(tl.sum(x * x, axis=1) / C - mu * mu + eps)
         y = (x - mu[:, None]) * rs[:, None] * s + b
@@ -74,12 +75,13 @@ def _blocks(C: int):
 
 
 def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
-    """LN(x) * act(gate) over the last axis, in x's dtype, on the card."""
+    """LN(x) * act(gate) over the last axis, in x's dtype, on the card.
+    scale and bias fp32, or bf16 with bf16 x."""
     global layer_norm_launches, bf16_layer_norm_launches
     C = x.shape[-1]
     io = cuda_lib.io_dtype("layer_norm_fused", x)
     cuda_lib.check_cuda("layer_norm_fused", io, x, *([] if gate is None else [gate]),
-                        fp32=[scale, bias])
+                        params=[scale, bias])
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError("layer_norm_fused: scale and bias must be (C,)")
     if gate is not None and gate.shape != x.shape:

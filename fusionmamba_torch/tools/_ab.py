@@ -102,6 +102,21 @@ def step_sums(got: dict, calls: dict) -> dict:
             for name, kinds in calls.items()}
 
 
+def identical(saved: dict) -> dict:
+    """Whether each tree's outputs, fp32 and not, all equal the first tree's
+    bit for bit (and in dtype)."""
+    import torch
+
+    trees = list(saved)
+    ref = torch.load(saved[trees[0]])
+    same = {}
+    for tree in trees:
+        outs = torch.load(saved[tree])
+        same[tree] = all(a.dtype == b.dtype and torch.equal(a, b)
+                         for k in ref for a, b in zip(outs[k], ref[k]))
+    return same
+
+
 def diffs(saved: dict) -> tuple[dict, dict]:
     """Each tree's largest difference from the first tree's outputs: of the
     non-fp32 outputs over the largest entry, and of the fp32 ones absolute
@@ -130,8 +145,9 @@ def compare(tool: str, trees: list[str], shapes, calls: dict, rounds: int, spec:
     rounds and the reverse order in odd ones, each on `spec` with the
     shapes; print each child's lines with its tree and round. The first
     round saves the outputs. Returns {"step_device_ms": {tree: {step: {kind:
-    [ms each round]}}}, "max_rel_diff_vs_first": ..., and, where fp32
-    outputs were saved, "fp32_max_abs_diff_vs_first": ...}."""
+    [ms each round]}}}, "max_rel_diff_vs_first": ..., "bit_identical_to_first":
+    ..., and, where fp32 outputs were saved, "fp32_max_abs_diff_vs_first":
+    ...}."""
     steps = {t: {name: {k: [] for k, c in kinds.items() if c} for name, kinds in calls.items()}
              for t in trees}
     with tempfile.TemporaryDirectory() as tmp:
@@ -148,7 +164,9 @@ def compare(tool: str, trees: list[str], shapes, calls: dict, rounds: int, spec:
                     for k, ms in kinds.items():
                         steps[tree][name][k].append(ms)
         rel, abs32 = diffs(saved) if rounds else ({}, {})
+        same = identical(saved) if rounds else {}
     return {"step_device_ms": steps, "max_rel_diff_vs_first": rel,
+            "bit_identical_to_first": same,
             **({"fp32_max_abs_diff_vs_first": abs32} if abs32 else {})}
 
 

@@ -217,7 +217,7 @@ def test_dwconv_kernel_unaligned(dev, shape):
     plan = dwconv.fwd_plan(*shape, sms=cuda_lib.sm_count(dev))
     w_c = w.permute(2, 0, 1).contiguous()    # the kernel's (C, 3, 3) layout
     cuda_lib.launch("fm_dwconv3x3_fwd", x.data_ptr(), w_c.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), *shape, 1, plan.cq, plan.tw, plan.th, *plan.grid, device=dev)
+                    out.data_ptr(), *shape, 1, plan.cq, plan.tw, plan.th, *plan.grid, 0, device=dev)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, want, **TOL)
 
@@ -995,6 +995,184 @@ def test_dwconv_backward_bf16_misaligned(dev, act, shape, offset):
     _bf16_close(got[0], want[0])
     for a, w_ in zip(got[1:], want[1:]):
         _bf16_close(a, w_)
+
+
+# the bf16 dwconv forward's own kernel (staged as bf16 by cp.async): the
+# model's shapes, ragged ones, C not a multiple of 4 (3, 6: masked staging),
+# tiles of 1 to 16 rows
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+@pytest.mark.parametrize("shape", [(6, 8, 8, 1536), (6, 16, 16, 768), (12, 32, 32, 384),
+                                   (6, 64, 64, 192), (2, 5, 7, 3), (3, 9, 13, 6),
+                                   (2, 11, 19, 40), (1, 1, 1, 8), (2, 7, 33, 12), (2, 4, 4, 20)])
+def test_dwconv_forward_bf16_designs(dev, act, has_bias, shape, monkeypatch):
+    """The bf16 forward kernel against its plain version at the bf16 gate,
+    bit-identical twice and under other rows of a tile."""
+    g = torch.Generator().manual_seed(sum(shape))
+    C = shape[-1]
+    x = _rand(g, *shape).to(dev, BF16)
+    w = _rand(g, C, 3, 3, scale=0.3).to(dev, BF16).permute(1, 2, 0)
+    b = _rand(g, C, scale=0.1).to(dev, BF16) if has_bias else None
+    before = dwconv.bf16_launches
+    with torch.no_grad():
+        got, again = dwconv.depthwise_conv3x3(x, w, b, act), dwconv.depthwise_conv3x3(x, w, b, act)
+        for rows in (1, 4):
+            monkeypatch.setattr(dwconv, "BF16_FWD_MAX_ROWS", rows)
+            other = dwconv.fwd_plan(*shape, sms=cuda_lib.sm_count(dev), io=BF16)
+            assert torch.equal(dwconv.dwconv_fwd(x, w, b, act, other), got), other
+    torch.cuda.synchronize()
+    assert dwconv.bf16_launches == before + 4
+    _bf16_close(got, dwconv.depthwise_conv3x3_plain(x, w, b, act))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(2, 9, 13, 8), (6, 16, 16, 768)])
+def test_dwconv_forward_bf16_misaligned(dev, shape, offset):
+    """x and the output `offset` elements off an 8-byte boundary: the bf16
+    kernel's masked staging and stores, against the aligned call on copies
+    of the same values, bit for bit."""
+    g = torch.Generator().manual_seed(sum(shape) + offset)
+    C, n = shape[-1], math.prod(shape)
+    x = _rand(g, n + offset).to(dev, BF16)[offset:].view(shape)
+    w = _rand(g, 3, 3, C, scale=0.3).to(dev, BF16)
+    b = _rand(g, C, scale=0.1).to(dev, BF16)
+    plan = dwconv.fwd_plan(*shape, sms=cuda_lib.sm_count(dev), io=BF16)
+    w_c = w.permute(2, 0, 1).contiguous()
+    out = torch.empty(n + offset, device=dev, dtype=BF16)[offset:].view(shape)
+    cuda_lib.launch("fm_dwconv3x3_fwd_bf16", x.data_ptr(), w_c.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), *shape, 1, plan.cq, plan.tw, plan.th, *plan.grid, 1, device=dev)
+    with torch.no_grad():
+        want = dwconv.depthwise_conv3x3(x.clone(), w, b, "silu")
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    _bf16_close(out, dwconv.depthwise_conv3x3_plain(x, w, b, "silu"))
+
+
+# K10: a bf16 step hands the LN and the dwconv their parameters' bf16 casts,
+# which the kernels read as they are (#3, #4, #7, #8). Widening bf16 to fp32
+# is exact, so every output and gradient equals the same call on the fp32
+# casts of those parameters bit for bit (the fp32 gradients rounded to bf16,
+# as autograd's cast of a `.float()` rounds them), with the same launches.
+
+_LN_COUNTERS = [(ln_triton, "layer_norm_launches"), (ln_triton, "bf16_layer_norm_launches"),
+                (layer_norm, "layer_norm_bwd_launches"),
+                (layer_norm, "bf16_layer_norm_bwd_launches"), (layer_norm, "bf16_quads_launches")]
+_DW_COUNTERS = [(dwconv, "launches"), (dwconv, "bf16_launches"), (dwconv, "bwd_launches"),
+                (dwconv, "bf16_bwd_launches")]
+
+
+def _both_param_routes(op, inputs, params, dy, counters):
+    """op's output and gradients with the bf16 parameters (indices `params`
+    of `inputs`) as they are and with their fp32 casts as the leaves, and
+    the counters' advance in each route."""
+    routes = []
+    for cast in (False, True):
+        args = [t.float() if cast and i in params and t is not None else t
+                for i, t in enumerate(inputs)]
+        before = [getattr(m, n) for m, n in counters]
+        y, grads = _grads(op, args, dy)
+        torch.cuda.synchronize()
+        routes.append((y, grads, [getattr(m, n) - b for (m, n), b in zip(counters, before)]))
+    return routes
+
+
+def _assert_same_routes(routes, inputs):
+    (y, grads, moved), (y32, grads32, moved32) = routes
+    assert torch.equal(y, y32)
+    assert moved == moved32 and all(n == 1 for n in moved if n), (moved, moved32)
+    for t, g, g32 in zip([t for t in inputs if t is not None], grads, grads32):
+        assert g.dtype == t.dtype
+        assert torch.equal(g, g32.to(t.dtype))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("gate_act", ["none", "silu", "silu_sum", "raw"])
+@pytest.mark.parametrize("rows,C", [(1536, 768), (6144, 192), (37, 100), (11, 3), (9, 30)])
+def test_layer_norm_bf16_params_equal_their_fp32_casts(dev, gate_act, rows, C, offset):
+    """#3 and #4 with bf16 scale and bias against the same call on their fp32
+    casts: bit-identical output, dx, dgate, dscale and dbias (each in its
+    input's dtype), the same launches (offset 1: x, the gate and dy off an
+    8-byte boundary, the strided templates)."""
+    g = torch.Generator().manual_seed(rows + C + offset)
+
+    def act(*shape, **kw):
+        n = math.prod(shape)
+        return _rand(g, n + offset, **kw).to(dev, BF16)[offset:].view(shape)
+
+    x, dy = act(rows, C, scale=2.0, shift=0.5), act(rows, C)
+    gate = None if gate_act == "none" else act(rows, C)
+    s, b = _rand(g, C, scale=0.2, shift=1.0).to(dev, BF16), _rand(g, C, scale=0.2).to(dev, BF16)
+    gact = "none" if gate_act == "raw" else gate_act
+
+    def op(x, s, b, gate):
+        return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gact)
+
+    inputs = [x, s, b, gate]
+    _assert_same_routes(_both_param_routes(op, inputs, (1, 2), dy, _LN_COUNTERS), inputs)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("act,has_bias", [("none", True), ("silu", True), ("silu", False)])
+@pytest.mark.parametrize("shape", [(6, 16, 16, 768), (12, 64, 64, 192), (2, 5, 7, 3),
+                                   (2, 11, 19, 40), (2, 8, 8, 24)])
+def test_dwconv_bf16_params_equal_their_fp32_casts(dev, act, has_bias, shape, offset):
+    """#7 and #8 with a bf16 weight (a view of a (C, 3, 3) tensor, as SS2D
+    passes it) and bias against the same call on their fp32 casts:
+    bit-identical output, dx, dw and dbias (each in its input's dtype), the
+    same launches (offset 1: x and dy off an 8-byte boundary)."""
+    g = torch.Generator().manual_seed(sum(shape) + offset)
+    C, n = shape[-1], math.prod(shape)
+    x = _rand(g, n + offset).to(dev, BF16)[offset:].view(shape)
+    dy = _rand(g, n + offset).to(dev, BF16)[offset:].view(shape)
+    w = _rand(g, C, 3, 3, scale=0.3).to(dev, BF16).permute(1, 2, 0)
+    b = _rand(g, C, scale=0.1).to(dev, BF16) if has_bias else None
+
+    def op(x, w, b):
+        return dwconv.depthwise_conv3x3(x, w, b, act)
+
+    inputs = [x, w, b]
+    _assert_same_routes(_both_param_routes(op, inputs, (1, 2), dy, _DW_COUNTERS), inputs)
+
+
+@pytest.mark.parametrize("which", ["layer_norm", "dwconv"])
+def test_bf16_forward_launches_no_cast(dev, which):
+    """A bf16 forward of each op on bf16 parameters, as a bf16 step calls it
+    (with a gradient to record): its kernel, launched once, and no cast. A
+    cast is a PyTorch operator (`_to_copy`, `copy_`), so the
+    operators the call dispatches are logged (below the profiler, which on
+    the card's machine sometimes records no event): an allocation, and no
+    copy, cast, clone or fill."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func._schema.name)
+            return func(*args, **(kwargs or {}))
+
+    g = torch.Generator().manual_seed(5)
+    if which == "layer_norm":
+        x, gate = (_rand(g, 1536, 768).to(dev, BF16) for _ in range(2))
+        s, b = (_rand(g, 768).to(dev, BF16).requires_grad_(True) for _ in range(2))
+        counter = (ln_triton, "bf16_layer_norm_launches")
+
+        def run():
+            return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, "silu")
+    else:
+        x = _rand(g, 6, 16, 16, 768).to(dev, BF16)
+        w = _rand(g, 768, 3, 3).to(dev, BF16).permute(1, 2, 0).requires_grad_(True)
+        b = _rand(g, 768).to(dev, BF16).requires_grad_(True)
+        counter = (dwconv, "bf16_launches")
+
+        def run():
+            return dwconv.depthwise_conv3x3(x, w, b, "silu")
+    run()
+    ops, before = [], getattr(*counter)
+    with Log():
+        y = run()
+    torch.cuda.synchronize()
+    assert getattr(*counter) == before + 1 and y.dtype == BF16 and y.requires_grad
+    assert "aten::empty_like" in ops, ops
+    assert not any(k in op for op in ops for k in ("copy", "_to", "clone", "fill")), ops
 
 
 @pytest.mark.parametrize("M,C,H", [
