@@ -99,9 +99,10 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                loading strictly, each kernel's bf16 launches equal to 4 times
                the config's calls a step and no fp32 launch, every LN
                backward launch and every LN-mean forward launch the quads
-               design (`bf16_quads_launches`, `bf16_lnm_quads_launches`),
-               as many one-launch LN-mean backwards as the plan predicts
-               (`bf16_lnm_bwd_one_launch`); the median step and pairs/s
+               design (`tracing.counts`' `fm_layer_norm_bwd_bf16:quads`,
+               `fm_ln_mean_fwd_bf16:quads`), as many one-launch LN-mean
+               backwards as the plan predicts
+               (`fm_ln_mean_bwd_bf16:one_launch`); the median step and pairs/s
                beside train's.
      train_disk - the same CLI on a PST900-layout folder of 24 pairs at
                1280x720 written from a seed (`--dataset pst900 -j 8`, under
@@ -222,9 +223,10 @@ from fusionmamba_torch.losses import compute_class_weights
 from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
 from fusionmamba_torch.models.mamba_lm import MambaLMHeadModel, decode_graph, generate
 from fusionmamba_torch.nn import SS2D, init_lm_weights, init_weights
-from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
+from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
 from fusionmamba_torch.tools import check_dataset, color_convert
+from fusionmamba_torch.utils import tracing
 
 PAIRS, SIZE, N_IMAGES = 8, 256, 20
 TRAIN_PAIRS, TRAIN_STEPS = 6, 12   # the reference's batch; 72 synthetic pairs
@@ -976,31 +978,24 @@ def phase_scan_paths(train_shapes, serve_shapes, fullres_shapes, dev):
         torch.cuda.empty_cache()
 
 
-# where each kernel's launch counter lives
-_COUNTERS = {"scan": (scan_cuda, "launches"), "scan_bwd": (scan_cuda, "bwd_launches"),
-             "layer_norm": (ln_triton, "layer_norm_launches"),
-             "layer_norm_bwd": (layer_norm, "layer_norm_bwd_launches"),
-             "ln_mean": (layer_norm, "ln_mean_launches"),
-             "ln_mean_bwd": (layer_norm, "ln_mean_bwd_launches"),
-             "dwconv": (dwconv, "launches"), "dwconv_bwd": (dwconv, "bwd_launches"),
-             "mlp": (mlp, "launches"), "mlp_bwd": (mlp, "bwd_launches")}
-
-
-# where each kernel's bf16-variant counter lives (the counters above count
-# the launches of both variants)
-_BF16_COUNTERS = {k: (module, "bf16_" + name) for k, (module, name) in _COUNTERS.items()}
+# the launch count of each kernel in `tracing.counts`: its fp32 entry point,
+# and the same name + "_bf16" for its bf16 variant
+ENTRIES = {"scan": "fm_selective_scan_fwd", "scan_bwd": "fm_selective_scan_bwd",
+           "layer_norm": "triton_ln_fwd", "layer_norm_bwd": "fm_layer_norm_bwd",
+           "ln_mean": "fm_ln_mean_fwd", "ln_mean_bwd": "fm_ln_mean_bwd",
+           "dwconv": "fm_dwconv3x3_fwd", "dwconv_bwd": "fm_dwconv3x3_bwd",
+           "mlp": "fm_fused_mlp_fwd", "mlp_bwd": "fm_fused_mlp_bwd"}
 
 
 def read_launches(kernels=KERNELS, bf16=False):
-    return {k: getattr(*(_BF16_COUNTERS if bf16 else _COUNTERS)[k]) for k in kernels}
+    """Each kernel's launches since the last `zero_launches`: of both
+    variants, or with `bf16` of the bf16 one."""
+    c = tracing.counts
+    return {k: c[ENTRIES[k] + "_bf16"] + (0 if bf16 else c[ENTRIES[k]]) for k in kernels}
 
 
 def zero_launches():
-    for module, name in (*_COUNTERS.values(), *_BF16_COUNTERS.values()):
-        setattr(module, name, 0)
-    layer_norm.bf16_quads_launches = 0
-    layer_norm.bf16_lnm_quads_launches = 0
-    layer_norm.bf16_lnm_bwd_one_launch = 0
+    tracing.counts.clear()
 
 
 def phase_main_path(calls, smi, tmp):
@@ -1534,8 +1529,9 @@ def phase_train_bf16(tcalls, smi, fp32_line):
         stats = train.main(argv)
         torch.cuda.synchronize()
         total, bf16 = read_launches(), read_launches(bf16=True)
-        quads = layer_norm.bf16_quads_launches
-        lnm_quads, lnm_one = layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch
+        quads = tracing.counts["fm_layer_norm_bwd_bf16" + layer_norm.QUADS]
+        lnm_quads = tracing.counts["fm_ln_mean_fwd_bf16" + layer_norm.QUADS]
+        lnm_one = tracing.counts["fm_ln_mean_bwd_bf16" + layer_norm.ONE_LAUNCH]
         path = os.path.join(tmp, "fusion_model_pst900.pth")
         saved = torch.load(path, weights_only=True)
         fp32_saved = all(v.dtype == torch.float32 for v in saved.values() if v.is_floating_point())
@@ -1867,7 +1863,7 @@ def phase_lm_decode(model, dev):
     with torch.inference_mode():
         full = model(tokens)[0]
         caches = model.init_caches(LM_DECODE_BATCH)
-        before = scan_cuda.launches
+        before = read_launches(["scan"])["scan"]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         err = torch.zeros((), device=dev)
@@ -1876,7 +1872,7 @@ def phase_lm_decode(model, dev):
             err = torch.maximum(err, (step - full[:, i:i + 1]).abs().max())
         torch.cuda.synchronize()
         step_ms = 1e3 * (time.perf_counter() - t0) / LM_DECODE_LEN
-        scans = scan_cuda.launches - before
+        scans = read_launches(["scan"])["scan"] - before
         top = float(full.abs().max())
     err = float(err)
     emit({"phase": "lm_decode", "batch": LM_DECODE_BATCH, "positions": LM_DECODE_LEN,
@@ -1922,7 +1918,7 @@ def phase_lm_generate(model, dev, smi):
     capture time; no scan launch (the prefill runs through decode steps)."""
     gen = torch.Generator(device=dev).manual_seed(12)
     prompt = torch.randint(0, LM_VOCAB, (LM_GEN_BATCH, LM_GEN_PROMPT), device=dev, generator=gen)
-    before = scan_cuda.launches
+    before = read_launches(["scan"])["scan"]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     decode_graph(model, LM_GEN_BATCH)
@@ -1950,7 +1946,7 @@ def phase_lm_generate(model, dev, smi):
         if not same or outs[0].shape != (LM_GEN_BATCH, LM_GEN_PROMPT + LM_GEN_NEW):
             emit(line)
             fail(f"LM generate ({mode}): loop and graph tokens differ")
-    line["scan_launches"] = scan_cuda.launches - before
+    line["scan_launches"] = read_launches(["scan"])["scan"] - before
     emit(line)
     if line["scan_launches"]:
         fail(f"LM generate launched the scan kernel {line['scan_launches']} times")

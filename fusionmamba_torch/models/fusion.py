@@ -31,6 +31,7 @@ from ..config import FusionModelConfig
 from ..nn.blocks import VSSBlock, VSSBlockCross
 from ..nn.layers import SegmentationHead
 from ..nn.patch import FinalPatchExpand, PatchEmbed, PatchExpand, PatchMerging
+from ..utils import tracing
 
 
 def _blocks(dim: int, drop_paths: Sequence[float], cfg: FusionModelConfig) -> nn.ModuleList:
@@ -155,7 +156,8 @@ class VSSMFusion(nn.Module):
         including final_up. In training with drop_path_rate > 0, DropPath
         reads one uniform table per call: `dp_uni` (rows, 2B) when given,
         else drawn from `generator` (the default generator when None) on the
-        inputs' device."""
+        inputs' device. Spans `fusion.embed`, `fusion.encoder`, `fusion.cross`
+        and `fusion.decoder` (final_up included)."""
         nl = len(self.layers)
         enc_dp = dec_dp = [None] * nl
         if self.training and self.cfg.drop_path_rate > 0.0:
@@ -165,28 +167,35 @@ class VSSMFusion(nn.Module):
             elif tuple(dp_uni.shape) != shape:
                 raise ValueError(f"dp_uni must be {shape}, got {tuple(dp_uni.shape)}")
             enc_dp, dec_dp = self.dp_tables(dp_uni)
-        x = torch.cat([self.patch_embed1(x1), self.patch_embed2(x2)], dim=0)
+        with tracing.span("fusion.embed"):
+            x = torch.cat([self.patch_embed1(x1), self.patch_embed2(x2)], dim=0)
         skips = []
-        for layer, dp in zip(self.layers, enc_dp):
-            skips.append(x)
-            x = layer(x, dp)
-        e1, e2 = x.chunk(2, dim=0)
-        x = e1 + e2
-        fused = [cross(*s.chunk(2, dim=0)) for cross, s in zip(self.Cross_block, skips)]
-        for i, (layer_up, dp) in enumerate(zip(self.layers_up, dec_dp)):
-            if i > 0:
-                x = x + fused[-i]
-            x = layer_up(x, dp)
-        return self.final_up(x)
+        with tracing.span("fusion.encoder"):
+            for layer, dp in zip(self.layers, enc_dp):
+                skips.append(x)
+                x = layer(x, dp)
+            e1, e2 = x.chunk(2, dim=0)
+            x = e1 + e2
+        with tracing.span("fusion.cross"):
+            fused = [cross(*s.chunk(2, dim=0)) for cross, s in zip(self.Cross_block, skips)]
+        with tracing.span("fusion.decoder"):
+            for i, (layer_up, dp) in enumerate(zip(self.layers_up, dec_dp)):
+                if i > 0:
+                    x = x + fused[-i]
+                x = layer_up(x, dp)
+            return self.final_up(x)
 
     def fusion_head(self, feats, x1, x2):
-        """final_conv plus the reference's residual `x + x_1 + x_2 + x_1 + x_2`."""
-        return self.final_conv(feats) + 2.0 * x1 + 2.0 * x2
+        """final_conv plus the reference's residual `x + x_1 + x_2 + x_1 + x_2`
+        (span `fusion.head`)."""
+        with tracing.span("fusion.head"):
+            return self.final_conv(feats) + 2.0 * x1 + 2.0 * x2
 
     def forward(self, x1, x2, generator=None, dp_uni=None):
         """x1, x2 (B, H, W, in_chans) -> (B, H, W, 1); `generator` and
-        `dp_uni` as in `features`."""
-        return self.fusion_head(self.features(x1, x2, generator, dp_uni), x1, x2)
+        `dp_uni` as in `features`. Span `fusion.forward`."""
+        with tracing.span("fusion.forward"):
+            return self.fusion_head(self.features(x1, x2, generator, dp_uni), x1, x2)
 
 
 class VSSMFusionSeg(nn.Module):

@@ -26,6 +26,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.selective_scan import selective_scan, softplus
+from ..utils import tracing
+
+
+def _scan_input(t: torch.Tensor) -> torch.Tensor:
+    """t in fp32 and row-major, as the scan takes it; each copy made is
+    counted under `lm.scan_inputs` (`tracing.counts`)."""
+    return tracing.contiguous(tracing.cast(t, torch.float32, "lm.scan_inputs"), "lm.scan_inputs")
 
 
 class MambaBlock(nn.Module):
@@ -60,11 +67,10 @@ class MambaBlock(nn.Module):
         dbc = self.x_proj(xc)
         dt = F.linear(dbc[..., :R], self.dt_proj.weight)
         A = -torch.exp(self.A_log.float())
-        y = selective_scan(
-            xc[:, None].float().contiguous(), dt[:, None].float().contiguous(), A[None],
-            dbc[:, None, :, R:R + N].float().contiguous(),
-            dbc[:, None, :, R + N:].float().contiguous(), self.D[None].float(),
-            self.dt_proj.bias[None].float(), delta_softplus=True)[:, 0]
+        u, dt, Bm, Cm = map(_scan_input, (xc[:, None], dt[:, None], dbc[:, None, :, R:R + N],
+                                          dbc[:, None, :, R + N:]))
+        y = selective_scan(u, dt, A[None], Bm, Cm, self.D[None].float(),
+                           self.dt_proj.bias[None].float(), delta_softplus=True)[:, 0]
         return self.out_proj(y.to(x.dtype) * F.silu(z)), None
 
     def step(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
@@ -155,12 +161,17 @@ class MambaLMHeadModel(nn.Module):
 
     def forward(self, tokens: torch.Tensor, caches: list | None = None):
         """tokens (B, L) int -> (logits (B, L, vocab), caches). With `caches`
-        (from `init_caches`), L must be 1; they are updated in place."""
-        x = self.backbone.embedding(tokens)
-        for i, layer in enumerate(self.backbone.layers):
-            x, _ = layer(x, None if caches is None else caches[i])
-        x = self.backbone.norm_f(x)
-        return F.linear(x, self.backbone.embedding.weight), caches
+        (from `init_caches`), L must be 1; they are updated in place. Spans
+        `lm.forward`: `lm.embed`, `lm.layers`, `lm.head` (the final norm and
+        the tied head)."""
+        with tracing.span("lm.forward"):
+            with tracing.span("lm.embed"):
+                x = self.backbone.embedding(tokens)
+            with tracing.span("lm.layers"):
+                for i, layer in enumerate(self.backbone.layers):
+                    x, _ = layer(x, None if caches is None else caches[i])
+            with tracing.span("lm.head"):
+                return F.linear(self.backbone.norm_f(x), self.backbone.embedding.weight), caches
 
     def init_caches(self, batch: int, device=None) -> list[dict]:
         device = self.backbone.embedding.weight.device if device is None else device

@@ -11,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fused_mlp, layer_norm_fused, ln_spatial_mean
+from ..utils import tracing
 
 
 class FusedLayerNorm(nn.Module):
@@ -74,7 +75,7 @@ class LDC(nn.Module):
         eff = w * (self.base_mask.to(w.dtype) - self.learnable_theta
                    * self.learnable_mask[:, :, None, None] * self.center_mask.to(w.dtype) * wsum)
         y = F.conv2d(x.permute(0, 3, 1, 2), eff, padding=self.conv.padding)
-        return y.permute(0, 2, 3, 1).contiguous()
+        return tracing.contiguous(y.permute(0, 2, 3, 1), "ldc.out")
 
 
 class ECALayer(nn.Module):

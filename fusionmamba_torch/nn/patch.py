@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from ..utils import tracing
 from .layers import FusedLayerNorm
 
 _EPS = 1e-5
@@ -24,7 +25,8 @@ class PatchEmbed(nn.Module):
         self.norm = FusedLayerNorm(embed_dim, _EPS) if use_norm else None
 
     def forward(self, x):  # (B, H, W, in_chans)
-        x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+        x = self.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = tracing.contiguous(x, "patch_embed.out")
         return x if self.norm is None else self.norm(x)
 
 

@@ -26,6 +26,7 @@ from torch import nn
 
 from ..ops import cross_merge, cross_scan, depthwise_conv3x3, efficient_merge, efficient_scan
 from ..ops.selective_scan import selective_scan
+from ..utils import tracing
 from .layers import FusedLayerNorm
 
 K_DIRS = 4
@@ -101,7 +102,7 @@ class SSMCore(nn.Module):
         xw, dtw, dtb, As, Ds = self.scan_params()
         xs = cross_scan(x) if fullres else efficient_scan(x)      # (B, 4, L, D)
         x_dbl = self.sum_channels(torch.einsum("bkld,kcd->bklc", xs, xw))
-        dts, Bs, Cs = (t.contiguous() for t in x_dbl.split([R, N, N], dim=-1))
+        dts, Bs, Cs = (tracing.contiguous(t, "ss2d.dt_b_c") for t in x_dbl.split([R, N, N], dim=-1))
         ys = selective_scan(xs, dts, As, Bs, Cs, Ds, dtb, delta_softplus=True,
                             dt_lowrank_weight=dtw, impl=self.scan_impl)
         y = cross_merge(ys, H, W) if fullres else efficient_merge(ys, H, W)

@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "fusionmamba_torch"
 SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
@@ -158,8 +160,9 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, *args, device: torch.device) -> None:
-    """Call C entry point `name` on the current stream of `device`; raise on a
-    launch error."""
+    """Call C entry point `name` on the current stream of `device`, counted
+    in `tracing.counts[name]`; raise on a launch error."""
+    tracing.counts[name] += 1
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = getattr(lib(), name)(*args, stream)

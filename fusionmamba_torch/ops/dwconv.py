@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import cuda_lib
 
 ACTS = ("none", "silu")
@@ -49,11 +50,6 @@ SMEM_PER_SM = 228 * 1024   # an SM's shared memory; each block also takes 1 KB
 BWD_MAX_COLS = 16          # columns of a tile
 BWD_MAX_ROWS = 8           # rows of a tile
 BWD_BLOCKS_PER_SM = 4      # at most, fewer where the shared memory does not fit
-
-launches = 0            # every launch, of either I/O dtype
-bwd_launches = 0
-bf16_launches = 0       # the launches of the bf16-I/O variants
-bf16_bwd_launches = 0
 
 
 def depthwise_conv3x3_plain(x, w, bias=None, act="none"):
@@ -180,7 +176,7 @@ def _checked(x, w, bias):
         raise ValueError("depthwise_conv3x3: x must be (B, H, W, C), w (3, 3, C) and bias (C,)")
     # torch's (C, 3, 3) layout; a view, not a copy, when w came from a
     # Conv2d weight as `weight[:, 0].permute(1, 2, 0)`
-    w_c = w.permute(2, 0, 1).contiguous()
+    w_c = tracing.contiguous(w.permute(2, 0, 1), "dwconv.weight")
     io = cuda_lib.io_dtype("depthwise_conv3x3", x)
     params = cuda_lib.check_cuda("depthwise_conv3x3", io, x, params=[w_c, bias])
     return w_c, io, int(params == torch.bfloat16)
@@ -190,7 +186,6 @@ def dwconv_fwd(x, w, bias, act, plan=None):
     """The conv on the card, one launch: x (B, H, W, C), w (3, 3, C) and
     bias fp32, or bf16 with bf16 x. `plan` overrides `fwd_plan`'s layout (to
     time others)."""
-    global launches, bf16_launches
     w_c, io, params = _checked(x, w, bias)
     out = torch.empty_like(x)
     plan = plan or fwd_plan(*x.shape, sms=cuda_lib.sm_count(x.device), io=io)
@@ -198,8 +193,6 @@ def dwconv_fwd(x, w, bias, act, plan=None):
                     None if bias is None else bias.data_ptr(), out.data_ptr(),
                     *x.shape, int(act == "silu"), plan.cq, plan.tw, plan.th, *plan.grid, params,
                     device=x.device)
-    launches += 1
-    bf16_launches += io == torch.bfloat16
     return out
 
 
@@ -207,7 +200,6 @@ def dwconv_bwd(x, w, bias, dy, act, plan=None):
     """Gradients of the conv for the cotangent dy: (dx, dw in w's (3, 3, C)
     shape, dbias or None), dw and dbias fp32. w and bias fp32, or bf16 with
     bf16 x. `plan` overrides `bwd_plan`'s layout (to time others)."""
-    global bwd_launches, bf16_bwd_launches
     w_c, io, params = _checked(x, w, bias)
     B, H, W, C = x.shape
     if dy.shape != x.shape:
@@ -221,8 +213,6 @@ def dwconv_bwd(x, w, bias, dy, act, plan=None):
                     None if bias is None else bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     part.data_ptr(), sums.data_ptr(), B, H, W, C, int(act == "silu"), plan.cq,
                     plan.tw, plan.th, *plan.grid, params, device=x.device)
-    bwd_launches += 1
-    bf16_bwd_launches += io == torch.bfloat16
     # rows 0..8 the taps i*3+j, row 9 dbias
     return dx, sums[:9].view(3, 3, C), None if bias is None else sums[9]
 
@@ -241,7 +231,7 @@ class _DwconvFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w, bias = ctx.saved_tensors
-        dx, dw, db = dwconv_bwd(x, w, bias, dy.contiguous(), ctx.act)
+        dx, dw, db = dwconv_bwd(x, w, bias, tracing.contiguous(dy, "dwconv_bwd.dy"), ctx.act)
         return dx, dw.to(w.dtype), None if db is None else db.to(bias.dtype), None
 
 

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import cuda_lib, ln_triton
 from .cuda_lib import needs_grad
 
@@ -74,16 +75,10 @@ FWD_BLOCK = 512
 FWD_ROW_VALUES = 24
 FWD_MAX_CLUSTER = 16
 FWD_BLOCKS_PER_SM = 1.5
-
-layer_norm_bwd_launches = 0     # every launch, of either I/O dtype
-ln_mean_launches = 0
-ln_mean_bwd_launches = 0
-bf16_layer_norm_bwd_launches = 0   # the launches of the bf16-I/O variants
-bf16_ln_mean_launches = 0
-bf16_ln_mean_bwd_launches = 0
-bf16_quads_launches = 0            # the LN backward's bf16 launches with the quads design
-bf16_lnm_quads_launches = 0        # the LN-mean forward's bf16 launches on the quads
-bf16_lnm_bwd_one_launch = 0        # the LN-mean backward's one-launch bf16 calls
+# a launch on a bf16 design is also counted under `<entry>` + one of these
+# (`tracing.counts`): the LN backward's and the LN-mean forward's quads, the
+# LN-mean backward's one launch
+QUADS, ONE_LAUNCH = ":quads", ":one_launch"
 
 
 def gate_value(g_raw: torch.Tensor, gate_act: str) -> torch.Tensor:
@@ -246,7 +241,6 @@ def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
     (out, the (B, C) fp32 means of xhat over the positions, which the bf16
     backward's one launch reads), the second None off the quads. `plan`
     overrides `lnm_fwd_plan`'s layout (to time others)."""
-    global ln_mean_launches, bf16_ln_mean_launches, bf16_lnm_quads_launches
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean", x)
     params = cuda_lib.check_cuda("ln_spatial_mean", io, x, params=[scale, bias])
@@ -257,14 +251,14 @@ def ln_spatial_mean_fwd(x, scale, bias, eps, plan=None, with_mean=False):
                                 x.data_ptr() % 8 == 0)
     out = torch.empty((B, C), device=x.device, dtype=torch.float32)
     xmean = torch.empty_like(out) if with_mean and plan.quads else None
-    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_fwd", io), x.data_ptr(), scale.data_ptr(),
+    entry = cuda_lib.entry("fm_ln_mean_fwd", io)
+    cuda_lib.launch(entry, x.data_ptr(), scale.data_ptr(),
                     bias.data_ptr(), out.data_ptr(), None if xmean is None else xmean.data_ptr(),
                     B, rows, C, plan.values, plan.lanes, int(plan.masked), int(plan.quads),
                     plan.unroll, plan.cluster, int(params == torch.bfloat16), eps,
                     device=x.device)
-    ln_mean_launches += 1
-    bf16_ln_mean_launches += io == torch.bfloat16
-    bf16_lnm_quads_launches += plan.quads
+    if plan.quads:
+        tracing.counts[entry + QUADS] += 1
     return (out, xmean) if with_mean else out
 
 
@@ -274,7 +268,6 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
     dbias fp32. scale and bias fp32, or bf16 with bf16 x. Two launches: the
     rows, then the sum of the per-block partials of dscale and dbias. `plan`
     overrides `bwd_plan`'s layout (to time others)."""
-    global layer_norm_bwd_launches, bf16_layer_norm_bwd_launches, bf16_quads_launches
     C = x.shape[-1]
     io = cuda_lib.io_dtype("layer_norm_fused backward", x)
     params = cuda_lib.check_cuda("layer_norm_fused backward", io, x, dy,
@@ -291,15 +284,15 @@ def layer_norm_bwd(x, scale, bias, gate, dy, eps, gate_act, plan=None):
     part = torch.empty((plan.blocks, 2, C), device=x.device, dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
-    cuda_lib.launch(cuda_lib.entry("fm_layer_norm_bwd", io), x.data_ptr(), None if gate is None else gate.data_ptr(),
+    entry = cuda_lib.entry("fm_layer_norm_bwd", io)
+    cuda_lib.launch(entry, x.data_ptr(), None if gate is None else gate.data_ptr(),
                     scale.data_ptr(), bias.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     None if dg is None else dg.data_ptr(), part.data_ptr(), ds.data_ptr(),
                     db.data_ptr(), rows, C, 0 if gate is None else ln_triton.GATE_CODES[gate_act],
                     plan.values, plan.lanes, int(plan.masked), int(plan.quads), plan.blocks,
                     int(params == torch.bfloat16), eps, device=x.device)
-    layer_norm_bwd_launches += 1
-    bf16_layer_norm_bwd_launches += io == torch.bfloat16
-    bf16_quads_launches += plan.quads
+    if plan.quads:
+        tracing.counts[entry + QUADS] += 1
     return dx, dg, ds, db
 
 
@@ -311,7 +304,6 @@ def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None, xmean=None):
     given the forward's means of xhat `xmean` (`ln_spatial_mean_fwd(...,
     with_mean=True)`), one. `plan` overrides `lnm_bwd_plan`'s layout (to time
     others)."""
-    global ln_mean_bwd_launches, bf16_ln_mean_bwd_launches, bf16_lnm_bwd_one_launch
     B, C = x.shape[0], x.shape[-1]
     io = cuda_lib.io_dtype("ln_spatial_mean backward", x)
     params = cuda_lib.check_cuda("ln_spatial_mean backward", io, x, fp32=[dm], params=[scale])
@@ -333,14 +325,14 @@ def ln_spatial_mean_bwd(x, scale, dm, eps, plan=None, xmean=None):
                                                dtype=torch.float32)
     ds = torch.empty(C, device=x.device, dtype=torch.float32)
     db = torch.empty(C, device=x.device, dtype=torch.float32)
-    cuda_lib.launch(cuda_lib.entry("fm_ln_mean_bwd", io), x.data_ptr(), scale.data_ptr(),
+    entry = cuda_lib.entry("fm_ln_mean_bwd", io)
+    cuda_lib.launch(entry, x.data_ptr(), scale.data_ptr(),
                     dm.data_ptr(), xmean.data_ptr() if plan.quads else None, dx.data_ptr(),
                     None if part is None else part.data_ptr(), ds.data_ptr(), db.data_ptr(), B,
                     rows, C, plan.values, plan.lanes, int(plan.masked), int(plan.quads),
                     plan.blocks, int(params == torch.bfloat16), eps, device=x.device)
-    ln_mean_bwd_launches += 1
-    bf16_ln_mean_bwd_launches += io == torch.bfloat16
-    bf16_lnm_bwd_one_launch += plan.quads
+    if plan.quads:
+        tracing.counts[entry + ONE_LAUNCH] += 1
     return dx, ds, db
 
 
@@ -381,8 +373,8 @@ class _LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, bias, gate = ctx.saved_tensors
-        dx, dg, ds, db = layer_norm_bwd(x, scale, bias, gate, dy.contiguous(), ctx.eps,
-                                        ctx.gate_act)
+        dx, dg, ds, db = layer_norm_bwd(x, scale, bias, gate, tracing.contiguous(dy, "ln_bwd.dy"),
+                                        ctx.eps, ctx.gate_act)
         return dx, ds.to(scale.dtype), db.to(bias.dtype), dg, None, None
 
 
@@ -401,7 +393,8 @@ class _LnMeanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dm):
         x, scale, xmean = ctx.saved_tensors
-        dx, ds, db = ln_spatial_mean_bwd(x, scale, dm.contiguous(), ctx.eps, xmean=xmean)
+        dx, ds, db = ln_spatial_mean_bwd(x, scale, tracing.contiguous(dm, "ln_mean_bwd.dm"),
+                                         ctx.eps, xmean=xmean)
         return dx, ds.to(scale.dtype), db.to(ctx.bias_dtype), None
 
 

@@ -21,15 +21,13 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib
 
 # the gate kinds of the LN forward and backward kernels when a gate is given
 # (0: no gate): "none" multiplies by the raw gate
 GATE_CODES = {"silu": 1, "silu_sum": 2, "none": 3}
 _ROW_BLOCK_ELEMS = 4096
-
-layer_norm_launches = 0        # every launch, of either I/O dtype
-bf16_layer_norm_launches = 0   # the launches of the bf16-I/O variant
 
 
 # triton.language, bound by `_kernels()`. Triton resolves the names a kernel
@@ -76,8 +74,8 @@ def _blocks(C: int):
 
 def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
     """LN(x) * act(gate) over the last axis, in x's dtype, on the card.
-    scale and bias fp32, or bf16 with bf16 x."""
-    global layer_norm_launches, bf16_layer_norm_launches
+    scale and bias fp32, or bf16 with bf16 x. Counted in `tracing.counts`
+    as `triton_ln_fwd` (`_bf16` with bf16 x)."""
     C = x.shape[-1]
     io = cuda_lib.io_dtype("layer_norm_fused", x)
     cuda_lib.check_cuda("layer_norm_fused", io, x, *([] if gate is None else [gate]),
@@ -95,6 +93,5 @@ def layer_norm_fwd(x, scale, bias, gate, eps, gate_act):
         ln_fwd[(triton.cdiv(rows, block_r),)](
             x, x if gate is None else gate, scale, bias, y, rows, C, eps,
             GATE=code, BLOCK_R=block_r, BLOCK_C=block_c, num_warps=warps)
-    layer_norm_launches += 1
-    bf16_layer_norm_launches += io == torch.bfloat16
+    tracing.counts[cuda_lib.entry("triton_ln_fwd", io)] += 1
     return y

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import cuda_lib
 
 # widest output the fused forward takes; wider layers take two passes (at
@@ -55,11 +56,6 @@ BF16_BLOCKS_PER_SM = 2
 # tiles measured faster than 128-wide ones at most training shapes: more
 # blocks in flight at these small products, PERF.md)
 BF16_TILE_N = 64
-
-launches = 0            # every launch, of either I/O dtype
-bwd_launches = 0
-bf16_launches = 0       # the launches of the bf16-I/O variants
-bf16_bwd_launches = 0
 _SQRT_HALF = 0.7071067811865476
 _INV_SQRT_2PI = 0.3989422804014327
 
@@ -197,7 +193,6 @@ def mlp_fwd(x2, w1t, b1, w2t, b2, fused: bool):
     """y (M, C_out) for x2 (M, C) and nn.Linear-layout weights w1t (H, C),
     w2t (C_out, H): fused (hidden on chip) or in two passes. bf16's fused
     design takes C and C_out up to BF16_FUSED_MAX_WIDTH."""
-    global launches, bf16_launches
     M, C = x2.shape
     Hd, C_out = w1t.shape[0], w2t.shape[0]
     (x2, w1t, b1, w2t, b2), io = _kernel_operands("fused_mlp", C, Hd, C_out, x2, w1t, b1, w2t,
@@ -222,8 +217,6 @@ def mlp_fwd(x2, w1t, b1, w2t, b2, fused: bool):
     cuda_lib.launch(cuda_lib.entry("fm_fused_mlp_fwd", io),
                     *map(_ptr, (x2, w1t, b1, w2t, b2, y, hidden, partial)),
                     M, C, Hd, C_out, slice_h, device=x2.device)
-    launches += 1
-    bf16_launches += io == torch.bfloat16
     return y
 
 
@@ -236,7 +229,8 @@ def _mlp_cuda(x, w1, b1, w2, b2):
         fused = bf16_fused(x2.shape[0], C, C_out, cuda_lib.sm_count(x.device))
     else:
         fused = C_out <= FUSED_MAX_OUT
-    y = mlp_fwd(x2, w1.t().contiguous(), b1, w2.t().contiguous(), b2, fused=fused)
+    y = mlp_fwd(x2, tracing.contiguous(w1.t(), "mlp.weights"), b1,
+                tracing.contiguous(w2.t(), "mlp.weights"), b2, fused=fused)
     return y.reshape(*x.shape[:-1], C_out)
 
 
@@ -270,11 +264,11 @@ def bf16_plan(M, C, Hd, C_out, sms):
 def mlp_bwd(x, w1, b1, w2, b2, dy):
     """Gradients of `fused_mlp` for the cotangent dy: (dx, dw1, db1, dw2, db2),
     each in the shape of its input (w1 (C, H) and w2 (H, C_out) as given)."""
-    global bwd_launches, bf16_bwd_launches
     C, Hd, C_out = _check_shapes(x, w1, b1, w2, b2)
     (x2, dy2, w1t, b1, w2t), io = _kernel_operands(
         "fused_mlp backward", C, Hd, C_out, x.reshape(-1, C), dy.reshape(-1, C_out),
-        w1.t().contiguous(), b1, w2.t().contiguous())   # nn.Linear (out, in)
+        tracing.contiguous(w1.t(), "mlp_bwd.weights"), b1,
+        tracing.contiguous(w2.t(), "mlp_bwd.weights"))   # nn.Linear (out, in)
     M = x2.shape[0]
     sms = cuda_lib.sm_count(x.device)
     plan = bf16_bwd_plan if io == torch.bfloat16 else bwd_slices
@@ -298,8 +292,6 @@ def mlp_bwd(x, w1, b1, w2, b2, dy):
     cuda_lib.launch(cuda_lib.entry("fm_fused_mlp_bwd", io), *map(_ptr, (
         x2, dy2, w1t, b1, w2t, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p,
         dx, dw1, db1, dw2, db2)), M, C, Hd, C_out, slice_dx, slice_w, device=x.device)
-    bwd_launches += 1
-    bf16_bwd_launches += io == torch.bfloat16
     return dx.view(x.shape), dw1.t(), db1, dw2.t(), db2
 
 
@@ -311,7 +303,7 @@ class _MlpFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return mlp_bwd(*ctx.saved_tensors, dy.contiguous())
+        return mlp_bwd(*ctx.saved_tensors, tracing.contiguous(dy, "mlp_bwd.dy"))
 
 
 def fused_mlp(x, w1, b1, w2, b2):

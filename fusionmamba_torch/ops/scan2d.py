@@ -19,6 +19,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def efficient_scan(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, 4, ceil(H/2)*ceil(W/2), C)."""
@@ -47,7 +49,7 @@ def efficient_merge(ys: torch.Tensor, ori_h: int, ori_w: int) -> torch.Tensor:
     odd_h = torch.stack([q10, q11], dim=3)
     y = torch.stack([even_h, odd_h], dim=2)   # (B, H2, 2, W2, 2, C)
     y = y.reshape(B, 2 * H2, 2 * W2, C)
-    return y[:, :ori_h, :ori_w].contiguous()
+    return tracing.contiguous(y[:, :ori_h, :ori_w], "scan2d.merge")
 
 
 def cross_scan(x: torch.Tensor) -> torch.Tensor:

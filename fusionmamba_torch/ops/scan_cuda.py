@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
 from . import cuda_lib
 
 MAX_STATE = 16      # kMaxN in the sources
@@ -43,11 +44,6 @@ _LANES = 4          # lanes per channel
 # (tools/scan_tune.py times both)
 FWD_WARPS_PER_SM = (8, 40)
 BWD_WARPS_PER_SM = (16, 72)
-
-launches = 0            # every launch, of either I/O dtype
-bwd_launches = 0
-bf16_launches = 0       # the launches of the bf16-I/O variants
-bf16_bwd_launches = 0
 
 
 def chunk_len(L: int, threads: int, enough_threads: int, target_threads: int) -> int:
@@ -154,7 +150,6 @@ def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
     Returns y, or (y, hsave) with `save_states`, hsave being the states at
     the start of every SAVE_EVERY steps, (B*K, ceil(L/SAVE_EVERY), D, N).
     `chunk` overrides the chunk length (a multiple of 16 steps)."""
-    global launches, bf16_launches
     batch, K, L, dim, N, R, io = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
                                         dt_lowrank_weight)
     if fwd_smem_bytes(N, R, io) > _SMEM_LIMIT:
@@ -176,8 +171,6 @@ def selective_scan_fwd(u, delta, A, Bmat, Cmat, D, delta_bias, delta_softplus,
         _ptr(dt_lowrank_weight), A.data_ptr(), Bmat.data_ptr(), Cmat.data_ptr(),
         _ptr(D), _ptr(delta_bias), out.data_ptr(), _ptr(hsave), _ptr(carry), _ptr(sdel),
         batch, K, L, dim, N, R, int(delta_softplus), SAVE_EVERY, chunk, device=dev)
-    launches += 1
-    bf16_launches += io == torch.bfloat16
     return (out, hsave) if save_states else out
 
 
@@ -198,7 +191,6 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
     in the shape of its input (None for an input that was None). `chunk`
     overrides the chunk length (a multiple of 16 steps; it need not be the
     forward's)."""
-    global bwd_launches, bf16_bwd_launches
     batch, K, L, dim, N, R, io = _check(u, delta, A, Bmat, Cmat, D, delta_bias,
                                         dt_lowrank_weight)
     dev = u.device
@@ -213,8 +205,8 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
         du, ddt, dA, dB, dC, dD, dbias, dW = selective_scan_bwd(
             u, delta, F.pad(A, pad), F.pad(Bmat, pad), F.pad(Cmat, pad), D, delta_bias,
             dt_lowrank_weight, F.pad(hsave, pad), dy, delta_softplus, chunk)
-        return (du, ddt, dA[..., :N].contiguous(), dB[..., :N].contiguous(),
-                dC[..., :N].contiguous(), dD, dbias, dW)
+        dA, dB, dC = (tracing.contiguous(g[..., :N], "scan_bwd.unpad") for g in (dA, dB, dC))
+        return du, ddt, dA, dB, dC, dD, dbias, dW
     if bwd_smem_bytes(N, R, io) > _SMEM_LIMIT:
         raise ValueError(f"selective_scan backward: dt rank {R} too large for the kernel")
     chunk = _pick_chunk(chunk, batch, K, L, dim, dev, BWD_WARPS_PER_SM)
@@ -233,6 +225,4 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, delta_bias, dt_lowrank_weight
         hsave.data_ptr(), dy.data_ptr(), du.data_ptr(), ddt.data_ptr(), _ptr(dW),
         dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), _ptr(dD), _ptr(dbias), scratch.data_ptr(),
         batch, K, L, dim, N, R, SAVE_EVERY, int(delta_softplus), chunk, device=dev)
-    bwd_launches += 1
-    bf16_bwd_launches += io == torch.bfloat16
     return du, ddt, dA, dB, dC, dD, dbias, dW

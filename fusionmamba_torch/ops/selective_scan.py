@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import tracing
 from . import cuda_lib, scan_cuda
 
 
@@ -73,7 +74,7 @@ class _ScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         *inputs, hsave = ctx.saved_tensors
-        grads = scan_cuda.selective_scan_bwd(*inputs, hsave, dy.contiguous(),
+        grads = scan_cuda.selective_scan_bwd(*inputs, hsave, tracing.contiguous(dy, "scan_bwd.dy"),
                                              ctx.delta_softplus)
         return (*grads, None)
 

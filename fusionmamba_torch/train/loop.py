@@ -22,6 +22,7 @@ import torch
 
 from ..losses import fusion_loss, improved_pst900_loss, segmentation_loss
 from ..parallel import local_dp_table, sync_gradients
+from ..utils import tracing
 
 
 def reference_fusion_lr(epoch: int) -> float:
@@ -80,17 +81,19 @@ def cast_compute(net: torch.nn.Module, dtype: torch.dtype):
     buffers (BatchNorm's running statistics) are not cast, as flax leaves
     `batch_stats` alone. The block must hold the backward too: remat
     recomputes forwards there, and they must read the same casts. At fp32
-    it is a no-op."""
+    it is a no-op. The casts are span `train.cast` and copy site
+    `train.cast` (`tracing`)."""
     if dtype == torch.float32:
         yield
         return
     casts, swapped = {}, []
-    for mod in net.modules():
-        for name, p in mod._parameters.items():
-            if p is not None and p.is_floating_point() and p.dtype != dtype:
-                if id(p) not in casts:
-                    casts[id(p)] = p.to(dtype)
-                swapped.append((mod, name, p))
+    with tracing.span("train.cast"):
+        for mod in net.modules():
+            for name, p in mod._parameters.items():
+                if p is not None and p.is_floating_point() and p.dtype != dtype:
+                    if id(p) not in casts:
+                        casts[id(p)] = tracing.cast(p, dtype, "train.cast")
+                    swapped.append((mod, name, p))
     try:
         for mod, name, p in swapped:
             mod._parameters[name] = casts[id(p)]
@@ -118,21 +121,30 @@ def fusion_train_step(net, opt, vis_y, ir, generator=None, mesh=None,
 
     With `compute_dtype` bf16 the forward and backward run on bf16 casts of
     the parameters (`cast_compute`) and of vis_y and ir; the output returns
-    to fp32 before the clamp, and the loss reads the fp32 vis_y and ir."""
-    net.train()
-    axis = None if mesh is None or mesh.data.size == 1 else mesh.data
-    dp_uni = None
-    if axis is not None and net.cfg.drop_path_rate > 0.0:
-        dp_uni = local_dp_table(net, generator, vis_y.shape[0] * axis.size, mesh, vis_y.device)
-    opt.zero_grad(set_to_none=True)
-    with cast_compute(net, compute_dtype):
-        gen = net(vis_y.to(compute_dtype), ir.to(compute_dtype), generator=generator,
-                  dp_uni=dp_uni).float().clamp(0.0, 1.0)
-        out = fusion_loss(vis_y, ir, gen, axis=axis)
-        out.total.backward()
-    if axis is not None:
-        sync_gradients(net.parameters(), mesh)
-    opt.step()
+    to fp32 before the clamp, and the loss reads the fp32 vis_y and ir.
+
+    Spans (`tracing`): `train.step`, and in it `train.cast` (bf16), the
+    model's `fusion.forward`, `train.loss` (the clamp and the loss),
+    `train.backward` and `train.optimizer`."""
+    with tracing.span("train.step"):
+        net.train()
+        axis = None if mesh is None or mesh.data.size == 1 else mesh.data
+        dp_uni = None
+        if axis is not None and net.cfg.drop_path_rate > 0.0:
+            dp_uni = local_dp_table(net, generator, vis_y.shape[0] * axis.size, mesh,
+                                    vis_y.device)
+        opt.zero_grad(set_to_none=True)
+        with cast_compute(net, compute_dtype):
+            x1, x2 = (tracing.cast(t, compute_dtype, "train.cast") for t in (vis_y, ir))
+            gen = net(x1, x2, generator=generator, dp_uni=dp_uni)
+            with tracing.span("train.loss"):
+                out = fusion_loss(vis_y, ir, gen.float().clamp(0.0, 1.0), axis=axis)
+            with tracing.span("train.backward"):
+                out.total.backward()
+        if axis is not None:
+            sync_gradients(net.parameters(), mesh)
+        with tracing.span("train.optimizer"):
+            opt.step()
     return {"loss_total": out.total.detach(), "loss_in": out.loss_in.detach(),
             "loss_ssim": out.ssim_value.detach(), "loss_grad": out.loss_grad.detach()}
 

@@ -12,14 +12,16 @@ magnitudes summed; 1e-4 relative to the output scale bounds that with room.
 The MLP kernels form each fp32 product as three TF32 products, which keeps
 fp32-class accuracy (tests/test_torch_tf32x3.py holds the margin).
 """
+import collections
 import math
 
 import pytest
 import torch
 
 from fusionmamba_torch.device import select_device
-from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, ln_triton, mlp, scan_cuda
+from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, mlp, scan_cuda
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
+from fusionmamba_torch.utils.tracing import counts as COUNTS
 
 pytestmark = pytest.mark.cuda
 
@@ -83,13 +85,13 @@ def test_scan_kernel(dev, batch, L, D, N, R, chunk, K):
     two launches bit-identical; an explicit chunk length where given."""
     args = [t if t is None else t.to(dev)
             for t in _scan_case(L * 7 + D, batch, L, D, N, R, K=K)]
-    before = scan_cuda.launches
+    before = COUNTS["fm_selective_scan_fwd"]
     if chunk is None:
         got = selective_scan(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
     else:
         got = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], chunk=chunk)
     torch.cuda.synchronize()
-    assert scan_cuda.launches == before + 1
+    assert COUNTS["fm_selective_scan_fwd"] == before + 1
     want = selective_scan_plain(*args[:7], delta_softplus=True, dt_lowrank_weight=args[7])
     torch.testing.assert_close(got, want, **TOL)
     again, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True,
@@ -124,10 +126,10 @@ def test_layer_norm_kernel(dev, gate_act, rows, C):
     s, b = _rand(g, C).to(dev), _rand(g, C).to(dev)
     gate = None if gate_act == "none" else _rand(g, rows, C).to(dev)
     gate_act = "none" if gate_act == "raw" else gate_act
-    before = ln_triton.layer_norm_launches
+    before = COUNTS["triton_ln_fwd"]
     got = layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, gate_act)
     torch.cuda.synchronize()
-    assert ln_triton.layer_norm_launches == before + 1
+    assert COUNTS["triton_ln_fwd"] == before + 1
     torch.testing.assert_close(got, layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, gate_act),
                                **TOL)
 
@@ -148,11 +150,11 @@ def test_ln_spatial_mean_kernel(dev, B, rows, C):
     g = torch.Generator().manual_seed(rows + C)
     x = _rand(g, B, rows, C, scale=2.0, shift=0.5).to(dev)
     s, b = _rand(g, C).to(dev), _rand(g, C).to(dev)
-    before = layer_norm.ln_mean_launches
+    before = COUNTS["fm_ln_mean_fwd"]
     got = layer_norm.ln_spatial_mean(x, s, b, 1e-5)
     again = layer_norm.ln_spatial_mean(x, s, b, 1e-5)
     torch.cuda.synchronize()
-    assert layer_norm.ln_mean_launches == before + 2
+    assert COUNTS["fm_ln_mean_fwd"] == before + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5), **TOL)
 
@@ -192,10 +194,10 @@ def test_dwconv_kernel(dev, act, shape):
     C = shape[-1]
     x = _rand(g, *shape).to(dev)
     w, b = _rand(g, 3, 3, C, scale=0.3).to(dev), _rand(g, C).to(dev)
-    before = dwconv.launches
+    before = COUNTS["fm_dwconv3x3_fwd"]
     got = dwconv.depthwise_conv3x3(x, w, b, act)
     torch.cuda.synchronize()
-    assert dwconv.launches == before + 1
+    assert COUNTS["fm_dwconv3x3_fwd"] == before + 1
     torch.testing.assert_close(got, dwconv.depthwise_conv3x3_plain(x, w, b, act), **TOL)
     assert torch.equal(got, dwconv.depthwise_conv3x3(x, w, b, act))
     torch.testing.assert_close(dwconv.depthwise_conv3x3(x, w, None, act),
@@ -235,11 +237,11 @@ def test_mlp_kernel(dev, M, C, H):
     x = _rand(g, M, C).to(dev)
     w1, b1 = _rand(g, C, H, scale=C ** -0.5).to(dev), _rand(g, H, scale=0.1).to(dev)
     w2, b2 = _rand(g, H, C, scale=H ** -0.5).to(dev), _rand(g, C, scale=0.1).to(dev)
-    before = mlp.launches
+    before = COUNTS["fm_fused_mlp_fwd"]
     got = mlp.fused_mlp(x, w1, b1, w2, b2)
     again = mlp.fused_mlp(x, w1, b1, w2, b2)
     torch.cuda.synchronize()
-    assert mlp.launches == before + 2
+    assert COUNTS["fm_fused_mlp_fwd"] == before + 2
     assert torch.equal(got, again)
     torch.testing.assert_close(got, mlp.fused_mlp_plain(x, w1, b1, w2, b2), **TOL)
 
@@ -282,12 +284,11 @@ def _assert_grads_close(got, want):
 def _check_backward(kernel, plain, inputs, dy, counter):
     """kernel vs plain gradients; two kernel backwards must be bit-identical
     and launch the backward kernel once each."""
-    module, name = counter
-    before = getattr(module, name)
+    before = COUNTS[counter]
     y, got = _grads(kernel, inputs, dy)
     _, again = _grads(kernel, inputs, dy)
     torch.cuda.synchronize()
-    assert getattr(module, name) == before + 2
+    assert COUNTS[counter] == before + 2
     yw, want = _grads(plain, inputs, dy)
     torch.testing.assert_close(y, yw, **TOL)
     _assert_grads_close(got, want)
@@ -316,7 +317,7 @@ def test_scan_backward_kernel(dev, batch, L, D, N, R, shift):
     def plain(*a):
         return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
 
-    _check_backward(kernel, plain, inputs, dy, (scan_cuda, "bwd_launches"))
+    _check_backward(kernel, plain, inputs, dy, "fm_selective_scan_bwd")
 
 
 @pytest.mark.parametrize("batch,L,D,N,R,chunk,shift", [
@@ -392,7 +393,7 @@ def test_layer_norm_backward_kernel(dev, gate_act, rows, C):
     def plain(x, s, b, gate=None):
         return layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, gate_act)
 
-    _check_backward(kernel, plain, inputs, dy, (layer_norm, "layer_norm_bwd_launches"))
+    _check_backward(kernel, plain, inputs, dy, "fm_layer_norm_bwd")
 
 
 # the model's widths at B = 12 and 6 (every template it uses), C outside the
@@ -409,7 +410,7 @@ def test_ln_spatial_mean_backward_kernel(dev, B, rows, C):
     dm = _rand(g, B, C).to(dev)
     _check_backward(lambda x, s, b: layer_norm.ln_spatial_mean(x, s, b, 1e-5),
                     lambda x, s, b: layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5),
-                    inputs, dm, (layer_norm, "ln_mean_bwd_launches"))
+                    inputs, dm, "fm_ln_mean_bwd")
 
 
 def _unaligned(g, dev, *shape, **kw):
@@ -445,7 +446,7 @@ def test_dwconv_backward_kernel(dev, act, has_bias, shape):
     dy = _rand(g, *shape).to(dev)
     _check_backward(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act),
                     lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act),
-                    inputs, dy, (dwconv, "bwd_launches"))
+                    inputs, dy, "fm_dwconv3x3_bwd")
 
 
 @pytest.mark.parametrize("act", ["none", "silu"])
@@ -474,7 +475,7 @@ def test_mlp_backward_kernel(dev, M, C, H):
     dy = _rand(g, M, C).to(dev)
     _check_backward(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
                     lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
-                    inputs, dy, (mlp, "bwd_launches"))
+                    inputs, dy, "fm_fused_mlp_bwd")
 
 
 def test_model_backward_on_card_matches_cpu(dev):
@@ -522,14 +523,14 @@ def test_lm_generate_graph_matches_loop_on_card(dev):
     model = init_lm_weights(MambaLMHeadModel(256, 64, 2, rms_norm=True), seed=1).eval().to(dev)
     g = torch.Generator().manual_seed(2)
     tokens = torch.randint(0, 256, (2, 40), generator=g)
-    before = scan_cuda.launches
+    before = COUNTS["fm_selective_scan_fwd"]
     with torch.inference_mode():
         got = model(tokens.to(dev))[0]
         want = cpu(tokens)[0]
-    assert scan_cuda.launches == before + 2
+    assert COUNTS["fm_selective_scan_fwd"] == before + 2
     torch.testing.assert_close(got.cpu(), want, **TOL)
     prompt = tokens[:, :5].to(dev)
-    before = scan_cuda.launches
+    before = COUNTS["fm_selective_scan_fwd"]
     for kw in (dict(temperature=0.0), dict(temperature=0.7, top_p=0.9, repetition_penalty=1.2),
                dict(temperature=1.0, top_k=8, min_p=0.1)):
         runs = [generate(model, prompt, 12, compiled=compiled,
@@ -537,7 +538,7 @@ def test_lm_generate_graph_matches_loop_on_card(dev):
                 for compiled in (False, True, True)]
         assert runs[0].shape == (2, 17)
         assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2]), kw
-    assert scan_cuda.launches == before
+    assert COUNTS["fm_selective_scan_fwd"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -563,7 +564,7 @@ def _check_bf16(kernel, plain, inputs, dy, counters):
     """The bf16 kernels (forward and, with dy, backward) against the plain
     version: outputs and every gradient in their inputs' dtypes; two
     launches bit-identical; each bf16 counter in `counters` advanced."""
-    befores = [getattr(m, n) for m, n in counters]
+    befores = [COUNTS[k] for k in counters]
     if dy is None:
         with torch.no_grad():
             y, again = kernel(*inputs), kernel(*inputs)
@@ -581,8 +582,8 @@ def _check_bf16(kernel, plain, inputs, dy, counters):
             assert g.dtype == t.dtype
             _bf16_close(g, w)
             assert torch.equal(g, a)
-    for (m, n), b in zip(counters, befores):
-        assert getattr(m, n) >= b + 2, n
+    for k, b in zip(counters, befores):
+        assert COUNTS[k] >= b + 2, k
 
 
 @pytest.mark.parametrize("batch,L,D,N,R,chunk", [
@@ -607,9 +608,9 @@ def test_scan_kernels_bf16(dev, batch, L, D, N, R, chunk):
     def plain(*a):
         return selective_scan_plain(*a[:7], delta_softplus=True, dt_lowrank_weight=a[7])
 
-    _check_bf16(kernel, plain, args, None, [(scan_cuda, "bf16_launches")])
+    _check_bf16(kernel, plain, args, None, ["fm_selective_scan_fwd_bf16"])
     if chunk is None:
-        _check_bf16(kernel, plain, args, dy, [(scan_cuda, "bf16_bwd_launches")])
+        _check_bf16(kernel, plain, args, dy, ["fm_selective_scan_bwd_bf16"])
     else:
         with torch.no_grad():
             _, hsave = scan_cuda.selective_scan_fwd(*args[:7], True, args[7], save_states=True)
@@ -677,8 +678,8 @@ def test_scan_kernels_bf16_training_shapes(dev, batch, L, D, R):
         return selective_scan(u, dt, A, Bm, Cm, Dp, bias, delta_softplus=True,
                               dt_lowrank_weight=W)
 
-    _check_bf16(kernel, _bf16_scan_plain, args, None, [(scan_cuda, "bf16_launches")])
-    _check_bf16(kernel, _bf16_scan_plain, args, dy, [(scan_cuda, "bf16_bwd_launches")])
+    _check_bf16(kernel, _bf16_scan_plain, args, None, ["fm_selective_scan_fwd_bf16"])
+    _check_bf16(kernel, _bf16_scan_plain, args, dy, ["fm_selective_scan_bwd_bf16"])
 
 
 @pytest.mark.parametrize("batch,L,D,R,chunk", [
@@ -754,8 +755,7 @@ def test_layer_norm_kernels_bf16(dev, gate_act, rows, C):
     def plain(x, s, b, gate):
         return layer_norm.layer_norm_plain(x, s, b, gate, 1e-6, act)
 
-    _check_bf16(kernel, plain, inputs, dy, [(ln_triton, "bf16_layer_norm_launches"),
-                                            (layer_norm, "bf16_layer_norm_bwd_launches")])
+    _check_bf16(kernel, plain, inputs, dy, ["triton_ln_fwd_bf16", "fm_layer_norm_bwd_bf16"])
 
 
 @pytest.mark.parametrize("offset", [1, 2])
@@ -799,11 +799,11 @@ def test_ln_spatial_mean_kernels_bf16(dev, B, rows, C):
     def plain(x, s, b):
         return layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5)
 
-    before = layer_norm.bf16_ln_mean_launches
+    before = COUNTS["fm_ln_mean_fwd_bf16"]
     y, got = _grads(kernel, [x, s, b], dm)
     yw, want = _grads(plain, [x, s, b], dm)
     torch.cuda.synchronize()
-    assert y.dtype == torch.float32 and layer_norm.bf16_ln_mean_launches == before + 1
+    assert y.dtype == torch.float32 and COUNTS["fm_ln_mean_fwd_bf16"] == before + 1
     torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)   # fp32 out, no bf16 rounding
     for t, gk, w in zip((x, s, b), got, want):
         assert gk.dtype == t.dtype
@@ -833,6 +833,12 @@ def _lnm(x, s, b):
     return layer_norm.ln_spatial_mean(x, s, b, 1e-5)
 
 
+def _lnm_designs():
+    """The LN-mean's bf16 launches so far on the forward's quads and in the
+    backward's one launch."""
+    return COUNTS["fm_ln_mean_fwd_bf16:quads"], COUNTS["fm_ln_mean_bwd_bf16:one_launch"]
+
+
 def _lnm_plain(x, s, b):
     return layer_norm.ln_spatial_mean_plain(x, s, b, 1e-5)
 
@@ -848,13 +854,12 @@ def test_ln_spatial_mean_bf16_quads(dev, B, rows, C, params):
     x, s, b, dm = _lnm_bf16_case(B * rows + C, B, rows, C, params, dev)
     assert layer_norm.lnm_fwd_plan(B, rows, C, io=BF16).quads
     assert layer_norm.lnm_bwd_plan(B, rows, C, io=BF16).quads
-    before = (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch)
+    before = _lnm_designs()
     y, got = _grads(_lnm, [x, s, b], dm)
     y2, again = _grads(_lnm, [x, s, b], dm)
     yw, want = _grads(_lnm_plain, [x, s, b], dm)
     torch.cuda.synchronize()
-    assert (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch) == \
-        (before[0] + 2, before[1] + 2)
+    assert _lnm_designs() == (before[0] + 2, before[1] + 2)
     assert y.dtype == torch.float32 and torch.equal(y, y2)
     torch.testing.assert_close(y, yw, rtol=1e-4, atol=1e-4)
     for t, gk, ga, w in zip((x, s, b), got, again, want):
@@ -872,16 +877,16 @@ def test_ln_spatial_mean_bf16_misaligned(dev, B, rows, C, offset):
     x, s, b, dm = _lnm_bf16_case(B + rows + C + offset, B, rows, C, BF16, dev, offset)
     assert not layer_norm.lnm_fwd_plan(B, rows, C, io=BF16, aligned=False).quads
     assert not layer_norm.lnm_bwd_plan(B, rows, C, io=BF16, aligned=False).quads
-    quads, one = layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch
+    quads, one = _lnm_designs()
     y, xmean = layer_norm.ln_spatial_mean_fwd(x, s, b, 1e-5, with_mean=True)
     assert xmean is None
     got = [y, *layer_norm.ln_spatial_mean_bwd(x, s, dm, 1e-5)]
-    assert (layer_norm.bf16_lnm_quads_launches, layer_norm.bf16_lnm_bwd_one_launch) == (quads, one)
+    assert _lnm_designs() == (quads, one)
     copy = x.clone()
     assert copy.data_ptr() % 8 == 0
     y, xmean = layer_norm.ln_spatial_mean_fwd(copy, s, b, 1e-5, with_mean=True)
     want = [y, *layer_norm.ln_spatial_mean_bwd(copy, s, dm, 1e-5, xmean=xmean)]
-    assert layer_norm.bf16_lnm_bwd_one_launch == one + 1
+    assert COUNTS["fm_ln_mean_bwd_bf16:one_launch"] == one + 1
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=1e-4, atol=1e-4)
     for a, w in zip(got[1:], want[1:]):
@@ -971,7 +976,7 @@ def test_dwconv_kernels_bf16(dev, act, has_bias, shape):
     dy = _rand(g, *shape).to(dev, BF16)
     _check_bf16(lambda x, w, b: dwconv.depthwise_conv3x3(x, w, b, act=act),
                 lambda x, w, b: dwconv.depthwise_conv3x3_plain(x, w, b, act=act),
-                inputs, dy, [(dwconv, "bf16_launches"), (dwconv, "bf16_bwd_launches")])
+                inputs, dy, ["fm_dwconv3x3_fwd_bf16", "fm_dwconv3x3_bwd_bf16"])
 
 
 @pytest.mark.parametrize("offset", [1, 2])
@@ -1012,7 +1017,7 @@ def test_dwconv_forward_bf16_designs(dev, act, has_bias, shape, monkeypatch):
     x = _rand(g, *shape).to(dev, BF16)
     w = _rand(g, C, 3, 3, scale=0.3).to(dev, BF16).permute(1, 2, 0)
     b = _rand(g, C, scale=0.1).to(dev, BF16) if has_bias else None
-    before = dwconv.bf16_launches
+    before = COUNTS["fm_dwconv3x3_fwd_bf16"]
     with torch.no_grad():
         got, again = dwconv.depthwise_conv3x3(x, w, b, act), dwconv.depthwise_conv3x3(x, w, b, act)
         for rows in (1, 4):
@@ -1020,7 +1025,7 @@ def test_dwconv_forward_bf16_designs(dev, act, has_bias, shape, monkeypatch):
             other = dwconv.fwd_plan(*shape, sms=cuda_lib.sm_count(dev), io=BF16)
             assert torch.equal(dwconv.dwconv_fwd(x, w, b, act, other), got), other
     torch.cuda.synchronize()
-    assert dwconv.bf16_launches == before + 4
+    assert COUNTS["fm_dwconv3x3_fwd_bf16"] == before + 4
     _bf16_close(got, dwconv.depthwise_conv3x3_plain(x, w, b, act))
     assert torch.equal(got, again)
 
@@ -1054,11 +1059,10 @@ def test_dwconv_forward_bf16_misaligned(dev, shape, offset):
 # casts of those parameters bit for bit (the fp32 gradients rounded to bf16,
 # as autograd's cast of a `.float()` rounds them), with the same launches.
 
-_LN_COUNTERS = [(ln_triton, "layer_norm_launches"), (ln_triton, "bf16_layer_norm_launches"),
-                (layer_norm, "layer_norm_bwd_launches"),
-                (layer_norm, "bf16_layer_norm_bwd_launches"), (layer_norm, "bf16_quads_launches")]
-_DW_COUNTERS = [(dwconv, "launches"), (dwconv, "bf16_launches"), (dwconv, "bwd_launches"),
-                (dwconv, "bf16_bwd_launches")]
+_LN_COUNTERS = ["triton_ln_fwd", "triton_ln_fwd_bf16", "fm_layer_norm_bwd",
+                "fm_layer_norm_bwd_bf16", "fm_layer_norm_bwd_bf16:quads"]
+_DW_COUNTERS = ["fm_dwconv3x3_fwd", "fm_dwconv3x3_fwd_bf16", "fm_dwconv3x3_bwd",
+                "fm_dwconv3x3_bwd_bf16"]
 
 
 def _both_param_routes(op, inputs, params, dy, counters):
@@ -1069,10 +1073,10 @@ def _both_param_routes(op, inputs, params, dy, counters):
     for cast in (False, True):
         args = [t.float() if cast and i in params and t is not None else t
                 for i, t in enumerate(inputs)]
-        before = [getattr(m, n) for m, n in counters]
+        before = [COUNTS[k] for k in counters]
         y, grads = _grads(op, args, dy)
         torch.cuda.synchronize()
-        routes.append((y, grads, [getattr(m, n) - b for (m, n), b in zip(counters, before)]))
+        routes.append((y, grads, [COUNTS[k] - b for k, b in zip(counters, before)]))
     return routes
 
 
@@ -1153,7 +1157,7 @@ def test_bf16_forward_launches_no_cast(dev, which):
     if which == "layer_norm":
         x, gate = (_rand(g, 1536, 768).to(dev, BF16) for _ in range(2))
         s, b = (_rand(g, 768).to(dev, BF16).requires_grad_(True) for _ in range(2))
-        counter = (ln_triton, "bf16_layer_norm_launches")
+        counter = "triton_ln_fwd_bf16"
 
         def run():
             return layer_norm.layer_norm_fused(x, s, b, gate, 1e-6, "silu")
@@ -1161,16 +1165,16 @@ def test_bf16_forward_launches_no_cast(dev, which):
         x = _rand(g, 6, 16, 16, 768).to(dev, BF16)
         w = _rand(g, 768, 3, 3).to(dev, BF16).permute(1, 2, 0).requires_grad_(True)
         b = _rand(g, 768).to(dev, BF16).requires_grad_(True)
-        counter = (dwconv, "bf16_launches")
+        counter = "fm_dwconv3x3_fwd_bf16"
 
         def run():
             return dwconv.depthwise_conv3x3(x, w, b, "silu")
     run()
-    ops, before = [], getattr(*counter)
+    ops, before = [], COUNTS[counter]
     with Log():
         y = run()
     torch.cuda.synchronize()
-    assert getattr(*counter) == before + 1 and y.dtype == BF16 and y.requires_grad
+    assert COUNTS[counter] == before + 1 and y.dtype == BF16 and y.requires_grad
     assert "aten::empty_like" in ops, ops
     assert not any(k in op for op in ops for k in ("copy", "_to", "clone", "fill")), ops
 
@@ -1199,7 +1203,7 @@ def test_mlp_kernels_bf16(dev, M, C, H):
     dy = _rand(g, M, C).to(dev, BF16)
     _check_bf16(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
                 lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
-                [x, w1, b1, w2, b2], dy, [(mlp, "bf16_launches"), (mlp, "bf16_bwd_launches")])
+                [x, w1, b1, w2, b2], dy, ["fm_fused_mlp_fwd_bf16", "fm_fused_mlp_bwd_bf16"])
     first = mlp.mlp_bwd(x, w1.t(), b1, w2.t(), b2, dy)
     second = mlp.mlp_bwd(x, w1.t(), b1, w2.t(), b2, dy)
     torch.cuda.synchronize()
@@ -1261,3 +1265,82 @@ def test_train_steps_never_wait_for_the_card(dev, precision):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert all(bool(torch.isfinite(v)) for v in (*a.values(), *b.values()))
+
+
+# ---------------------------------------------------------------------------
+# spans and copy counts (`utils/tracing.py`) on the card
+# ---------------------------------------------------------------------------
+
+def _owners(rec):
+    """{device event name: the spans that own its launches}: each device
+    event is mapped to its runtime launch by correlation id, and the launch,
+    on whatever thread, to the shortest program span open at its time."""
+    from torch.autograd import DeviceType
+    spans = [e for e in rec.events if e.is_user_annotation() and e.device_type() == DeviceType.CPU]
+    launch = {e.correlation_id(): e.start_ns() for e in rec.events
+              if e.device_type() == DeviceType.CPU and not e.is_user_annotation()}
+    out = {}
+    for e in rec.events:
+        if e.device_type() == DeviceType.CPU or e.is_user_annotation():
+            continue
+        t = launch.get(e.correlation_id())
+        open_ = [s for s in spans if t is not None and s.start_ns() <= t <= s.end_ns()]
+        inner = min(open_, key=lambda s: s.end_ns() - s.start_ns()).name() if open_ else None
+        out.setdefault(e.name(), set()).add(inner)
+    return out
+
+
+def test_spans_own_their_kernels_and_the_backward_kernels(dev):
+    """A span around one hand-written kernel owns that kernel's device
+    event; a span around `loss.backward()` owns the backward's kernels,
+    which autograd launches from a thread of its own; the recording holds no
+    operator."""
+    from fusionmamba_torch.utils import tracing
+    g = torch.Generator().manual_seed(3)
+    x = _rand(g, 2, 16, 16, 64).to(dev).requires_grad_(True)
+    w = _rand(g, 64, 3, 3, scale=0.3).to(dev).permute(1, 2, 0).requires_grad_(True)
+    b = _rand(g, 64).to(dev).requires_grad_(True)
+    dwconv.depthwise_conv3x3(x, w, b, "silu").sum().backward()     # warm
+    torch.cuda.synchronize()
+    for _ in range(3):   # a recording now and then misses its first kernels
+        with tracing.record() as rec:
+            (x.detach() + 1).sum()
+            torch.cuda.synchronize()
+            with tracing.span("conv"):
+                y = dwconv.depthwise_conv3x3(x, w, b, "silu")
+            loss = y.square().sum()
+            with tracing.span("backward"):
+                loss.backward()
+        owners = _owners(rec)
+        fwd = [n for n in owners if "dwconv3x3_fwd_kernel" in n]
+        bwd = [n for n in owners if "dwconv3x3_bwd" in n]
+        if fwd and bwd:
+            break
+    assert fwd and bwd, sorted(owners)
+    assert all(owners[n] == {"conv"} for n in fwd)
+    assert all(owners[n] == {"backward"} for n in bwd)
+    assert not any(e.name().startswith("aten::") for e in rec.events)
+
+
+def test_copy_sites_count_only_the_copies_they_make(dev):
+    """The dwconv's weight: a (3, 3, C) view of a (C, 3, 3) tensor needs no
+    copy, a contiguous (3, 3, C) one a copy of 9 C floats. The MLP's weights:
+    the transposes of nn.Linear weights need none, contiguous (C, H) and
+    (H, C) ones a copy each of C H floats."""
+    from fusionmamba_torch.utils import tracing
+    g = torch.Generator().manual_seed(4)
+    C, H = 64, 256
+    x = _rand(g, 2, 8, 8, C).to(dev)
+    w_view = _rand(g, C, 3, 3).to(dev).permute(1, 2, 0)
+    before = collections.Counter(tracing.counts)
+    dwconv.depthwise_conv3x3(x, w_view, None)
+    dwconv.depthwise_conv3x3(x, w_view.contiguous(), None)
+    x2 = _rand(g, 32, C).to(dev)
+    w1, w2 = _rand(g, H, C).to(dev), _rand(g, C, H).to(dev)
+    mlp.fused_mlp(x2, w1.t(), torch.zeros(H, device=dev), w2.t(), torch.zeros(C, device=dev))
+    mlp.fused_mlp(x2, w1.t().contiguous(), torch.zeros(H, device=dev), w2.t().contiguous(),
+                  torch.zeros(C, device=dev))
+    got = {k: v - before[k] for k, v in tracing.counts.items()
+           if k.startswith("cop") and v != before[k]}
+    assert got == {"copies:dwconv.weight": 1, "copy_bytes:dwconv.weight": 9 * C * 4,
+                   "copies:mlp.weights": 2, "copy_bytes:mlp.weights": 2 * C * H * 4}

@@ -1,6 +1,6 @@
 """The port's `utils/` against the JAX package's: the scan FLOP model and the
 parameter count (integers, equal), the logger (file name, format, level by
-rank), the timing harness (its keys) and the trace capture, and the cost
+rank), the trace capture (the program's spans, no operator), and the cost
 report counted on the plain path."""
 import logging
 import math
@@ -20,7 +20,6 @@ from fusionmamba_tpu import config as jcfg
 from fusionmamba_tpu.models import VSSMFusion as JaxVSSMFusion
 from fusionmamba_tpu.utils import flops as jflops
 from fusionmamba_tpu.utils import logger as jlogger
-from fusionmamba_tpu.utils import profiling as jprofiling
 
 
 @pytest.mark.parametrize("B,L,D,N", [(1, 1, 1, 1), (2, 1024, 192, 16), (12, 16, 1536, 16),
@@ -57,20 +56,16 @@ def test_setup_logger_file_format_and_level_by_rank(tmp_path, monkeypatch):
     assert tutils.rank_log_level() == logging.INFO
 
 
-def test_time_fn_returns_the_jax_keys():
-    calls = []
-    got = tutils.time_fn(lambda x: calls.append(x), 1, warmup=2, iters=5)
-    want = jprofiling.time_fn(lambda x: jnp.asarray(x) + 1, 1, warmup=1, iters=3)
-    assert set(got) == set(want)
-    assert got["iters"] == 5 and len(calls) == 7
-    assert 0 <= got["min_s"] <= got["median_s"] and got["mean_s"] >= got["min_s"]
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
-    with tutils.trace(str(tmp_path / "tr")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    path = tmp_path / "tr" / "trace.json"
-    assert path.exists() and '"traceEvents"' in path.read_text()
+    """The program's spans are in the file, and no operator."""
+    net = VSSMFusion(tcfg.test_config()).eval()
+    x = torch.rand(1, 16, 16, 1)
+    with torch.no_grad(), tutils.trace(str(tmp_path / "tr")):
+        net(x, x)
+    text = (tmp_path / "tr" / "trace.json").read_text()
+    assert '"traceEvents"' in text
+    assert '"fusion.forward"' in text and '"fusion.encoder"' in text
+    assert "aten::" not in text
 
 
 def test_model_cost_report_counts_on_the_plain_path():
