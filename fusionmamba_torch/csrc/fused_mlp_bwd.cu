@@ -13,20 +13,33 @@
 // The TPU kernel carries dW1 and dW2 across a sequential grid; here blocks
 // run in parallel in no order and one block cannot hold all of dW1 (9.4 MB
 // at C=768), so the backward is three launches:
-//   1. hidden: per (128 rows, 64 hidden units) tile, h and dy W2 into the
-//      registers of one tile, then a and g to an (M, H) scratch each, the
-//      tile's column sums of g (db1) and of dy (db2, spread over the row
-//      tile's blocks) as per-row-tile partials;
-//   2. products: dx = g W1, dW1 = g^T x and dW2 = dy^T a in one grid of
-//      128x128 tiles; each product's K (H for dx, the rows for dW1, dW2) is
+//   1. hidden: per tile of 128 rows and a block of hidden units, h and
+//      dy W2 into the registers of one tile, then a and g to an (M, H)
+//      scratch each, the tile's column sums of g (db1) and of dy (db2,
+//      spread over the row tile's blocks) as per-row-tile partials;
+//   2. products: dx = g W1, dW1 = g^T x and dW2 = dy^T a in one launch of
+//      output tiles; each product's K (H for dx, the rows for dW1, dW2) is
 //      cut into slices (chosen by ops/mlp.py) so that the three together
 //      fill the card, each slice writing a partial where there are several;
 //   3. reduce: every partial summed over its slices in a fixed order, 16
 //      bytes a thread where there are few slices.
 // No atomics: two launches give bit-identical results.
 //
-// fp32: the three launches run the tile engines of mma_tf32x3.cuh, every
-// product as three TF32 products.
+// fp32: the three launches, each as persistent blocks (at most one an SM,
+// ops/mlp.py's plan), on the 3xTF32 wgmma engine fed by TMA
+// (wgmma_tf32x3.cuh); x, dy, the weights, the a and g scratch and the
+// results fp32:
+//   1. hidden: each block walks (128 rows, 128 hidden units) tiles, hidden
+//      units fastest: h = x W1^T (both K-major) and then dy W2 (W2 read
+//      MN-major) through one ring into two accumulators; the epilogue as
+//      above, in registers, a and g staged in the free plane sets and
+//      written by TMA stores, which run on while the next tile's products
+//      start; the row tile's db2 columns shared among its tiles.
+//   2. products: each block walks the items of dx = g W1 (W1 MN-major),
+//      dW1 = g^T x and dW2 = dy^T a (both operands MN-major): a 128 x 128
+//      output tile and one depth slice, the products of the deepest slices
+//      first, tiles fastest within a slice; a cut depth writes fp32 partials.
+//   3. reduce: as in bf16 below.
 //
 // bf16 (x, dy, the weights, b1 and every result bf16): the same three
 // launches on Hopper's bf16 wgmma fed by TMA (wgmma_bf16.cuh), every product
@@ -45,169 +58,264 @@
 //   3. reduce: as in fp32.
 #include "mma_tf32x3.cuh"
 #include "wgmma_bf16.cuh"
+#include "wgmma_tf32x3.cuh"
 
 namespace {
 
 using namespace fm;
 
-using HidW = Warps<4, 2, 4>;   // 128 rows x 64 hidden units, warp tiles of 32 x 32
-using ProdW = Warps<2, 4, 4>;  // 128 x 128, warp tiles of 64 x 32
+// ---------------------------------------------------------------------------
+// fp32: the 3xTF32 wgmma kernels fed by TMA (wgmma_tf32x3.cuh)
 
-template <class IO>
-struct Engines {
-  using HidG1 = Gemm<HidW, true, true, IO>;     // x (M, C) W1 (H, C)^T
-  using HidG2 = Gemm<HidW, true, false, IO>;    // dy (M, C_out) W2 (C_out, H)
-  using ProdDx = Gemm<ProdW, true, false, IO>;  // g (M, H) W1 (H, C)
-  using ProdDw = Gemm<ProdW, false, false, IO>; // P^T Q for P, Q row-major with shared rows
-};
+namespace tc {
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-template <class IO>
-constexpr size_t kHidSmem = sizeof(float) * cmax(Engines<IO>::HidG1::kSmemFloats,
-                                                 Engines<IO>::HidG2::kSmemFloats);
-template <class IO>
-constexpr size_t kProdSmem = sizeof(float) * cmax(Engines<IO>::ProdDx::kSmemFloats,
-                                                  Engines<IO>::ProdDw::kSmemFloats);
+using fm_tc::consume;
+using fm_tc::kSmem;
+using fm_tc::kThreads;
+using fm_tc::kTile;
+using fm_tc::produce;
+using fm_wg::consumers_sync;
+using fm_wg::for_each_pair;
+using fm_wg::Pos;
+using fm_wg::Ring;
+using fm_wg::zero;
 
-template <class IO>
-__global__ void __launch_bounds__(kThreads, 2)
-mlp_bwd_hidden_kernel(const IO* __restrict__ x, const IO* __restrict__ dy,
-                      const IO* __restrict__ w1, const IO* __restrict__ b1,
-                      const IO* __restrict__ w2, IO* __restrict__ a_out,
-                      IO* __restrict__ g_out, float* __restrict__ db1_p,
-                      float* __restrict__ db2_p, int M, int C, int H, int Cout) {
-  using HidG1 = typename Engines<IO>::HidG1;
-  using HidG2 = typename Engines<IO>::HidG2;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int n0 = blockIdx.x * HidW::BN, m0 = blockIdx.y * HidW::BM;
-  HidW::Acc hacc, dacc;
-  HidW::zero(hacc);
-  HidW::zero(dacc);
-  HidG1::run(hacc, x, C, M, w1, C, H, m0, n0, 0, C, smem);
-  HidG2::run(dacc, dy, Cout, M, w2, H, H, m0, n0, 0, Cout, smem);
+// the hidden launch: a 2-deep ring (the plane sets stage each tile's a and
+// g for their TMA stores) and the epilogue's sums after it, a row of kTile
+// a consumer warp for db1, then one for db2
+constexpr int kHidStages = 2;
+constexpr int kRedFloats = 2 * 4 * fm_wg::kConsumers * kTile;
+constexpr int kHidSmem = fm_tc::kPlaneSets * fm_tc::kPlaneSetBytes +
+                         kHidStages * fm_tc::kStageBytes + fm_wg::ring_barrier_bytes(kHidStages) +
+                         4 * kRedFloats + fm_wg::kAlign;
 
-  float colsum[HidW::NT][2];
-#pragma unroll
-  for (int j = 0; j < HidW::NT; ++j) colsum[j][0] = colsum[j][1] = 0.f;
-  HidW::for_each_pair(m0, n0, [&](int i, int j, int h, int m, int n) {
-    if (m >= M || n >= H) return;  // H % 4 == 0: n + 1 < H too
-    float av[2], gv[2];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float hv = hacc[i][j][2 * h + e] + to_f(b1[n + e]);
-      const float erf = erff(hv * 0.70710678118654752f);
-      const float cdf = 0.5f * (1.f + erf);
-      const float pdf = 0.39894228040143268f * expf(-0.5f * hv * hv);
-      av[e] = hv * cdf;
-      // g as it is stored (rounded to IO): db1 sums what the products read
-      gv[e] = fm_io::round_to<IO>(dacc[i][j][2 * h + e] * fmaf(hv, pdf, cdf));
-      colsum[j][e] += gv[e];
-    }
-    fm_io::store2(a_out + (size_t)m * H + n, av[0], av[1]);
-    fm_io::store2(g_out + (size_t)m * H + n, gv[0], gv[1]);
-  });
-
-  // db1: the tile's column sums of g, over the 8 row groups of a warp
-  // (lanes of one t), then over the 4 warps of a column, in that order
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < HidW::NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = colsum[j][e];
-      v += __shfl_xor_sync(0xffffffffu, v, 4);
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      colsum[j][e] = v;
-    }
-  float* red = smem;  // [4 warps][BN]; the engine left smem free
-  const int wm = threadIdx.x / 32 % 4;
-  if (lane < 4) {
-#pragma unroll
-    for (int j = 0; j < HidW::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) red[wm * HidW::BN + HidW::wn0() + 8 * j + 2 * lane + e] = colsum[j][e];
-  }
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_bwd_tf32x3_hidden(const __grid_constant__ CUtensorMap xm, const __grid_constant__ CUtensorMap w1m,
+                      const __grid_constant__ CUtensorMap dym, const __grid_constant__ CUtensorMap w2m,
+                      const __grid_constant__ CUtensorMap am, const __grid_constant__ CUtensorMap gm,
+                      const float* __restrict__ b1, const float* __restrict__ dy,
+                      float* __restrict__ db1_p, float* __restrict__ db2_p, int M, int C, int H,
+                      int Cout) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* planes = fm_tc::aligned_shared(smem_raw);
+  const Ring r = fm_tc::ring_after_planes(planes, kHidStages);
+  if (threadIdx.x == 0) fm_wg::mbar_init_fence();
   __syncthreads();
-  if (threadIdx.x < HidW::BN && n0 + (int)threadIdx.x < H) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < 4; ++w) s += red[w * HidW::BN + threadIdx.x];
-    db1_p[(size_t)blockIdx.y * H + n0 + threadIdx.x] = s;
-  }
-  // db2: the row tile's column sums of dy; this block takes the columns
-  // n0 + t + q H (t < 64, q >= 0), each summed over 4 groups of rows, then
-  // the 4 in order
-  const int t = threadIdx.x % HidW::BN, rg = threadIdx.x / HidW::BN;
-  const int m_end = min(M, m0 + HidW::BM);
-  for (int c0 = n0; c0 < Cout; c0 += H) {
-    const int c = c0 + t;
-    float s = 0.f;
-    if (c < Cout)
-      for (int m = m0 + rg; m < m_end; m += kThreads / HidW::BN) s += to_f(dy[(size_t)m * Cout + c]);
-    __syncthreads();  // red is free
-    red[rg * HidW::BN + t] = s;
-    __syncthreads();
-    if (rg == 0 && c < Cout)
-      db2_p[(size_t)blockIdx.y * Cout + c] =
-          red[t] + red[HidW::BN + t] + red[2 * HidW::BN + t] + red[3 * HidW::BN + t];
-  }
-  static_assert(kThreads / HidW::BN == 4, "four row groups");
-}
-
-// part[s] (rows, cols) = A (rows x depth) B (depth x cols) over slice s of
-// the depth, for s < slices, fp32; with one slice the product goes to out
-// instead, in IO. A(m, k) = A[m * lda + k] when A is K-major (dx),
-// A[k * lda + m] otherwise; B(k, n) = B[k * ldb + n]
-template <class IO>
-struct Product {
-  const IO* A;
-  const IO* B;
-  float* part;
-  IO* out;
-  int lda, ldb, rows, cols, depth, slice, tiles_n, blocks;
-};
-
-template <class G, class IO>
-__device__ __forceinline__ void product_tile(const Product<IO>& p, int b, float* smem) {
-  const int tiles = p.blocks / ((p.depth + p.slice - 1) / p.slice);
-  const int s = b / tiles, tm = b % tiles / p.tiles_n, tn = b % tiles % p.tiles_n;
-  const int m0 = tm * ProdW::BM, n0 = tn * ProdW::BN;
-  const int k_begin = s * p.slice, k_end = min(p.depth, k_begin + p.slice);
-  ProdW::Acc acc;
-  ProdW::zero(acc);
-  G::run(acc, p.A, p.lda, p.rows, p.B, p.ldb, p.cols, m0, n0, k_begin, k_end, smem);
-  float* part = p.part + (size_t)s * p.rows * p.cols;
-  ProdW::for_each_pair(m0, n0, [&](int i, int j, int h, int m, int n) {
-    if (m < p.rows && n < p.cols) {
-      if (p.part) {
-        *reinterpret_cast<float2*>(part + (size_t)m * p.cols + n) =
-            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      } else {
-        fm_io::store2(p.out + (size_t)m * p.cols + n, acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  const int tiles_n = fm_wg::cdiv(H, kTile), tiles = fm_wg::cdiv(M, kTile) * tiles_n;
+  const int n1 = fm_wg::cdiv(C, fm_tc::kBK), n2 = fm_wg::cdiv(Cout, fm_tc::kBK);
+  Pos pos;
+  if (threadIdx.x >= 128 * fm_wg::kConsumers) {
+    if (threadIdx.x == 128 * fm_wg::kConsumers) {
+      for (int b = blockIdx.x; b < tiles; b += gridDim.x) {
+        const int m0 = b / tiles_n * kTile, n0 = b % tiles_n * kTile;
+        // x rows with W1's hidden rows (K-major), then dy rows with W2's
+        // hidden columns (stored [C_out][H]: MN-major)
+        produce<0, 0>(r, pos, &xm, m0, &w1m, n0, 0, n1);
+        produce<0, 1>(r, pos, &dym, m0, &w2m, n0, 0, n2);
       }
     }
-  });
+    return;
+  }
+  float* red = reinterpret_cast<float*>(r.stage(0) + kHidStages * fm_tc::kStageBytes +
+                                        fm_wg::ring_barrier_bytes(kHidStages));
+  float* red2 = red + 4 * fm_wg::kConsumers * kTile;
+  // a and g staged as the K-major maps' 32 x 64 boxes lie: piece j (columns
+  // 32 j ..) of a 128-row tile at 16 KB j, a in plane set 0, g in set 1
+  float* a_stage = reinterpret_cast<float*>(planes);
+  float* g_stage = a_stage + fm_tc::kPlaneSetBytes / 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32, t = threadIdx.x % kTile;
+  const fm_tc::SplitAt at(threadIdx.x);
+  for (int b = blockIdx.x; b < tiles; b += gridDim.x) {
+    const int tm = b / tiles_n, m0 = tm * kTile, n0 = b % tiles_n * kTile;
+    // the last tile's stores have read the plane sets (consume's first
+    // barrier tells the other threads)
+    if (threadIdx.x == 0) fm_tc::tma_store_wait_read<0>();
+    float hacc[kTile / 2], dacc[kTile / 2];
+    zero(hacc);
+    zero(dacc);
+    // h's last slice overlaps dy W2's first, which takes the other plane set
+    consume<0, 0, false>(hacc, r, pos, planes, n1, at);
+    consume<0, 1>(dacc, r, pos, planes, n2, at, n1 & 1);
+    fm_wg::fence_regs(hacc);
+
+    consumers_sync();  // both warpgroups' products are done: the plane sets are free
+    float colsum[kTile / 8][2];
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j) colsum[j][0] = colsum[j][1] = 0.f;
+    for_each_pair<kTile / 8>(m0, n0, [&](int e, int m, int n) {
+      if (m >= M || n >= H) return;  // H % 4 == 0: n + 1 < H too; the stores leave out the rest
+      float av[2], gv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float hv = hacc[e + i] + b1[n + i];
+        const float cdf = 0.5f * (1.f + erff(hv * 0.70710678118654752f));
+        const float pdf = 0.39894228040143268f * expf(-0.5f * hv * hv);
+        av[i] = hv * cdf;
+        gv[i] = dacc[e + i] * fmaf(hv, pdf, cdf);
+        colsum[e / 4][i] += gv[i];
+      }
+      const int off = (n - n0) / fm_tc::kBK * (kTile * fm_tc::kBK) +
+                      fm_tc::plane_at(m - m0, (n - n0) % fm_tc::kBK);
+      *reinterpret_cast<float2*>(a_stage + off) = make_float2(av[0], av[1]);
+      *reinterpret_cast<float2*>(g_stage + off) = make_float2(gv[0], gv[1]);
+    });
+    fm::fence_proxy_async();
+    consumers_sync();
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int j = 0; j < kTile / fm_tc::kBK; ++j)
+#pragma unroll
+        for (int h = 0; h < kTile / fm_tc::kRowsK; ++h) {
+          const int box = j * (kTile * fm_tc::kBK) + h * (fm_tc::kRowsK * fm_tc::kBK);
+          fm_tc::tma_store(&am, a_stage + box, n0 + fm_tc::kBK * j, m0 + fm_tc::kRowsK * h);
+          fm_tc::tma_store(&gm, g_stage + box, n0 + fm_tc::kBK * j, m0 + fm_tc::kRowsK * h);
+        }
+      fm_tc::tma_store_commit();
+    }
+
+    // db1: the tile's column sums of g, over the 8 row groups of a warp
+    // (lanes of one lane % 4), then over the 8 warps in row order
+#pragma unroll
+    for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v = colsum[j][i];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        colsum[j][i] = v;
+      }
+    if (lane < 4) {
+#pragma unroll
+      for (int j = 0; j < kTile / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) red[warp * kTile + 8 * j + 2 * lane + i] = colsum[j][i];
+    }
+    consumers_sync();
+    if (threadIdx.x < kTile && n0 + t < H) {
+      float v = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4 * fm_wg::kConsumers; ++w) v += red[w * kTile + t];
+      db1_p[(size_t)tm * H + n0 + t] = v;
+    }
+    // db2: the row tile's column sums of dy. The row tile's tiles share
+    // its C_out columns, tile tn taking [tn share, (tn + 1) share), share a
+    // multiple of 4, in windows of 128: thread (rg, q) sums columns 4q ..
+    // 4q + 3 of the window over rows rg, rg + 8, ... (16 independent 16-byte
+    // loads), then the 8 row groups in order
+    const int tn = b % tiles_n, share = 4 * fm_wg::cdiv(fm_wg::cdiv(Cout, tiles_n), 4);
+    const int c_end = min(Cout, (tn + 1) * share), q = threadIdx.x % 32, rg8 = threadIdx.x / 32;
+    for (int c0 = tn * share; c0 < c_end; c0 += kTile) {
+      const int c = c0 + 4 * q;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < c_end) {
+#pragma unroll
+        for (int i = 0; i < kTile / 8; ++i) {
+          const int m = m0 + rg8 + 8 * i;
+          if (m < M) {
+            const float4 d = *reinterpret_cast<const float4*>(dy + (size_t)m * Cout + c);
+            v.x += d.x;
+            v.y += d.y;
+            v.z += d.z;
+            v.w += d.w;
+          }
+        }
+      }
+      consumers_sync();  // red2 is free
+      *reinterpret_cast<float4*>(red2 + rg8 * kTile + 4 * q) = v;
+      consumers_sync();
+      if (threadIdx.x < kTile && c0 + (int)threadIdx.x < c_end) {
+        float sum = 0.f;
+#pragma unroll
+        for (int g = 0; g < 8; ++g) sum += red2[g * kTile + threadIdx.x];
+        db2_p[(size_t)tm * Cout + c0 + threadIdx.x] = sum;
+      }
+    }
+  }
+  if (threadIdx.x == 0) fm_tc::tma_store_wait_all<0>();
 }
 
-template <class IO>
-__global__ void __launch_bounds__(kThreads, 2)
-mlp_bwd_product_kernel(Product<IO> dx, Product<IO> dw1, Product<IO> dw2) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  int b = blockIdx.x;
-  if (b < dx.blocks) {
-    product_tile<typename Engines<IO>::ProdDx>(dx, b, smem);
-    return;
-  }
-  b -= dx.blocks;
-  if (b < dw1.blocks) {
-    product_tile<typename Engines<IO>::ProdDw>(dw1, b, smem);
-    return;
-  }
-  product_tile<typename Engines<IO>::ProdDw>(dw2, b - dw1.blocks, smem);
+// out (rows, cols) = A (rows x depth) B (depth x cols) over depth slices of
+// `slice`: A's map covers the tensor stored [row][k], or [k][row] when
+// a_mn; B's is MN-major ([k][col]). With more than one slice, slice s goes
+// to part[s] (rows, cols) in fp32, else to out.
+struct Product {
+  CUtensorMap a, b;
+  float* out;
+  float* part;
+  int rows, cols, depth, slice, a_mn;
+  int tiles_n, tiles, items;  // items = tiles x slices
+};
+struct Products {
+  Product p[3];
+};
+
+inline Product product(const CUtensorMap& a, bool a_mn, const CUtensorMap& b, int rows, int cols,
+                       int depth, int slice, float* out, float* part) {
+  const bool one = fm_wg::cdiv(depth, slice) == 1;
+  Product p{a, b, one ? out : nullptr, one ? nullptr : part, rows, cols, depth, slice, a_mn, 0, 0, 0};
+  p.tiles_n = fm_wg::cdiv(cols, kTile);
+  p.tiles = fm_wg::cdiv(rows, kTile) * p.tiles_n;
+  p.items = p.tiles * fm_wg::cdiv(depth, slice);
+  return p;
 }
+
+// item b of the launch: its product, output tile and depth [k0, k1)
+struct Item {
+  const Product* p;
+  int s, m0, n0, k0, nk;
+};
+__device__ __forceinline__ Item item_of(const Products& ps, int b) {
+  int i = 0;
+  while (i < 2 && b >= ps.p[i].items) b -= ps.p[i++].items;
+  const Product& p = ps.p[i];
+  const int s = b / p.tiles, k0 = s * p.slice, k1 = min(p.depth, k0 + p.slice);
+  return Item{&p, s, b % p.tiles / p.tiles_n * kTile, b % p.tiles_n * kTile, k0,
+              fm_wg::cdiv(k1 - k0, fm_tc::kBK)};
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mlp_bwd_tf32x3_products(const __grid_constant__ Products ps, int items) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* planes = fm_tc::aligned_shared(smem_raw);
+  const Ring r = fm_tc::ring_after_planes(planes);
+  if (threadIdx.x == 0) fm_wg::mbar_init_fence();
+  __syncthreads();
+  Pos pos;
+  if (threadIdx.x >= 128 * fm_wg::kConsumers) {
+    if (threadIdx.x == 128 * fm_wg::kConsumers) {
+      for (int b = blockIdx.x; b < items; b += gridDim.x) {
+        const Item it = item_of(ps, b);
+        if (it.p->a_mn) {
+          produce<1, 1>(r, pos, &it.p->a, it.m0, &it.p->b, it.n0, it.k0, it.nk);
+        } else {
+          produce<0, 1>(r, pos, &it.p->a, it.m0, &it.p->b, it.n0, it.k0, it.nk);
+        }
+      }
+    }
+    return;
+  }
+  const fm_tc::SplitAt at(threadIdx.x);
+  for (int b = blockIdx.x; b < items; b += gridDim.x) {
+    const Item it = item_of(ps, b);
+    float acc[kTile / 2];
+    zero(acc);
+    if (it.p->a_mn) {
+      consume<1, 1>(acc, r, pos, planes, it.nk, at);
+    } else {
+      consume<0, 1>(acc, r, pos, planes, it.nk, at);
+    }
+    const int rows = it.p->rows, cols = it.p->cols;
+    float* part = it.p->part;
+    float* dst = part ? part + (size_t)it.s * rows * cols : it.p->out;
+    for_each_pair<kTile / 8>(it.m0, it.n0, [&](int e, int m, int n) {
+      if (m < rows && n < cols)  // cols % 4 == 0: n + 1 < cols too
+        *reinterpret_cast<float2*>(dst + (size_t)m * cols + n) = make_float2(acc[e], acc[e + 1]);
+    });
+  }
+}
+
+}  // namespace tc
 
 // out[i] = sum over s < slices of part[s * n + i], in order of s, in IO
 template <class IO>
@@ -262,70 +370,95 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_reduce_kernel(Sums<IO> sums)
   }
 }
 
-// the product into `out` where the depth is one slice, else into the
-// partials `part`
-template <class IO>
-Product<IO> product(const IO* A, int lda, const IO* B, int ldb, float* part, IO* out, int rows,
-                    int cols, int depth, int slice) {
-  const bool one = cdiv(depth, slice) == 1;
-  Product<IO> p{A, B, one ? nullptr : part, one ? out : nullptr, lda, ldb, rows, cols, depth,
-                slice, 0, 0};
-  p.tiles_n = (int)cdiv(cols, ProdW::BN);
-  p.blocks = (int)(cdiv(rows, ProdW::BM) * p.tiles_n * cdiv(depth, slice));
-  return p;
-}
-
 template <class IO>
 void add_sum(Sums<IO>& sums, const float* part, IO* out, int slices, int n) {
   sums.t[sums.count++] =
       Sum<IO>{part, out, slices, n, (int)(slices < kDeep ? cdiv(n, 4 * kThreads) : cdiv(n, 32))};
 }
 
+// the partials of the cut depths and the row tiles' bias sums, summed by one
+// reduce launch
 template <class IO>
-int mlp_bwd(const IO* x, const IO* dy, const IO* w1, const IO* b1, const IO* w2, IO* a_buf,
-            IO* g_buf, float* db1_p, float* db2_p, float* dx_p, float* dw1_p, float* dw2_p,
-            IO* dx, IO* dw1, IO* db1, IO* dw2, IO* db2, int M, int C, int H, int Cout,
-            int slice_dx, int slice_w, cudaStream_t stream) {
-  constexpr int V = 16 / (int)sizeof(IO);  // widths in whole 16-byte copies
-  if (M < 1 || C < 1 || H < 1 || Cout < 1 || C % V || H % V || Cout % V || slice_dx < 1 ||
-      slice_w < 1 || slice_dx % kBK || slice_w % kBK || cdiv(M, HidW::BM) > 65535u) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int s_dx = (int)cdiv(H, slice_dx), s_w = (int)cdiv(M, slice_w);
-  if ((s_dx > 1 && dx_p == nullptr) || (s_w > 1 && (dw1_p == nullptr || dw2_p == nullptr))) {
-    return (int)cudaErrorInvalidValue;
-  }
-
-  cudaError_t err = allow_smem(mlp_bwd_hidden_kernel<IO>, kHidSmem<IO>);
-  if (err != cudaSuccess) return (int)err;
-  mlp_bwd_hidden_kernel<IO><<<dim3(cdiv(H, HidW::BN), cdiv(M, HidW::BM)), kThreads, kHidSmem<IO>,
-                              stream>>>(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, M, C, H,
-                                        Cout);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const Product<IO> pdx = product(g_buf, H, w1, C, dx_p, dx, M, C, H, slice_dx);
-  const Product<IO> pw1 = product(g_buf, H, x, C, dw1_p, dw1, H, C, M, slice_w);
-  const Product<IO> pw2 = product(dy, Cout, a_buf, H, dw2_p, dw2, Cout, H, M, slice_w);
-  if ((err = allow_smem(mlp_bwd_product_kernel<IO>, kProdSmem<IO>)) != cudaSuccess) return (int)err;
-  mlp_bwd_product_kernel<IO><<<pdx.blocks + pw1.blocks + pw2.blocks, kThreads, kProdSmem<IO>,
-                               stream>>>(pdx, pw1, pw2);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
+cudaError_t launch_reduce(const float* db1_p, const float* db2_p, const float* dx_p,
+                          const float* dw1_p, const float* dw2_p, IO* dx, IO* dw1, IO* db1,
+                          IO* dw2, IO* db2, int s_dx, int s_w, int rows_t, int M, int C, int H,
+                          int Cout, cudaStream_t stream) {
   Sums<IO> sums{};
   if (s_dx > 1) add_sum(sums, dx_p, dx, s_dx, M * C);
   if (s_w > 1) {
     add_sum(sums, dw1_p, dw1, s_w, H * C);
     add_sum(sums, dw2_p, dw2, s_w, Cout * H);
   }
-  const int rows_t = (int)cdiv(M, HidW::BM);
   add_sum(sums, db1_p, db1, rows_t, H);
   add_sum(sums, db2_p, db2, rows_t, Cout);
   int blocks = 0;
   for (int i = 0; i < sums.count; ++i) blocks += sums.t[i].blocks;
   mlp_bwd_reduce_kernel<IO><<<blocks, kThreads, 0, stream>>>(sums);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
+namespace tc {
+
+int mlp_bwd(const float* x, const float* dy, const float* w1, const float* b1, const float* w2,
+            float* a_buf, float* g_buf, float* db1_p, float* db2_p, float* dx_p, float* dw1_p,
+            float* dw2_p, float* dx, float* dw1, float* db1, float* dw2, float* db2, int M, int C,
+            int H, int Cout, int slice_dx, int slice_w, int hidden_blocks, int product_blocks,
+            cudaStream_t stream) {
+  if (M < 1 || C < 1 || H < 1 || Cout < 1 || C % 4 || H % 4 || Cout % 4 || slice_dx < 1 ||
+      slice_w < 1 || hidden_blocks < 1 || product_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  const int s_dx = fm_wg::cdiv(H, slice_dx), s_w = fm_wg::cdiv(M, slice_w);
+  if ((s_dx > 1 && (dx_p == nullptr || slice_dx % fm_tc::kBK)) ||
+      (s_w > 1 && (dw1_p == nullptr || dw2_p == nullptr || slice_w % fm_tc::kBK)))
+    return (int)cudaErrorInvalidValue;
+  // the kernels' shared memory first: a runtime call, which makes the
+  // device's context current on this thread (autograd's backward thread
+  // may have made none yet), as cuTensorMapEncodeTiled needs
+  cudaError_t err;
+  if ((err = cudaFuncSetAttribute(mlp_bwd_tf32x3_hidden,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kHidSmem)) !=
+          cudaSuccess ||
+      (err = cudaFuncSetAttribute(mlp_bwd_tf32x3_products,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem)) !=
+          cudaSuccess)
+    return (int)err;
+  // each tensor's maps: K-major ([row][k] read along k) and MN-major
+  CUtensorMap xk, xn, dyk, dyn, w1k, w1n, w2n, gk, gn, ak, an;
+  using fm_tc::make_map;
+  if (!make_map(&xk, x, C, M, false) || !make_map(&xn, x, C, M, true) ||
+      !make_map(&dyk, dy, Cout, M, false) || !make_map(&dyn, dy, Cout, M, true) ||
+      !make_map(&w1k, w1, C, H, false) || !make_map(&w1n, w1, C, H, true) ||
+      !make_map(&w2n, w2, H, Cout, true) || !make_map(&gk, g_buf, H, M, false) ||
+      !make_map(&gn, g_buf, H, M, true) || !make_map(&ak, a_buf, H, M, false) ||
+      !make_map(&an, a_buf, H, M, true))
+    return (int)cudaErrorInvalidValue;
+
+  mlp_bwd_tf32x3_hidden<<<hidden_blocks, kThreads, kHidSmem, stream>>>(
+      xk, w1k, dyk, w2n, ak, gk, b1, dy, db1_p, db2_p, M, C, H, Cout);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+
+  // dx (M, C) = g W1: g [row][h] K-major, W1 [h][c] MN-major; dW1 (H, C) =
+  // g^T x and dW2 (C_out, H) = dy^T a: both operands [row][..], MN-major;
+  // the products of the deepest slices first (a stable sort)
+  Products ps{{product(gk, false, w1n, M, C, H, slice_dx, dx, dx_p),
+               product(gn, true, xn, H, C, M, slice_w, dw1, dw1_p),
+               product(dyn, true, an, Cout, H, M, slice_w, dw2, dw2_p)}};
+  for (int i = 1; i < 3; ++i)
+    for (int j = i; j > 0 && min(ps.p[j].slice, ps.p[j].depth) >
+                                 min(ps.p[j - 1].slice, ps.p[j - 1].depth);
+         --j) {
+      const Product q = ps.p[j];
+      ps.p[j] = ps.p[j - 1];
+      ps.p[j - 1] = q;
+    }
+  const int items = ps.p[0].items + ps.p[1].items + ps.p[2].items;
+  mlp_bwd_tf32x3_products<<<product_blocks, kThreads, kSmem, stream>>>(ps, items);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  return (int)launch_reduce<float>(db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1, db1, dw2, db2, s_dx,
+                                   s_w, fm_wg::cdiv(M, kTile), M, C, H, Cout, stream);
+}
+
+}  // namespace tc
 
 // ---------------------------------------------------------------------------
 // bf16: the wgmma kernels fed by TMA (wgmma_bf16.cuh)
@@ -479,14 +612,16 @@ int mlp_bwd(const bf16* x, const bf16* dy, const bf16* w1, const bf16* b1, const
   if ((s_dx > 1 && (dx_p == nullptr || slice_dx % kBK)) ||
       (s_w > 1 && (dw1_p == nullptr || dw2_p == nullptr || slice_w % kBK)))
     return (int)cudaErrorInvalidValue;
+  // the shared memory first: a runtime call makes the device's context
+  // current on this thread, as cuTensorMapEncodeTiled needs (tc::mlp_bwd)
+  cudaError_t err =
+      cudaFuncSetAttribute(hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHidSmem);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap xm, dym, w1m, w2m, am, gm;
   if (!make_map(&xm, x, C, M) || !make_map(&dym, dy, Cout, M) || !make_map(&w1m, w1, C, H) ||
       !make_map(&w2m, w2, H, Cout) || !make_map(&am, a_buf, H, M) || !make_map(&gm, g_buf, H, M))
     return (int)cudaErrorInvalidValue;
 
-  cudaError_t err =
-      cudaFuncSetAttribute(hidden_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kHidSmem);
-  if (err != cudaSuccess) return (int)err;
   hidden_kernel<<<dim3(cdiv(H, kHidN), cdiv(M, kTile)), kThreads, kHidSmem, stream>>>(
       xm, w1m, dym, w2m, b1, dy, a_buf, g_buf, db1_p, db2_p, M, C, H, Cout);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -500,19 +635,8 @@ int mlp_bwd(const bf16* x, const bf16* dy, const bf16* w1, const bf16* b1, const
   ps.p[2] = product(dym, true, am, true, Cout, H, M, slice_w, kStore, nullptr, dw2, dw2_p);
   if ((err = launch_products<1>(ps, stream)) != cudaSuccess) return (int)err;
 
-  Sums<bf16> sums{};
-  if (s_dx > 1) add_sum(sums, dx_p, dx, s_dx, M * C);
-  if (s_w > 1) {
-    add_sum(sums, dw1_p, dw1, s_w, H * C);
-    add_sum(sums, dw2_p, dw2, s_w, Cout * H);
-  }
-  const int rows_t = cdiv(M, kTile);
-  add_sum(sums, db1_p, db1, rows_t, H);
-  add_sum(sums, db2_p, db2, rows_t, Cout);
-  int blocks = 0;
-  for (int i = 0; i < sums.count; ++i) blocks += sums.t[i].blocks;
-  mlp_bwd_reduce_kernel<bf16><<<blocks, fm::kThreads, 0, stream>>>(sums);
-  return (int)cudaGetLastError();
+  return (int)launch_reduce<bf16>(db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1, db1, dw2, db2, s_dx,
+                                  s_w, cdiv(M, kTile), M, C, H, Cout, stream);
 }
 
 }  // namespace bf
@@ -523,27 +647,31 @@ int mlp_bwd(const bf16* x, const bf16* dy, const bf16* w1, const bf16* b1, const
 // T = ceil(M / 128). dx (M, C), dw1 (H, C), dw2 (C_out, H), db1 (H,),
 // db2 (C_out,) are the results. The depth of dx (H) is cut into slices of
 // slice_dx and that of dW1 and dW2 (M) into slices of slice_w, both
-// multiples of 32 in fp32, of 64 in bf16; with more than one slice the product writes fp32
-// partials to dx_p (S_dx, M, C), dw1_p (S_w, H, C), dw2_p (S_w, C_out, H),
-// which may be null otherwise. C, H and C_out must be multiples of 16 bytes
+// multiples of 32 in fp32, of 64 in bf16, where they cut; with more than
+// one slice the product writes fp32 partials to dx_p (S_dx, M, C), dw1_p
+// (S_w, H, C), dw2_p (S_w, C_out, H), which may be null otherwise. C, H and C_out must be multiples of 16 bytes
 // (4 floats, 8 bf16) and every pointer 16-byte aligned. The _bf16 entry
 // takes x, dy, the weights, b1, the a and g scratch and the results as bf16
-// (the partials stay fp32) and runs the wgmma/TMA kernels.
+// (the partials stay fp32). hidden_blocks and product_blocks are the fp32
+// engine's persistent grids of its first two launches; the bf16 entry's
+// launches size their own grids and take no notice of them.
 extern "C" int fm_fused_mlp_bwd(const float* x, const float* dy, const float* w1,
                                 const float* b1, const float* w2, float* a_buf, float* g_buf,
                                 float* db1_p, float* db2_p, float* dx_p, float* dw1_p,
                                 float* dw2_p, float* dx, float* dw1, float* db1, float* dw2,
                                 float* db2, int M, int C, int H, int Cout, int slice_dx,
-                                int slice_w, cudaStream_t stream) {
-  return mlp_bwd(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1, db1,
-                 dw2, db2, M, C, H, Cout, slice_dx, slice_w, stream);
+                                int slice_w, int hidden_blocks, int product_blocks,
+                                cudaStream_t stream) {
+  return tc::mlp_bwd(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1,
+                     db1, dw2, db2, M, C, H, Cout, slice_dx, slice_w, hidden_blocks,
+                     product_blocks, stream);
 }
 extern "C" int fm_fused_mlp_bwd_bf16(const bf16* x, const bf16* dy, const bf16* w1,
                                      const bf16* b1, const bf16* w2, bf16* a_buf, bf16* g_buf,
                                      float* db1_p, float* db2_p, float* dx_p, float* dw1_p,
                                      float* dw2_p, bf16* dx, bf16* dw1, bf16* db1, bf16* dw2,
                                      bf16* db2, int M, int C, int H, int Cout, int slice_dx,
-                                     int slice_w, cudaStream_t stream) {
+                                     int slice_w, int, int, cudaStream_t stream) {
   return bf::mlp_bwd(x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx, dw1,
                      db1, dw2, db2, M, C, H, Cout, slice_dx, slice_w, stream);
 }

@@ -74,18 +74,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// the map of a row-major (outer, inner) bf16 tensor, read in 64 x 64 boxes
-// in the 128-byte swizzle, zeros outside it; false where the driver refuses
-// it (inner must be a multiple of 8 and the base 16-byte aligned)
-inline bool make_map(CUtensorMap* map, const bf16* base, int inner, int outer) {
+template <class T>
+constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+template <>
+constexpr CUtensorMapDataType kMapType<float> = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+
+// the map of a row-major (outer, inner) tensor of T (bf16 or fp32), read in
+// boxes of box_inner x box_outer (bf16: 64 x 64) in the 128-byte swizzle
+// (box_inner of 128 bytes), zeros outside it; false where
+// cuTensorMapEncodeTiled refuses it (inner must be a multiple of 16 bytes
+// and the base 16-byte aligned)
+template <class T>
+inline bool make_map(CUtensorMap* map, const T* base, int inner, int outer, int box_inner = kBox,
+                     int box_outer = kBox) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(bf16)};
-  const cuuint32_t box[2] = {kBox, kBox};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t steps[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base), dims, strides,
-                box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, kMapType<T>, 2, const_cast<T*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -58,8 +58,9 @@ SIGNATURES = {
     # null), M, C, H, C_out, slice_h, stream
     "fm_fused_mlp_fwd": (_P,) * 8 + (_I,) * 5 + (_P,),
     # x, dy, w1, b1, w2, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p, dx,
-    # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, stream
-    "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 6 + (_P,),
+    # dw1, db1, dw2, db2, M, C, H, C_out, slice_dx, slice_w, hidden blocks,
+    # product blocks (the fp32 engine's grids), stream
+    "fm_fused_mlp_bwd": (_P,) * 17 + (_I,) * 8 + (_P,),
     # x, gate, scale, bias, dy, dx, dgate, part, dscale, dbias, rows, C,
     # gate kind, values, lanes, masked, quads, blocks, params, eps, stream
     "fm_layer_norm_bwd": (_P,) * 10 + (_I,) * 9 + (_F, _P),

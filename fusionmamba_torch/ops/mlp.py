@@ -11,9 +11,11 @@ the hidden layer on chip for outputs up to `FUSED_MAX_OUT` wide, and takes
 two tiled passes through an (M, H) scratch above that, fc2's depth cut into
 slices where its output tiles alone cannot fill the card. The backward
 recomputes the hidden in tiles, writes gelu(h) and dL/dh as scratch, and
-forms dx, dW1 and dW2 in one grid of tiles whose depth is cut into slices
-that fill the card; partials, and the per-tile bias sums, are reduced in a
-fixed order by a third launch. See the sources for the designs.
+forms dx, dW1 and dW2 in one launch of tiles whose depth is cut into
+slices; partials, and the per-tile bias sums, are reduced in a fixed order
+by a third launch. Its first two launches are persistent blocks on TF32
+`wgmma` fed by TMA (`csrc/wgmma_tf32x3.cuh`), their grids and slices from
+`bwd_plan`. See the sources for the designs.
 
 bf16, as the JAX package's kernels compute: x, the weights, the biases, y
 and every gradient are bf16; every product is bf16 x bf16 with fp32
@@ -32,6 +34,8 @@ multiples of 8 (16 bytes).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -41,7 +45,7 @@ from . import cuda_lib
 # widest output the fused forward takes; wider layers take two passes (at
 # 96 the two designs are within 10% of each other, PERF.md)
 FUSED_MAX_OUT = 96
-_TILE = 128       # the kernels' 128-row tiles (128x128 in the products)
+_TILE = 128       # the kernels' 128-row tiles (128x128 in the fp32 products)
 _SLICE = 32       # fp32 depth slices are multiples of the kernels' kBK
 # the bf16 kernels' layout (csrc/wgmma_bf16.cuh, fused_mlp_fwd.cu,
 # fused_mlp_bwd.cu): depth slices are multiples of kBK, the fused forward
@@ -234,14 +238,27 @@ def _mlp_cuda(x, w1, b1, w2, b2):
     return y.reshape(*x.shape[:-1], C_out)
 
 
-def bwd_slices(M, C, Hd, C_out, sms):
-    """Depth of one slice of the fp32 backward's dx product (over H) and of
-    dW1's and dW2's (over the M rows): the three products' 128x128 tiles
-    times their depth, cut so that the grid is about two waves of two blocks
-    per SM, each slice a multiple of 32 and at least 256 deep."""
+class BwdPlan(NamedTuple):
+    """The fp32 backward's launches: the depth slices of dx (over H) and of
+    dW1 and dW2 (over the rows), and the persistent grids of the hidden and
+    the product launch."""
+    slice_dx: int
+    slice_w: int
+    hidden_blocks: int
+    product_blocks: int
+
+
+def bwd_plan(M, C, Hd, C_out, sms):
+    """The fp32 backward's plan: the three products' 128x128 tiles times
+    their depth cut into slices of about a quarter of a block's share (each
+    a multiple of 32 and at least 256 deep), and both persistent launches a
+    block an SM, or one a work item where there are fewer."""
     work = _tiles(M, C) * Hd + (_tiles(Hd, C) + _tiles(C_out, Hd)) * M
     target = max(256, -(-work // (4 * sms)))
-    return _cut(Hd, target, _SLICE), _cut(M, target, _SLICE)
+    slice_dx, slice_w = _cut(Hd, target, _SLICE), _cut(M, target, _SLICE)
+    items = (_tiles(M, C) * -(-Hd // slice_dx)
+             + (_tiles(Hd, C) + _tiles(C_out, Hd)) * -(-M // slice_w))
+    return BwdPlan(slice_dx, slice_w, min(sms, _tiles(M, Hd)), min(sms, items))
 
 
 def bf16_plan(M, C, Hd, C_out, sms):
@@ -271,8 +288,12 @@ def mlp_bwd(x, w1, b1, w2, b2, dy):
         tracing.contiguous(w2.t(), "mlp_bwd.weights"))   # nn.Linear (out, in)
     M = x2.shape[0]
     sms = cuda_lib.sm_count(x.device)
-    plan = bf16_bwd_plan if io == torch.bfloat16 else bwd_slices
-    slice_dx, slice_w = plan(M, C, Hd, C_out, sms)
+    if io == torch.bfloat16:
+        slice_dx, slice_w = bf16_bwd_plan(M, C, Hd, C_out, sms)
+        grids = (0, 0)   # the bf16 launches size their own grids
+    else:
+        slice_dx, slice_w, *grids = bwd_plan(M, C, Hd, C_out, sms)
+        tracing.counts["fm_fused_mlp_bwd:wgmma_tf32x3"] += 1
     s_dx, s_w, rows_t = -(-Hd // slice_dx), -(-M // slice_w), -(-M // _TILE)
 
     def empty(*shape, dtype=torch.float32):
@@ -291,7 +312,7 @@ def mlp_bwd(x, w1, b1, w2, b2, dy):
 
     cuda_lib.launch(cuda_lib.entry("fm_fused_mlp_bwd", io), *map(_ptr, (
         x2, dy2, w1t, b1, w2t, a_buf, g_buf, db1_p, db2_p, dx_p, dw1_p, dw2_p,
-        dx, dw1, db1, dw2, db2)), M, C, Hd, C_out, slice_dx, slice_w, device=x.device)
+        dx, dw1, db1, dw2, db2)), M, C, Hd, C_out, slice_dx, slice_w, *grids, device=x.device)
     return dx.view(x.shape), dw1.t(), db1, dw2.t(), db2
 
 

@@ -117,10 +117,26 @@ def identical(saved: dict) -> dict:
     return same
 
 
+def rel_by_output(saved: dict) -> dict:
+    """{tree: {output: its largest difference from the first tree's over the
+    largest entry}}, each saved output (a shape's tensors) on its own."""
+    import torch
+
+    trees = list(saved)
+    ref = torch.load(saved[trees[0]])
+    out = {}
+    for tree in trees:
+        outs = torch.load(saved[tree])
+        out[tree] = {k: max(float((a.float() - b.float()).abs().max()
+                                  / b.float().abs().max().clamp_min(1e-30))
+                            for a, b in zip(outs[k], ref[k])) for k in ref}
+    return out
+
+
 def diffs(saved: dict) -> tuple[dict, dict]:
     """Each tree's largest difference from the first tree's outputs: of the
-    non-fp32 outputs over the largest entry, and of the fp32 ones absolute
-    (empty where no tree saved fp32 outputs)."""
+    non-fp32 outputs over the largest entry (0 where there are none), and of
+    the fp32 ones absolute (empty where no tree saved fp32 outputs)."""
     import torch
 
     trees = list(saved)
@@ -128,10 +144,10 @@ def diffs(saved: dict) -> tuple[dict, dict]:
     rel, abs32 = {}, {}
     for tree in trees:
         outs = torch.load(saved[tree])
-        rel[tree] = max(float((a.float() - b.float()).abs().max()
-                              / b.float().abs().max().clamp_min(1e-30))
-                        for k in ref if not k.startswith("fp32")
-                        for a, b in zip(outs[k], ref[k]))
+        rel[tree] = max((float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max().clamp_min(1e-30))
+                         for k in ref if not k.startswith("fp32")
+                         for a, b in zip(outs[k], ref[k])), default=0.0)
         fp32 = [k for k in ref if k.startswith("fp32")]
         if fp32:
             abs32[tree] = max(float((a - b).abs().max()) for k in fp32
@@ -146,8 +162,8 @@ def compare(tool: str, trees: list[str], shapes, calls: dict, rounds: int, spec:
     shapes; print each child's lines with its tree and round. The first
     round saves the outputs. Returns {"step_device_ms": {tree: {step: {kind:
     [ms each round]}}}, "max_rel_diff_vs_first": ..., "bit_identical_to_first":
-    ..., and, where fp32 outputs were saved, "fp32_max_abs_diff_vs_first":
-    ...}."""
+    ..., "rel_diff_by_output_vs_first": ..., and, where fp32 outputs were
+    saved, "fp32_max_abs_diff_vs_first": ...}."""
     steps = {t: {name: {k: [] for k, c in kinds.items() if c} for name, kinds in calls.items()}
              for t in trees}
     with tempfile.TemporaryDirectory() as tmp:
@@ -165,8 +181,9 @@ def compare(tool: str, trees: list[str], shapes, calls: dict, rounds: int, spec:
                         steps[tree][name][k].append(ms)
         rel, abs32 = diffs(saved) if rounds else ({}, {})
         same = identical(saved) if rounds else {}
+        by_output = rel_by_output(saved) if rounds else {}
     return {"step_device_ms": steps, "max_rel_diff_vs_first": rel,
-            "bit_identical_to_first": same,
+            "bit_identical_to_first": same, "rel_diff_by_output_vs_first": by_output,
             **({"fp32_max_abs_diff_vs_first": abs32} if abs32 else {})}
 
 

@@ -462,10 +462,22 @@ def test_dwconv_backward_kernel_unaligned(dev, act, shape):
     _assert_grads_close(got, want)
 
 
+# the benchmark's batch-64 training step (`chip_smoke.train_calls(full_config(),
+# 64, 256)["mlp_bwd"]`): C = 96 .. 768, M = 4096 .. 524288
+_MLP_CELL = [(524288, 96, 384), (262144, 96, 384), (131072, 192, 768), (65536, 192, 768),
+             (32768, 384, 1536), (16384, 384, 1536), (8192, 768, 3072), (4096, 768, 3072)]
+
+
 @pytest.mark.parametrize("M,C,H", [(1, 16, 64), (37, 96, 384), (100, 20, 72), (768, 768, 3072),
                                    (384, 768, 3072), (49152, 96, 384), (128, 768, 3072),
-                                   (8192, 96, 384)])
+                                   (8192, 96, 384), (300, 40, 160), (1000, 192, 768),
+                                   (8448, 16, 64), (200, 32, 128), (3072, 384, 768),
+                                   (384, 768, 1536), *_MLP_CELL])
 def test_mlp_backward_kernel(dev, M, C, H):
+    """fp32 (the 3xTF32 wgmma engine): against the plain version, two
+    launches bit-identical. Shapes: the batch-64 step's, the test config's
+    widths (16, 32), ragged M and C (a 32-deep stage with a tail at C = 40,
+    20), a tensor-parallel rank's half hidden (H = 2C)."""
     g = torch.Generator().manual_seed(M + C)
     # weights as nn.Linear's (out, in) tensors passed as `.t()` views, as Mlp does
     w1 = _rand(g, H, C, scale=C ** -0.5).to(dev)
@@ -476,6 +488,53 @@ def test_mlp_backward_kernel(dev, M, C, H):
     _check_backward(lambda x, a, b1, c, b2: mlp.fused_mlp(x, a.t(), b1, c.t(), b2),
                     lambda x, a, b1, c, b2: mlp.fused_mlp_plain(x, a.t(), b1, c.t(), b2),
                     inputs, dy, "fm_fused_mlp_bwd")
+
+
+def test_mlp_backward_counts_its_engine(dev):
+    """Each fp32 backward call is one `fm_fused_mlp_bwd` launch on the TF32
+    wgmma engine; a bf16 call counts neither."""
+    g = torch.Generator().manual_seed(11)
+    M, C, H = 300, 40, 160
+    args = [_rand(g, *s).to(dev) for s in ((M, C), (C, H), (H,), (H, C), (C,), (M, C))]
+    keys = ("fm_fused_mlp_bwd", "fm_fused_mlp_bwd:wgmma_tf32x3", "fm_fused_mlp_bwd_bf16")
+    before = [COUNTS[k] for k in keys]
+    mlp.mlp_bwd(*args)
+    assert [COUNTS[k] - b for k, b in zip(keys, before)] == [1, 1, 0]
+    mlp.mlp_bwd(*(t.to(BF16) for t in args))
+    torch.cuda.synchronize()
+    assert [COUNTS[k] - b for k, b in zip(keys, before)] == [1, 1, 1]
+
+
+# sha256 of the bf16 backward's gradients (`_bf16_bwd_digest`) as the port
+# computed them before the fp32 backward moved to its own engine (commit
+# 6e8aeaf, on an H100 SXM): the bf16 path must keep them bit for bit
+_BF16_BWD_DIGESTS = {
+    (300, 40, 160): "d1c605a21a64a74e00d957807f1f5e0bada00c217f4943b9b7d4b49e17b1dfc2",
+    (3072, 96, 384): "8b8dd540cdce8d0938aef358fea85b5fa9f7932a8a0550c0dfeda21f0cf9b487",
+    (512, 768, 3072): "34b7e430ed0f39f82711c618f6ed60e97a939e11b94fc1b44d0880bbff55a84a",
+    (20000, 96, 384): "9d4157fbdf31df66e4f0591c6c2af3ea4320082cbc340bd6079cb7adda637997"}
+
+
+def _bf16_bwd_digest(M, C, H):
+    """The sha256 of mlp_bwd's five bf16 gradients on seeded inputs."""
+    import hashlib
+
+    g = torch.Generator().manual_seed(M + 3 * C + H)
+    x, dy = _rand(g, M, C), _rand(g, M, C)
+    w1, w2 = _rand(g, C, H, scale=C ** -0.5), _rand(g, H, C, scale=H ** -0.5)
+    b1, b2 = _rand(g, H, scale=0.1), _rand(g, C, scale=0.1)
+    dev = torch.device("cuda")
+    out = mlp.mlp_bwd(*(t.to(dev, BF16) for t in (x, w1, b1, w2, b2, dy)))
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("shape", [(300, 40, 160), (3072, 96, 384), (512, 768, 3072),
+                                   (20000, 96, 384)])
+def test_mlp_backward_bf16_unchanged(dev, shape):
+    assert _bf16_bwd_digest(*shape) == _BF16_BWD_DIGESTS[shape]
 
 
 def test_model_backward_on_card_matches_cpu(dev):

@@ -406,3 +406,18 @@ def test_ab_step_sums_and_diffs(tmp_path):
     torch.save(other, tmp_path / "b.pt")
     rel, abs32 = _ab.diffs({"a": tmp_path / "a.pt", "b": tmp_path / "b.pt"})
     assert rel == {"a": 0.0, "b": 0.25} and abs32 == {"a": 0.0, "b": 0.5}
+
+
+def test_ab_rel_diff_by_output(tmp_path):
+    """Each output's largest difference from the first tree's, over its
+    largest entry, fp32 outputs too; the worst of a key's tensors."""
+    from fusionmamba_torch.tools import _ab
+
+    ref = {"[1]": [torch.tensor([4.0, -2.0]), torch.tensor([1.0])],
+           "fp32 [1]": [torch.tensor([1.0, 2.0])]}
+    other = {"[1]": [torch.tensor([4.0, -1.0]), torch.tensor([0.0])],
+             "fp32 [1]": [torch.tensor([1.0, 2.5])]}
+    torch.save(ref, tmp_path / "a.pt")
+    torch.save(other, tmp_path / "b.pt")
+    got = _ab.rel_by_output({"a": tmp_path / "a.pt", "b": tmp_path / "b.pt"})
+    assert got == {"a": {"[1]": 0.0, "fp32 [1]": 0.0}, "b": {"[1]": 1.0, "fp32 [1]": 0.25}}
