@@ -5,11 +5,11 @@ them: a step that leaves the state unchanged, half of the batch left out
 returns the function that mends it. Used by `calibrate.py --fault` (on the
 card, at the cell's own size) and by the CPU tests.
 
-Each job declares what it can have: `FAULTS`, the names of its faults;
-`MODEL`, the `build` maker whose forward an altered answer (and, in a job
-without a step, half a batch) breaks; and in a training job `STEP`, the
-name of its step function `step(net, opt, *batch, **kw)`, which half a
-batch or an unchanged state replaces."""
+Each job declares what it can have: `FAULTS`, the names of its faults, and
+in a training job `STEP`, the name of its step function `step(net, opt,
+*batch, **kw)`, which half a batch or an unchanged state replaces. An
+altered answer (and, in a job without a step, half a batch) breaks the
+forward of the model that `build.model` makes, whatever its maker."""
 from __future__ import annotations
 
 import torch
@@ -30,8 +30,8 @@ def _first_output(result):
     return result, lambda t: t
 
 
-def _wrap_model(maker: str, alter):
-    real = getattr(build, maker)
+def _wrap_model(alter):
+    real = build.model
 
     def make(config, device):
         net = real(config, device)
@@ -42,7 +42,7 @@ def _wrap_model(maker: str, alter):
             return put(alter(out))
         net.forward = broken
         return net
-    return _replace(build, maker, make)
+    return _replace(build, "model", make)
 
 
 def _altered(out):
@@ -85,8 +85,8 @@ def plant(cell, fault: str):
     if fault not in job.FAULTS:
         raise ValueError(f"{cell.mix['job']} has no fault {fault!r}")
     if fault == "answer_altered":
-        return _wrap_model(job.MODEL, _altered)
+        return _wrap_model(_altered)
     step = getattr(job, "STEP", None)
     if step is None:
-        return _wrap_model(job.MODEL, _halved)
+        return _wrap_model(_halved)
     return _replace(job, step, _broken_step(getattr(job, step), fault))

@@ -3,10 +3,11 @@ reference, and the result line.
 
 Everything that belongs to one configuration, traffic mix, per-layer metric
 or kernel sits in a file of its own that this module finds by name:
-`configs/<config>.json`, `mixes/<traffic>.json` (whose `job` names
-`jobs/<job>.py`), `limits/<workload>.json`, `metrics/<metric>.py` (or,
-where there is no such file, `metrics/<prefix>.py` for a metric named
-`<prefix>.<cells>`) and every `kernels/*.py`.
+`configs/<config>.json` (whose `model` names `makers/<model>.py`, found by
+`build.py`), `mixes/<traffic>.json` (whose `job` names `jobs/<job>.py`),
+`limits/<workload>.json`, `metrics/<metric>.py` (or, where there is no such
+file, `metrics/<prefix>.py` for a metric named `<prefix>.<cells>`) and
+every `kernels/*.py`; the CPU tests' sizes in `tests/tiny/<config>.json`.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ def load_module(path: Path):
 
 def job_module(mix: dict):
     """`jobs/<job>.py` of a traffic mix: its `Run`, and the faults it can
-    have (`FAULTS`, `MODEL`, and for a training job `STEP`)."""
+    have (`FAULTS`, and for a training job `STEP`)."""
     return load_module(HERE / "jobs" / f"{mix['job']}.py")
 
 

@@ -22,10 +22,9 @@ from portbench import build, compare, harness
 from portbench.reference import fusion as ref_fusion
 from portbench.reference import products, weights
 
-# the faults `portbench/faults.py` plants in the forward of the `build`
-# maker MODEL
+# the faults `portbench/faults.py` plants in the forward of the model that
+# `build.model` makes
 FAULTS = ("half_batch", "answer_altered")
-MODEL = "fusion_model"
 
 
 def _inputs(cell):
@@ -39,7 +38,7 @@ class Run:
         self.cell, mix = cell, cell.mix
         self.device = torch.device(cell.device)
         self.items_per_unit = mix["batch"]
-        self.net = build.fusion_model(cell.config, self.device).eval()
+        self.net = build.model(cell.config, self.device).eval()
         weights.load(self.net, weights.fusion_weights(cell.config, cell.seed, self.device))
         self.ring = _inputs(cell)
         harness.stamp("weights and inputs")

@@ -26,9 +26,8 @@ from portbench.reference import fusion as ref_fusion
 from portbench.reference import products, weights
 
 # the faults `portbench/faults.py` plants in this job's path: the forward of
-# the `build` maker MODEL, and the step function STEP of this module
+# the model that `build.model` makes, and the step function STEP of this module
 FAULTS = ("state_unchanged", "half_batch", "answer_altered")
-MODEL = "fusion_model"
 STEP = "fusion_train_step"
 
 # generator streams of a seed (`weights.generator`); 0 makes the weights
@@ -77,7 +76,7 @@ class Run:
         dev = self.device = torch.device(cell.device)
         self.items_per_unit = mix["batch"]
         self.dtype = resolve_compute_dtype(mix["precision"])
-        self.net = build.fusion_model(cell.config, dev)
+        self.net = build.model(cell.config, dev)
         weights.load(self.net, weights.fusion_weights(cell.config, cell.seed, dev))
         self.params = _by_name(self.net)
         self.opt = make_fusion_optimizer(self.params, lr=mix["lr"])

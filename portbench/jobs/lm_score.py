@@ -22,14 +22,13 @@ from portbench import build, harness
 from portbench.reference import mamba_lm as ref_lm
 from portbench.reference import products, weights
 
-# the faults `portbench/faults.py` plants in the forward of the `build`
-# maker MODEL
+# the faults `portbench/faults.py` plants in the forward of the model that
+# `build.model` makes
 FAULTS = ("half_batch", "answer_altered")
-MODEL = "lm_model"
 
 
 def reference_config(config: dict) -> dict:
-    return {**config, "vocab_size": build.padded_vocab(config)}
+    return {**config, "vocab_size": build.maker(config).padded_vocab(config)}
 
 
 def _tokens(cell):
@@ -50,7 +49,7 @@ class Run:
         self.cell, mix = cell, cell.mix
         self.device = torch.device(cell.device)
         self.items_per_unit = mix["batch"] * mix["seq_len"]
-        self.net = build.lm_model(cell.config, self.device).eval()
+        self.net = build.model(cell.config, self.device).eval()
         weights.load(self.net, weights.lm_weights(reference_config(cell.config), cell.seed,
                                                   self.device))
         self.ring = _tokens(cell)

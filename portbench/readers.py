@@ -54,3 +54,10 @@ def mfu(win, flops_per_item: float) -> float:
 
 def idle_share(win) -> float:
     return 100.0 * (1.0 - win.trace.busy_s / win.trace.window_s)
+
+
+def span_ms(win, span: str, key: str = "device_ms") -> float | None:
+    """`key` of the program's span `span` (`spans.reduce`'s row), ms a unit
+    of the traced window; None where the program has no such span."""
+    row = win.trace.spans.get(span)
+    return None if row is None else row[key]

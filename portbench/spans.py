@@ -16,12 +16,14 @@ pace. The reduction, for each span name, a unit:
   the main thread; `self_idle_ms` the gaps of which it was the innermost
   span there, the gaps under no span going to OUTSIDE.
 
-Not yet called by `trace.capture`: `python3 -m portbench.spans --workload
-NAME --seed N` sets a cell up as `run.py` does, runs `trace.capture` and then
-this capture over the mix's `trace_units`, and prints both, the table and
-the difference of the program's counts (`fusionmamba_torch.utils.tracing
-.counts`, where the program has them) a unit; then ROUNDS device-alone and
-span captures in turns, whose idle shares give the span capture's cost.
+`trace.capture` runs this capture after its own two profiles, and the
+per-layer metrics of `source` `program_span` and `program_counter` read its
+table and the difference of the program's counts
+(`fusionmamba_torch.utils.tracing.counts`, where the program has them) a
+unit. By hand, `python3 -m portbench.spans --workload NAME --seed N` sets a
+cell up as `run.py` does, runs `trace.capture` and then this capture over
+the mix's `trace_units`, and prints both; then ROUNDS device-alone and span
+captures in turns, whose idle shares give the span capture's cost.
 """
 from __future__ import annotations
 
@@ -40,6 +42,11 @@ WINDOW = "portbench.spans.window"
 OUTSIDE = "(outside the program's spans)"
 # device-alone and span captures in turns, for the span capture's cost
 ROUNDS = 3
+# seconds the profiler stays on after the window's last sync: CUPTI hands
+# over the records of the last kernels some time after they end, and a
+# profiler stopped at once lost the last training step's optimizer kernels
+# in 4 of 14 captures on an H100, none of 14 with this wait
+SETTLE_S = 0.2
 
 
 @dataclasses.dataclass
@@ -187,6 +194,7 @@ def capture(unit, n: int, device) -> dict:
             for _ in range(n):
                 unit()
             sync(device)
+        time.sleep(SETTLE_S)
     after = _counts()
     events = [from_kineto(e) for e in raw]
     out = reduce(events, n)

@@ -23,7 +23,7 @@ def test_harness_loads_no_jax():
     code = ("import sys; sys.path.insert(0, '.')\n"
             "from pathlib import Path\n"
             "from portbench import harness, trace, readers, flops, calibrate\n"
-            "for d in ('jobs', 'metrics', 'kernels'):\n"
+            "for d in ('jobs', 'makers', 'metrics', 'kernels'):\n"
             "    for p in sorted((harness.HERE / d).glob('*.py')):\n"
             "        harness.load_module(p)\n")
     loaded = _loaded(code)

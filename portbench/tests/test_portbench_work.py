@@ -76,8 +76,8 @@ def test_fusion_config_flops_and_parameters():
 
 def test_lm_config_flops_and_parameters():
     cfg = harness.load_json(harness.HERE / "configs" / "mamba_130m.json")
-    ref = {**cfg, "vocab_size": build.padded_vocab(cfg)}
-    assert build.padded_vocab(cfg) == 50280
+    ref = {**cfg, "vocab_size": build.maker(cfg).padded_vocab(cfg)}
+    assert ref["vocab_size"] == 50280
     assert flops.parameters(ref_lm.MambaLM, ref) == cfg["parameters"]
     assert flops.lm_forward_flops(ref, 2048) == 2048 * cfg["forward_flops_per_item"]
     # the tied head alone is 2 * 768 * 50280 a token

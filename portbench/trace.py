@@ -1,5 +1,6 @@
 """The traced window: torch.profiler over a few units, reduced to what the
-per-layer metrics read, and one unit more whose idle gaps are named.
+per-layer metrics read, one unit more whose idle gaps are named, and the
+program's spans and counts over as many units again (`spans.py`).
 
 The reduction is `chip_smoke.py::_trace`'s, copied: the union of the device
 events' intervals is the busy time; device time is grouped by the kernel
@@ -16,6 +17,7 @@ import dataclasses
 import time
 from pathlib import Path
 
+from . import spans as program_spans
 from .harness import HERE, load_module, sync
 
 # idle gaps shorter than this are summed as one entry, not named
@@ -55,6 +57,8 @@ class Summary:
     by_name: dict              # kernel name -> device seconds
     copy_events: int
     gaps: dict                 # host operation -> idle seconds of one more unit
+    spans: dict                # program span -> `spans.reduce`'s row, ms a unit
+    counts: dict               # the program's counts a unit
 
     def breakdown(self) -> dict:
         ops = sorted(self.by_name.items(), key=lambda kv: -kv[1])[:TOP]
@@ -124,7 +128,9 @@ def capture(unit, n: int, device) -> Summary:
     for the busy time and the device time by kernel (recording the host's
     operators as well would slow the host several fold and open idle gaps
     that an untraced run does not have); then one more call with the host's
-    operators too, whose idle gaps are named by them."""
+    operators too, whose idle gaps are named by them; last, `n` calls under
+    the program's spans (`spans.capture`), so that its profile changes
+    nothing that the two before it read."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -146,5 +152,8 @@ def capture(unit, n: int, device) -> Summary:
     host = [(e.time_range.start, e.time_range.end, e.name) for e in events
             if e.device_type != torch.autograd.DeviceType.CUDA]
     _, merged = _busy([(e.time_range.start, e.time_range.end) for e in _device_events(events)])
-    return Summary(n, window_s, busy_us / 1e6, dict(by_function), dict(by_name), copies,
-                   _gap_names(merged, host))
+    gaps = _gap_names(merged, host)
+    del events, host
+    program = program_spans.capture(unit, n, device)
+    return Summary(n, window_s, busy_us / 1e6, dict(by_function), dict(by_name), copies, gaps,
+                   program["spans"], program["counts"])
