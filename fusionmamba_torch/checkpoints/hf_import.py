@@ -1,6 +1,8 @@
 """Released Mamba LM checkpoints for `models.mamba_lm.MambaLMHeadModel`: the
 port of `fusionmamba_tpu/checkpoints/hf_import.py` (itself the counterpart of
-`mamba_ssm/utils/hf.py`).
+`mamba_ssm/utils/hf.py`). `model_from_config` also builds
+`models.jamba.JambaForCausalLM` from a Jamba config.json, whose parameters
+keep transformers' names.
 
 The released `state-spaces/mamba-*` checkpoints ship a `config.json` and a
 `pytorch_model.bin` whose keys follow `mamba_ssm/models/mixer_seq_simple.py`
@@ -17,7 +19,9 @@ import os
 from typing import Any, Dict, Tuple
 
 import torch
+from torch import nn
 
+from ..models.jamba import JambaForCausalLM
 from ..models.mamba_lm import MambaLMHeadModel
 
 #: the ssm_cfg keys MambaBlock honours; any other (e.g. `layer` choosing a
@@ -27,11 +31,18 @@ _HEAD = "lm_head.weight"
 _WEIGHT_NAMES = ("pytorch_model.bin", "model.bin", "weights.bin")
 
 
-def model_from_config(cfg: Dict[str, Any]) -> MambaLMHeadModel:
-    """The LM of a `config.json` dict (`mamba_ssm/models/config_mamba.py`
-    fields), its vocabulary padded to `pad_vocab_size_multiple`
-    (`mixer_seq_simple.py:181-184`). Honours ssm_cfg's d_state, d_conv,
-    expand and dt_rank and raises on any other ssm_cfg key."""
+def model_from_config(cfg: Dict[str, Any], experts_held=None) -> nn.Module:
+    """The LM of a `config.json` dict. A `model_type` "jamba" config builds
+    `JambaForCausalLM` (transformers' `JambaConfig` fields), holding
+    `experts_held` of each expert layer's experts (all by default). Any
+    other is mamba_ssm's (`mamba_ssm/models/config_mamba.py` fields): its
+    vocabulary padded to `pad_vocab_size_multiple`
+    (`mixer_seq_simple.py:181-184`); ssm_cfg's d_state, d_conv, expand and
+    dt_rank honoured, and any other ssm_cfg key raises."""
+    if cfg.get("model_type") == "jamba":
+        return JambaForCausalLM(cfg, experts_held)
+    if experts_held is not None:
+        raise ValueError("experts_held applies to a Jamba config only")
     vocab = int(cfg["vocab_size"])
     mult = int(cfg.get("pad_vocab_size_multiple", 8))
     if vocab % mult:

@@ -37,10 +37,12 @@ def _scan_input(t: torch.Tensor) -> torch.Tensor:
 
 class MambaBlock(nn.Module):
     """`Mamba` (`mamba_simple.py:119-294`): in_proj -> causal depthwise conv1d
-    + SiLU -> x_proj -> (dt, B, C) -> selective scan -> z gate -> out_proj."""
+    + SiLU -> x_proj -> (dt, B, C) -> selective scan -> z gate -> out_proj.
+    With `inner_norm_eps`, Jamba's mixer: RMSNorms of that eps on dt, B and C
+    after x_proj."""
 
     def __init__(self, d_model: int, d_state: int = 16, d_conv: int = 4, expand: int = 2,
-                 dt_rank: int | None = None):
+                 dt_rank: int | None = None, inner_norm_eps: float | None = None):
         super().__init__()
         self.d_model, self.d_state, self.d_conv = d_model, d_state, d_conv
         self.d_inner = expand * d_model
@@ -54,21 +56,36 @@ class MambaBlock(nn.Module):
         self.A_log = nn.Parameter(torch.log(torch.arange(1.0, N + 1)).repeat(d_in, 1))
         self.D = nn.Parameter(torch.ones(d_in))
         self.out_proj = nn.Linear(d_in, d_model, bias=False)
+        # Jamba's RMSNorms on dt, B and C between x_proj and dt_proj
+        # (transformers' `JambaMambaMixer`), with its names; off for mamba_ssm
+        self.inner_norms = inner_norm_eps is not None
+        if self.inner_norms:
+            self.dt_layernorm = Norm(R, inner_norm_eps, rms=True)
+            self.b_layernorm = Norm(N, inner_norm_eps, rms=True)
+            self.c_layernorm = Norm(N, inner_norm_eps, rms=True)
+
+    def _dt_b_c(self, dbc: torch.Tensor):
+        """x_proj's output split into (dt before dt_proj, B, C), each through
+        its inner norm where the block has them."""
+        R, N = self.dt_rank, self.d_state
+        dt, Bm, Cm = dbc[..., :R], dbc[..., R:R + N], dbc[..., R + N:]
+        if self.inner_norms:
+            dt, Bm, Cm = self.dt_layernorm(dt), self.b_layernorm(Bm), self.c_layernorm(Cm)
+        return dt, Bm, Cm
 
     def forward(self, x: torch.Tensor, cache: dict | None = None):
         """x (B, L, d_model) -> (out, None); with `cache`, L must be 1 (a
         decode step): the cache is updated in place and returned."""
         if cache is not None:
             return self.step(x, cache), cache
-        L, R, N = x.shape[1], self.dt_rank, self.d_state
+        L = x.shape[1]
         xpart, z = self.in_proj(x).chunk(2, dim=-1)
         # causal: pad d_conv - 1 on both sides, keep the first L outputs
         xc = F.silu(self.conv1d(xpart.transpose(1, 2))[..., :L].transpose(1, 2))
-        dbc = self.x_proj(xc)
-        dt = F.linear(dbc[..., :R], self.dt_proj.weight)
+        dt, Bm, Cm = self._dt_b_c(self.x_proj(xc))
+        dt = F.linear(dt, self.dt_proj.weight)
         A = -torch.exp(self.A_log.float())
-        u, dt, Bm, Cm = map(_scan_input, (xc[:, None], dt[:, None], dbc[:, None, :, R:R + N],
-                                          dbc[:, None, :, R + N:]))
+        u, dt, Bm, Cm = map(_scan_input, (xc[:, None], dt[:, None], Bm[:, None], Cm[:, None]))
         y = selective_scan(u, dt, A[None], Bm, Cm, self.D[None].float(),
                            self.dt_proj.bias[None].float(), delta_softplus=True)[:, 0]
         return self.out_proj(y.to(x.dtype) * F.silu(z)), None
@@ -79,19 +96,18 @@ class MambaBlock(nn.Module):
         `cache["ssm_state"]` (B, d_inner, N) are updated in place."""
         if x.shape[1] != 1:
             raise ValueError(f"a decode step takes one token, got {x.shape[1]}")
-        R, N = self.dt_rank, self.d_state
         conv_state, ssm_state = cache["conv_state"], cache["ssm_state"]
         xpart, z = self.in_proj(x[:, 0]).chunk(2, dim=-1)
         conv_state.copy_(torch.cat([conv_state[:, 1:], xpart[:, None]], dim=1))
         xc = (conv_state * self.conv1d.weight[:, 0].t()[None]).sum(1) + self.conv1d.bias
         xc = F.silu(xc)
-        dbc = self.x_proj(xc)
-        dt = softplus(self.dt_proj(dbc[:, :R]))
+        dt, Bm, Cm = self._dt_b_c(self.x_proj(xc))
+        dt = softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log.float())
         dA = torch.exp(dt[..., None] * A[None])                    # (B, d_inner, N)
-        dBx = (dt * xc)[..., None] * dbc[:, None, R:R + N]
+        dBx = (dt * xc)[..., None] * Bm[:, None]
         ssm_state.copy_(ssm_state * dA + dBx)
-        y = torch.einsum("bdn,bn->bd", ssm_state, dbc[:, R + N:]) + self.D * xc
+        y = torch.einsum("bdn,bn->bd", ssm_state, Cm) + self.D * xc
         return self.out_proj(y * F.silu(z))[:, None]
 
     def init_cache(self, batch: int, device=None, dtype=torch.float32) -> dict:

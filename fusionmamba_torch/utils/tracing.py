@@ -2,7 +2,12 @@
 one registry of counts.
 
 `span(name)` marks a layer (the training step and its phases, a model's
-forward and its stages). With no profiler recording it is a shared no-op
+forward and its stages, a decoder's kinds of layer). The spans: `train.step`
+and its phases; `fusion.forward` and its stages; `lm.forward` (`lm.embed`,
+`lm.layers`, `lm.head`); `jamba.forward` (`jamba.embed`; each layer's mixer,
+`jamba.mamba` or `jamba.attention`, and its feed-forward, `jamba.moe`, routing
+included, or `jamba.mlp`, each with its norm and residual add; `jamba.head`).
+With no profiler recording it is a shared no-op
 behind one check; under a recording profiler it is a
 `torch.profiler.record_function`, so the span lands on the profiler's
 timeline, on the clock of the device's events, nested under the span open
@@ -14,7 +19,10 @@ from bf16 and forward from backward), the Triton LN forward's launches
 (`triton_ln_fwd`, `triton_ln_fwd_bf16`), the launches of a design variant
 (`<entry>:quads`, `<entry>:one_launch`), and the copies the port makes itself
 (`copies:<site>`, and their bytes written, `copy_bytes:<site>`), counted
-only where a copy is made.
+only where a copy is made (site `jamba.moe`: the expert layer's gather of its
+rows and its scatter-add back), and the expert layer's rows
+(`moe_rows:routed`, top-k times the tokens; `moe_rows:held`, the rows its
+held experts computed).
 
 `record()` profiles a block at the user scope: the spans, and where a card
 is in use the device's activity and the runtime calls that launched it, but
@@ -41,11 +49,16 @@ def span(name: str):
     return torch.profiler.record_function(name)
 
 
-def _copied(site: str, t: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    if out is not t:
-        counts["copies:" + site] += 1
-        counts["copy_bytes:" + site] += out.nbytes
+def copied(site: str, out: torch.Tensor) -> torch.Tensor:
+    """Count `out` as a copy the port made under `site` (its bytes written),
+    and return it: a gather's result, or the rows a scatter writes."""
+    counts["copies:" + site] += 1
+    counts["copy_bytes:" + site] += out.nbytes
     return out
+
+
+def _copied(site: str, t: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    return out if out is t else copied(site, out)
 
 
 def contiguous(t: torch.Tensor, site: str) -> torch.Tensor:

@@ -1,0 +1,7 @@
+"""Device ms a batch of the work launched inside the program's spans
+`jamba.attention`: the attention mixer, with its layer's input norm and residual add."""
+from portbench import readers
+
+
+def read(win):
+    return readers.span_ms(win, "jamba.attention")

@@ -196,3 +196,19 @@ def test_lm_forward_spans_in_order():
     assert logits.shape == (2, 5, 32) and math.isfinite(float(logits.sum()))
     assert _spans(rec) == [("lm.forward", None), ("lm.embed", "lm.forward"),
                            ("lm.layers", "lm.forward"), ("lm.head", "lm.forward")]
+
+
+def test_jamba_forward_spans_in_order():
+    """`jamba.forward` holds the embedding, each layer's mixer span and then
+    its feed-forward span, by the layer's kinds, and the head."""
+    from fusionmamba_torch.models.jamba import JambaForCausalLM, layer_kinds
+    cfg = dict(hidden_size=16, intermediate_size=24, num_hidden_layers=8, num_attention_heads=2,
+               num_key_value_heads=1, num_experts=4, mamba_dt_rank=2, vocab_size=32)
+    net = JambaForCausalLM(cfg, experts_held=range(2)).eval()
+    with torch.no_grad(), tracing.record() as rec:
+        logits = net(torch.randint(0, 32, (2, 5)))[0]
+    assert logits.shape == (2, 5, 32) and math.isfinite(float(logits.sum()))
+    layers = [("jamba." + kind, "jamba.forward") for pair in layer_kinds(net.config)
+              for kind in pair]
+    assert _spans(rec) == [("jamba.forward", None), ("jamba.embed", "jamba.forward"), *layers,
+                           ("jamba.head", "jamba.forward")]
