@@ -71,6 +71,13 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                the parity config's shape; L cut as the wrapper cuts it and as
                one chunk, each against the plain version and bit-identical
                twice, with times and the bound (the full dt's bytes counted).
+     linear - `ops.linear`'s 3xTF32 kernel at each product of the LM cells
+               (the Mamba mixers' four projections at mamba-130m's and
+               Jamba's widths, the tied head): event ms, device ms, TFLOP/s
+               and share of the shape's bound (bytes or 3xTF32 operations),
+               fp32 F.linear's time beside it (library_ms); the error
+               against float64 at most LINEAR_ERR_RATIO times F.linear's,
+               the TF32 control's beyond it, two launches bit-identical.
   5. main_path - `python -m fusionmamba_torch.infer --model full --size 256
                --batch 8` on 20 synthetic pairs (three batches, the last one
                padded), twice: the outputs must be identical 256x256 uint8
@@ -139,8 +146,9 @@ Phases, each printing one JSON line per result; any failure exits non-zero:
                layers, vocabulary 50280, RMSNorm), weights from seed 0: 4
                random sequences of 2048 tokens in inference_mode, 6 forwards
                with the counters zeroed just before (24 scan launches each, no
-               other kernel), finite logits, tokens/s over 5 warm forwards,
-               then one traced forward (the scan's share of the device time).
+               other of the ten kernels, 97 of the linear's), finite logits,
+               tokens/s over 5 warm forwards, then one traced forward (the
+               scan's share of the device time).
      lm_decode - the cached decode step at each of 2 x 256 positions against
                the full forward's logits there (1e-3 of the largest |logit|),
                with no scan launch.
@@ -224,6 +232,7 @@ from fusionmamba_torch.models import VSSMFusion, VSSMFusionSeg
 from fusionmamba_torch.models.mamba_lm import MambaLMHeadModel, decode_graph, generate
 from fusionmamba_torch.nn import SS2D, init_lm_weights, init_weights
 from fusionmamba_torch.ops import cuda_lib, dwconv, layer_norm, mlp, scan_cuda
+from fusionmamba_torch.ops import linear as linear_op
 from fusionmamba_torch.ops.selective_scan import selective_scan, selective_scan_plain
 from fusionmamba_torch.tools import check_dataset, color_convert
 from fusionmamba_torch.utils import tracing
@@ -247,6 +256,17 @@ LM_VOCAB, LM_WIDTH, LM_LAYERS = 50280, 768, 24
 LM_SCORE_BATCH, LM_SCORE_LEN, LM_SCORE_REPS = 4, 2048, 5
 LM_DECODE_BATCH, LM_DECODE_LEN = 2, 256
 LM_GEN_BATCH, LM_GEN_PROMPT, LM_GEN_NEW = 4, 32, 64
+# `ops.linear`'s products in the LM cells, (M, K, N): mamba-130m at 8 x 2048
+# tokens, Jamba's Mamba layers at 2 x 16384
+LINEAR_SHAPES = {"lm.in_proj": (16384, 768, 3072), "lm.x_proj": (16384, 1536, 80),
+                 "lm.dt_proj": (16384, 48, 1536), "lm.out_proj": (16384, 1536, 768),
+                 "lm.head": (16384, 768, 50280), "jamba.in_proj": (32768, 4096, 16384),
+                 "jamba.x_proj": (32768, 8192, 288), "jamba.dt_proj": (32768, 256, 8192),
+                 "jamba.out_proj": (32768, 8192, 4096)}
+# the linear's max abs error against float64, at most this many times fp32
+# F.linear's: the kernel read 0.24-1.72 times it at LINEAR_SHAPES; its sums
+# unpromoted, 16 times at K = 8192; a single TF32 pass, far more (PERF.md)
+LINEAR_ERR_RATIO = 3
 # card vs CPU at a small LM: d_model 64, 2 layers, vocab 256, 2 x 64 tokens
 LM_PARITY_WIDTH, LM_PARITY_LAYERS, LM_PARITY_VOCAB = 64, 2, 256
 LM_PARITY_BATCH, LM_PARITY_LEN = 2, 64
@@ -605,11 +625,13 @@ def make_case(kernel, shape, dev, gen, dtype=torch.float32):
             lambda t, dy: lambda: mlp.mlp_bwd(t[0], t[1].t(), t[2], t[3].t(), t[4], dy))
 
 
-def device_ms(fn, reps: int = 3):
+def device_ms(fn, reps: int = 3, launches: int | None = None):
     """Device time per call of `fn` (warm), from torch.profiler: the sum of its
     kernels' durations, without the host's launch pace that paces CUDA events
-    over short kernels. A capture sometimes records no device event: it is
-    taken again, and None is returned only after DEVICE_MS_TRIES empty ones."""
+    over short kernels. A capture sometimes records no device event, or
+    drops some: it is taken again where it holds none, or, with `launches`
+    (the device events a call of `fn` makes), fewer than reps x launches;
+    None is returned only after DEVICE_MS_TRIES such captures."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -621,7 +643,7 @@ def device_ms(fn, reps: int = 3):
             torch.cuda.synchronize()
         spans = [e.time_range.end - e.time_range.start for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        if spans:
+        if spans and (launches is None or len(spans) >= reps * launches):
             return sum(spans) / 1e3 / reps
     return None
 
@@ -1767,6 +1789,58 @@ def phase_lm_scan_paths(dev):
         torch.cuda.empty_cache()
 
 
+def phase_linear(dev, smi):
+    """`ops.linear`'s kernel (3xTF32 `wgmma`, `csrc/linear_tf32x3.cu`) at each
+    product of the LM cells (LINEAR_SHAPES), x ~ N(0, 1), W ~ N(0, 0.02^2):
+    its time (CUDA events, warm L2) and device time, its TFLOP/s, the
+    shape's bound (its bytes at HBM_BYTES_PER_S or its operations at the
+    3xTF32 rate, TF32_OPS_PER_S / 3, whichever takes longer) and the device
+    time's share of it, beside fp32 `F.linear` (`library_ms`, the
+    yardstick; the port never calls it there). Each is checked against a
+    float64 product: a shape fails where the kernel's max abs error exceeds
+    LINEAR_ERR_RATIO times fp32 `F.linear`'s, or two launches differ; and
+    the control, cuBLAS's single TF32 pass (`tf32_max_abs_err`), has to fail
+    that limit at every shape."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rate = TF32_OPS_PER_S / 3
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    for name, (M, K, N) in LINEAR_SHAPES.items():
+        x = torch.randn(M, K, device=dev, generator=gen)
+        w = 0.02 * torch.randn(N, K, device=dev, generator=gen)
+        with torch.inference_mode():
+            got = linear_op.linear_cuda(x, w)
+            same = torch.equal(got, linear_op.linear_cuda(x, w))
+            want = (x.double() @ w.double().t())
+            err = float((got.double() - want).abs().max())
+            del got
+            lib_err = float((F.linear(x, w).double() - want).abs().max())
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32_err = float((F.linear(x, w).double() - want).abs().max())
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+            del want
+            ms = cuda_ms(lambda: linear_op.linear_cuda(x, w), 5)
+            dev_ms = device_ms(lambda: linear_op.linear_cuda(x, w), launches=1)
+            lib_ms = cuda_ms(lambda: F.linear(x, w), 5)
+        flops, nbytes = 2 * M * N * K, 4 * (M * K + N * K + M * N)
+        bound_ms = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / rate)
+        limit = LINEAR_ERR_RATIO * lib_err
+        emit({"phase": "linear", "product": name, "M": M, "K": K, "N": N, "event_ms": ms,
+              "device_ms": dev_ms, "tflop_s": flops / dev_ms / 1e9 if dev_ms else None,
+              "bound_ms": bound_ms, "share_of_bound": bound_ms / dev_ms if dev_ms else None,
+              "library_ms": lib_ms, "library_tflop_s": flops / lib_ms / 1e9,
+              "max_abs_err": err, "library_max_abs_err": lib_err, "err_limit": limit,
+              "tf32_max_abs_err": tf32_err, "bit_identical_twice": same, "card": smi})
+        del x, w
+        torch.cuda.empty_cache()
+        if not same or not err <= limit:
+            fail(f"linear {name}: max abs err {err} (limit {limit}), bit-identical {same}")
+        if tf32_err <= limit:
+            fail(f"linear {name}: the TF32 control's max abs err {tf32_err} passes the limit "
+                 f"{limit}")
+
+
 def phase_batch1_vs_batch2(dev, rounds: int = 2):
     """Device ms a forward of each forward kernel at batch 1 (the forward of
     visualize_segmentation) and at batch 2, from one generator's inputs, the
@@ -1808,9 +1882,11 @@ def phase_lm_score(model, dev, smi):
     """Scoring: B = 4 random sequences of L = 2048 tokens through the full
     forward in `inference_mode`, 1 + LM_SCORE_REPS forwards with the launch
     counters zeroed just before: exactly LM_LAYERS scan launches a forward
-    and no other kernel's, finite logits; tokens/s over the warm forwards
-    (CUDA events); then one traced forward: device time by kernel group and
-    the scan's share. Returns the launch counts."""
+    and no other of the ten kernels', 4 LM_LAYERS + 1 of the linear's (four
+    projections a layer, the head) and no product on the library, finite
+    logits; tokens/s over the warm forwards (CUDA events); then one traced
+    forward: device time by kernel group and the scan's share. Returns the
+    launch counts."""
     gen = torch.Generator(device=dev).manual_seed(9)
     tokens = torch.randint(0, LM_VOCAB, (LM_SCORE_BATCH, LM_SCORE_LEN), device=dev,
                            generator=gen)
@@ -1826,12 +1902,16 @@ def phase_lm_score(model, dev, smi):
         del logits
         ms = cuda_ms(lambda: model(tokens), LM_SCORE_REPS, warmup=0)
         launches = read_launches()
+        linear_launches = {k: tracing.counts[k] for k in ("fm_linear", linear_op.LIBRARY)}
         got = _trace(lambda: model(tokens), 1)
     expected = {k: forwards * LM_LAYERS if k == "scan" else 0 for k in KERNELS}
+    expected_linear = {"fm_linear": forwards * (4 * LM_LAYERS + 1), linear_op.LIBRARY: 0}
     line = {"phase": "lm_score", "batch": LM_SCORE_BATCH, "seq_len": LM_SCORE_LEN,
             "layers": LM_LAYERS, "d_model": LM_WIDTH, "vocab": LM_VOCAB, "forwards": forwards,
-            "launches": launches, "expected_launches": expected, "logits_shape": shape,
-            "logits_finite": finite, "first_forward_s": first_s, "forward_ms": ms,
+            "launches": launches, "expected_launches": expected,
+            "linear_launches": linear_launches, "expected_linear_launches": expected_linear,
+            "logits_shape": shape, "logits_finite": finite, "first_forward_s": first_s,
+            "forward_ms": ms,
             "tokens_per_s": LM_SCORE_BATCH * LM_SCORE_LEN / (ms / 1e3), "card": smi}
     if got is not None:
         window, busy, by_kernel, _ = got
@@ -1848,8 +1928,9 @@ def phase_lm_score(model, dev, smi):
     emit(line)
     if shape != [LM_SCORE_BATCH, LM_SCORE_LEN, LM_VOCAB] or not finite:
         fail(f"LM scoring: logits of shape {shape}, finite {finite}")
-    if launches != expected:
-        fail(f"LM scoring: launch counts {launches} differ from {expected}")
+    if launches != expected or linear_launches != expected_linear:
+        fail(f"LM scoring: launch counts {launches}, {linear_launches} differ from {expected}, "
+             f"{expected_linear}")
     return launches
 
 
@@ -2271,6 +2352,7 @@ _TRACE_NAMES = {"scan": ("selective_scan_fwd_kernel",),
                 # launches, the backward's hidden kernel and product launch
                 "mlp": ("mlp_fwd_", "bf::fused_kernel", "product_kernel<0>"),
                 "mlp_bwd": ("mlp_bwd_", "bf::hidden_kernel", "product_kernel<1>"),
+                "linear": ("linear_tf32x3_kernel",),
                 "library_conv": ("conv", "fprop", "dgrad", "wgrad", "cudnn"),
                 "library_matmul": ("gemm", "cutlass", "cublas"),
                 "optimizer": ("adam", "multi_tensor")}
@@ -2466,6 +2548,7 @@ def main() -> None:
                      fullres_scan_shapes(full_config(), 2 * TRAIN_PAIRS, SIZE), dev)
     phase_fullres_ss2d(dev)
     phase_lm_scan_paths(dev)
+    phase_linear(dev, smi)
     phase_parallel_kernels(dev, checked)
     emit({"phase": "kernel", "per_forward_of_serving": {
         k: {m: v for m, v in _summary(r).items() if m not in ("bytes_ms", "ops_ms", "sfu_ms")

@@ -79,18 +79,19 @@ constexpr CUtensorMapDataType kMapType = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 template <>
 constexpr CUtensorMapDataType kMapType<float> = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
-// the map of a row-major (outer, inner) tensor of T (bf16 or fp32), read in
-// boxes of box_inner x box_outer (bf16: 64 x 64) in the 128-byte swizzle
-// (box_inner of 128 bytes), zeros outside it; false where
-// cuTensorMapEncodeTiled refuses it (inner must be a multiple of 16 bytes
-// and the base 16-byte aligned)
+// the map of a row-major (outer, inner) tensor of T (bf16 or fp32), its
+// rows `ld` elements apart (0: inner, contiguous), read in boxes of
+// box_inner x box_outer (bf16: 64 x 64) in the 128-byte swizzle (box_inner
+// of 128 bytes), zeros outside it; false where cuTensorMapEncodeTiled
+// refuses it (the row stride must be a multiple of 16 bytes and the base
+// 16-byte aligned)
 template <class T>
 inline bool make_map(CUtensorMap* map, const T* base, int inner, int outer, int box_inner = kBox,
-                     int box_outer = kBox) {
+                     int box_outer = kBox, int ld = 0) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(T)};
+  const cuuint64_t strides[1] = {(cuuint64_t)(ld ? ld : inner) * sizeof(T)};
   const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
   const cuuint32_t steps[2] = {1, 1};
   return encode(map, kMapType<T>, 2, const_cast<T*>(base), dims, strides, box, steps,

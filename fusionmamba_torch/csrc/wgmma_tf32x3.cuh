@@ -71,10 +71,12 @@ __device__ __forceinline__ uint8_t* aligned_shared(uint8_t* raw) {
                 (fm_wg::kAlign - 1));
 }
 
-// the map of a row-major (outer, inner) fp32 tensor read K-major (`mn`
-// false: boxes of 64 rows of 32 along `inner`) or MN-major (32 x 32 boxes)
-inline bool make_map(CUtensorMap* map, const float* base, int inner, int outer, bool mn) {
-  return fm_wg::make_map(map, base, inner, outer, kBK, mn ? kRowsMN : kRowsK);
+// the map of a row-major (outer, inner) fp32 tensor, its rows `ld` floats
+// apart (0: inner), read K-major (`mn` false: boxes of 64 rows of 32 along
+// `inner`) or MN-major (32 x 32 boxes)
+inline bool make_map(CUtensorMap* map, const float* base, int inner, int outer, bool mn,
+                     int ld = 0) {
+  return fm_wg::make_map(map, base, inner, outer, kBK, mn ? kRowsMN : kRowsK, ld);
 }
 
 // the piece of rows (or columns) r0.. and depth k0.. of an operand whose
@@ -173,10 +175,21 @@ __device__ __forceinline__ void split_piece(const float* raw, float* big, float*
 // last slice's products may still be in flight, reading plane set
 // (set0 + nk - 1) % 2: the next call then starts at the other set (its
 // set0 = (set0 + nk) % 2), and the caller waits for them before it reads acc.
-template <int kAMN, int kBMN, bool kDrain = true>
+//
+// With kPromote > 0 (and kDrain), the sums go to `sum` (zeroed by the
+// caller, kTile / 2 floats in registers) and acc holds only the products
+// of the last kPromote slices: every kPromote slices, once they are done,
+// acc is added to sum on the CUDA cores and zeroed. The tensor cores add
+// each depth step of 8 to their accumulator and round the sum toward zero
+// (PERF.md), so over a deep K the accumulator drifts toward zero by about
+// half an ulp of itself a step: at K = 8192, 3 x 1024 steps, ~1e-4 of it.
+// The fp32 adds round to nearest, and a partial of kPromote slices is
+// small beside the whole sum, so its drift is too.
+template <int kAMN, int kBMN, bool kDrain = true, int kPromote = 0>
 __device__ __forceinline__ void consume(float (&acc)[kTile / 2], const Ring& r, Pos& pos,
                                         uint8_t* planes, int nk, const SplitAt& at,
-                                        int set0 = 0) {
+                                        int set0 = 0, float* sum = nullptr) {
+  static_assert(kPromote == 0 || kDrain, "a promoted sum is read once every product is done");
   const int t = threadIdx.x, wg = t / 128;
   for (int kt = 0; kt < nk; ++kt) {
     float* set = reinterpret_cast<float*>(planes + ((set0 + kt) & 1) * kPlaneSetBytes);
@@ -195,6 +208,15 @@ __device__ __forceinline__ void consume(float (&acc)[kTile / 2], const Ring& r, 
     fm_wg::consumers_sync();  // the planes are whole; the raw stage is read
     if (t % 128 == 0) mbar_arrive(r.empty + pos.stage);
     pos.next(r.stages);
+    if (kPromote && kt > 0 && kt % kPromote == 0) {
+      fm::wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) {
+        sum[i] += acc[i];
+        acc[i] = 0.f;
+      }
+    }
     const uint64_t ab = desc<0>(a_big + wg * 64 * kBK), al = desc<0>(a_small + wg * 64 * kBK);
     const uint64_t bb = desc<0>(b_big), bl = desc<0>(b_small);
     fence_regs(acc);
@@ -213,6 +235,10 @@ __device__ __forceinline__ void consume(float (&acc)[kTile / 2], const Ring& r, 
   if (kDrain) {
     fm::wgmma_wait<0>();
     fence_regs(acc);
+    if (kPromote) {
+#pragma unroll
+      for (int i = 0; i < kTile / 2; ++i) sum[i] += acc[i];
+    }
   }
 }
 

@@ -9,7 +9,9 @@ the embedding), so a released state dict loads with `load_state_dict` once its
 tied `lm_head.weight` is dropped (`checkpoints/hf_import.py`).
 
 The full-sequence forward runs the selective scan at K = 1 direction with a
-full-rank dt (the kernel on the card, its plain version on the CPU). The
+full-rank dt (the kernel on the card, its plain version on the CPU), and its
+four projections and the tied head through `ops.linear` (the 3xTF32 kernel
+on the card where it engages, `F.linear` otherwise). The
 cached single-token step, the `selective_state_update` equivalent, is plain
 torch, as it is plain jnp in the JAX package, and updates the caches in place.
 `generate` prefills through that step token by token, as the JAX package
@@ -25,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.linear import linear
 from ..ops.selective_scan import selective_scan, softplus
 from ..utils import tracing
 
@@ -79,16 +82,18 @@ class MambaBlock(nn.Module):
         if cache is not None:
             return self.step(x, cache), cache
         L = x.shape[1]
-        xpart, z = self.in_proj(x).chunk(2, dim=-1)
+        xpart, z = linear(x, self.in_proj.weight).chunk(2, dim=-1)
         # causal: pad d_conv - 1 on both sides, keep the first L outputs
         xc = F.silu(self.conv1d(xpart.transpose(1, 2))[..., :L].transpose(1, 2))
-        dt, Bm, Cm = self._dt_b_c(self.x_proj(xc))
-        dt = F.linear(dt, self.dt_proj.weight)
+        # x_proj reads the scan's row-major copy of xc, not xc's transposed layout
+        u = _scan_input(xc[:, None])
+        dt, Bm, Cm = self._dt_b_c(linear(u[:, 0], self.x_proj.weight))
+        dt = linear(dt, self.dt_proj.weight)
         A = -torch.exp(self.A_log.float())
-        u, dt, Bm, Cm = map(_scan_input, (xc[:, None], dt[:, None], Bm[:, None], Cm[:, None]))
+        dt, Bm, Cm = map(_scan_input, (dt[:, None], Bm[:, None], Cm[:, None]))
         y = selective_scan(u, dt, A[None], Bm, Cm, self.D[None].float(),
                            self.dt_proj.bias[None].float(), delta_softplus=True)[:, 0]
-        return self.out_proj(y.to(x.dtype) * F.silu(z)), None
+        return linear(y.to(x.dtype) * F.silu(z), self.out_proj.weight), None
 
     def step(self, x: torch.Tensor, cache: dict) -> torch.Tensor:
         """One token (`mamba_simple.py:208-253`): x (B, 1, d_model) -> (B, 1,
@@ -187,7 +192,7 @@ class MambaLMHeadModel(nn.Module):
                 for i, layer in enumerate(self.backbone.layers):
                     x, _ = layer(x, None if caches is None else caches[i])
             with tracing.span("lm.head"):
-                return F.linear(self.backbone.norm_f(x), self.backbone.embedding.weight), caches
+                return linear(self.backbone.norm_f(x), self.backbone.embedding.weight), caches
 
     def init_caches(self, batch: int, device=None) -> list[dict]:
         device = self.backbone.embedding.weight.device if device is None else device

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build" / "fusionmamba_torch"
 SOURCES = ("selective_scan_fwd.cu", "selective_scan_bwd.cu", "dwconv3x3_fwd.cu",
            "dwconv3x3_bwd.cu", "fused_mlp_fwd.cu", "fused_mlp_bwd.cu", "layer_norm_bwd.cu",
-           "ln_mean_fwd.cu")
+           "ln_mean_fwd.cu", "linear_tf32x3.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libfusionmamba_kernels.so"
@@ -76,6 +76,8 @@ SIGNATURES = {
 # (the LN's, LN-mean's and dwconv's parameters also where `params` is 1; the
 # fp32 entries take only 0), and the math inside stays fp32
 SIGNATURES.update({name + "_bf16": args for name, args in list(SIGNATURES.items())})
+# fp32 only: x, w, y, M, N, K, ldx, ldw, blocks, stream
+SIGNATURES["fm_linear"] = (_P,) * 3 + (_I,) * 6 + (_P,)
 IO_DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: ctypes.CDLL | None = None

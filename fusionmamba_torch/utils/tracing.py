@@ -20,9 +20,11 @@ from bf16 and forward from backward), the Triton LN forward's launches
 (`<entry>:quads`, `<entry>:one_launch`), and the copies the port makes itself
 (`copies:<site>`, and their bytes written, `copy_bytes:<site>`), counted
 only where a copy is made (site `jamba.moe`: the expert layer's gather of its
-rows and its scatter-add back), and the expert layer's rows
+rows and its scatter-add back; site `linear`: an operand that `ops.linear`'s
+kernel cannot read where it lies), the expert layer's rows
 (`moe_rows:routed`, top-k times the tokens; `moe_rows:held`, the rows its
-held experts computed).
+held experts computed), and the calls of `ops.linear` that took `F.linear`
+in place of its kernel (`linear:library`).
 
 `record()` profiles a block at the user scope: the spans, and where a card
 is in use the device's activity and the runtime calls that launched it, but

@@ -123,13 +123,51 @@ def test_model_sites_count_their_bytes():
 def test_lm_scan_inputs_count_their_bytes():
     """The block's scan takes u (the conv's transposed output: a copy), dt
     (a product, already contiguous: none), and B and C (slices of x_proj's
-    product: a copy each), all fp32 already: no cast."""
+    product: a copy each), all fp32 already: no cast. Its four projections
+    take `F.linear` on the CPU, each counted once."""
     B, L, d_model = 2, 7, 16
     blk = MambaBlock(d_model, d_state=4)
     with counted() as c:
         blk(torch.rand(B, L, d_model))
     want = B * L * (blk.d_inner + 2 * blk.d_state) * F32
-    assert c == {"copies:lm.scan_inputs": 3, "copy_bytes:lm.scan_inputs": want}
+    assert c == {"copies:lm.scan_inputs": 3, "copy_bytes:lm.scan_inputs": want,
+                 "linear:library": 4}
+
+
+def _lm_linear_counts(device, rows):
+    """What an LM forward of 2 layers at `rows` tokens (2 sequences) adds to
+    the counts of `ops.linear`: its kernel's launches, its library calls and
+    the operands it copied.
+    At d_model 64, x_proj's rows hold dt_rank 4 + 2 x 16 floats, so the dt
+    columns it hands dt_proj are rows 144 bytes apart, as the kernel reads
+    them."""
+    lm = MambaLMHeadModel(64, d_model=64, n_layer=2).eval().to(device)
+    with torch.inference_mode(), counted() as c:
+        lm(torch.randint(0, 64, (2, rows // 2), device=device))
+    return {k: v for k, v in c.items()
+            if k == "fm_linear" or k.startswith("linear:") or k.endswith(":linear")}
+
+
+@pytest.mark.parametrize("rows", [256, 126])
+def test_lm_linear_counts_on_the_cpu(rows):
+    """On the CPU every product of the LM (four a layer, the head) takes
+    F.linear, at any number of rows."""
+    assert _lm_linear_counts("cpu", rows) == {"linear:library": 4 * 2 + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,kernel", [(256, True), (126, False)])
+def test_lm_linear_counts_on_the_card(rows, kernel):
+    """On the card, at 128 rows or more, the kernel takes every product, 4 a
+    layer and the head, none the library and no operand copied; below 128
+    rows the library takes them all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the linear kernel runs only on the card)")
+    got = _lm_linear_counts("cuda", rows)
+    if kernel:
+        assert got == {"fm_linear": 4 * 2 + 1}
+    else:
+        assert got == {"linear:library": 4 * 2 + 1}
 
 
 def test_launch_counts_under_the_entry_point(monkeypatch):
